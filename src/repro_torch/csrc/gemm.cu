@@ -1,0 +1,152 @@
+// Vortex-tiled masked-tail GEMM for Hopper (sm_90a): C[M,N] = A[M,K] @ B[K,N].
+//
+// Replaces the Pallas TPU kernel `vortex_gemm` / `_gemm_kernel`
+// (src/repro/kernels/gemm.py).  What it computes is the same: f32
+// accumulation cast to the output type, rows at or past the runtime
+// `m_true` read as zero (the pad tail of a staged bucket buffer may hold
+// NaN), static K/N tails masked, out-of-bounds stores dropped, and the
+// selected layer-1 tile (block_m, block_n, block_k) honoured verbatim as
+// the launch geometry: grid = (cdiv(N, block_n), cdiv(M, block_m)), the
+// k reduction walked in block_k steps inside the block.
+//
+// What bounds it on this card: at the shapes the engine serves (M up to a
+// few thousand, N = K = 768) the product is compute-bound on the tensor
+// cores (989 TFLOP/s bf16).  This first kernel does its FMAs on the CUDA
+// cores in f32, so it is bounded by the 67 TFLOP/s FP32 rate and by
+// shared-memory traffic; wgmma/TMA are later work.  What the design does
+// about it: each block stages (sub_m x kc) and (kc x sub_n) operand slices
+// in shared memory, every thread keeps a 4x4 register micro-tile, so each
+// operand element loaded from device memory is reused 64 times.
+//
+// Shared-memory footprint (kc*sub_m + kc*sub_n)*4 bytes with
+// sub_m <= block_m, sub_n <= block_n, kc <= block_k, which never exceeds
+// the lattice's l1_tile_bytes for the tile (GemmWorkload.l1_tile_bytes),
+// so every tile the H100 lattice admits launches.  Masked lanes are never
+// read: every load is predicated and yields 0.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // fixed block size (16 x 16 threads)
+constexpr int kSub = 64;        // register-tiled sub-tile edge (16 threads x 4)
+constexpr int kChunk = 16;      // k depth staged per shared-memory round
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gemm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+            int M, int N, int K, int m_true, int block_m, int block_n, int block_k) {
+  extern __shared__ float smem[];
+  const int sub_m = min(block_m, kSub);
+  const int sub_n = min(block_n, kSub);
+  const int kc = min(block_k, kChunk);
+  float* As = smem;                 // [kc][sub_m]
+  float* Bs = smem + kc * sub_m;    // [kc][sub_n]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row_lim = min(M, m_true);  // rows at/past this read as zero
+  const int tile_m0 = blockIdx.y * block_m;
+  const int tile_n0 = blockIdx.x * block_n;
+
+  for (int sm0 = 0; sm0 < block_m; sm0 += sub_m) {
+    for (int sn0 = 0; sn0 < block_n; sn0 += sub_n) {
+      const int r0 = tile_m0 + sm0, c0 = tile_n0 + sn0;
+      if (r0 >= M || c0 >= N) continue;  // block-uniform: whole sub-tile out of bounds
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+      // Temporal reduction over k: block_k steps, each staged in kc slices.
+      for (int k0 = 0; k0 < K; k0 += block_k) {
+        for (int kk0 = k0; kk0 < k0 + block_k && kk0 < K; kk0 += kc) {
+          for (int e = tid; e < kc * sub_m; e += kThreads) {
+            const int kk = e / sub_m, r = e % sub_m;
+            const int gr = r0 + r, gk = kk0 + kk;
+            float v = 0.f;
+            if (gr < row_lim && gk < K && gk < k0 + block_k) v = to_f32(a[(int64_t)gr * K + gk]);
+            As[kk * sub_m + r] = v;
+          }
+          for (int e = tid; e < kc * sub_n; e += kThreads) {
+            const int kk = e / sub_n, c = e % sub_n;
+            const int gc = c0 + c, gk = kk0 + kk;
+            float v = 0.f;
+            if (gc < N && gk < K && gk < k0 + block_k) v = to_f32(b[(int64_t)gk * N + gc]);
+            Bs[kk * sub_n + c] = v;
+          }
+          __syncthreads();
+          for (int kk = 0; kk < kc; ++kk) {
+            float av[4], bv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = ty + 16 * i;
+              av[i] = r < sub_m ? As[kk * sub_m + r] : 0.f;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = tx + 16 * j;
+              bv[j] = c < sub_n ? Bs[kk * sub_n + c] : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+          __syncthreads();
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const int gr = r0 + r;
+        if (r >= sub_m || gr >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const int gc = c0 + c;
+          if (c < sub_n && gc < N) out[(int64_t)gr * N + gc] = from_f32<T>(acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* a, const void* b, void* out, int M, int N, int K, int m_true,
+           int block_m, int block_n, int block_k, cudaStream_t stream) {
+  const int sub_m = block_m < kSub ? block_m : kSub;
+  const int sub_n = block_n < kSub ? block_n : kSub;
+  const int kc = block_k < kChunk ? block_k : kChunk;
+  const size_t smem = (size_t)kc * (sub_m + sub_n) * sizeof(float);
+  dim3 grid((N + block_n - 1) / block_n, (M + block_m - 1) / block_m);
+  gemm_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
+      M, N, K, m_true, block_m, block_n, block_k);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (A, B and C share it).
+extern "C" int vortex_gemm_launch(const void* a, const void* b, void* out, int M, int N,
+                                  int K, int m_true, int block_m, int block_n,
+                                  int block_k, int dtype, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(a, b, out, M, N, K, m_true, block_m, block_n, block_k, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(a, b, out, M, N, K, m_true, block_m, block_n, block_k, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,185 @@
+"""Plain PyTorch versions of the kernels (counterpart of repro/kernels/ref.py).
+
+These are the semantic ground truth of the port: the CPU tests hold them
+against the Pallas kernels run with ``interpret=True``, the kernel
+wrappers use them for tensors that lie on the CPU, and ``chip_smoke.py``
+holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ref_gemm", "ref_attention", "chunked_attention"]
+
+_NEG = -1e30
+
+
+def ref_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """A @ B accumulated in float32, cast to ``out_dtype`` (default A's)."""
+    out = torch.matmul(a.float(), b.float())
+    return out.to(out_dtype or a.dtype)
+
+
+def _as_i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+def _mask(
+    sq: int, skv: int, causal: bool, window: int | None, offset=0,
+    kv_len=None, device=None,
+) -> torch.Tensor:
+    """(sq, skv) boolean mask.  ``offset`` is the absolute position of query
+    row 0; ``kv_len`` the runtime number of valid keys (rows past it are
+    bucket pad)."""
+    q_pos = offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if kv_len is not None:
+        m = m & (k_pos < kv_len)
+    if causal:
+        m = m & (k_pos <= q_pos)
+    if window is not None:
+        m = m & (q_pos - k_pos < window)
+    return m
+
+
+def ref_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    offset=0,
+    kv_len=None,
+) -> torch.Tensor:
+    """Exact attention with the full score matrix (q (b, hq, sq, d), k/v
+    (b, hkv, skv, d)).  ``kv_len`` and ``offset`` are scalars shared by the
+    batch or (b,) vectors, one per batch row.  Value rows past ``kv_len``
+    are zeroed (0 * NaN would poison real rows) and masked scores are
+    -1e30, so a kv_len of 0 gives an exactly-zero row."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    dev = q.device
+    kx = k.repeat_interleave(group, dim=1) if group > 1 else k
+    vx = v.repeat_interleave(group, dim=1) if group > 1 else v
+    off = _as_i32(offset, dev)
+    kv = None if kv_len is None else _as_i32(kv_len, dev)
+    per_row = off.ndim == 1 or (kv is not None and kv.ndim == 1)
+    k_idx = torch.arange(skv, device=dev)
+    if kv is not None:
+        valid = k_idx[None, :] < kv.reshape(-1, 1)  # (rows, skv)
+        vx = torch.where(valid[:, None, :, None], vx, 0.0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) * (d ** -0.5)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    if per_row:
+        q_pos = off.reshape(-1, 1, 1) + torch.arange(sq, device=dev)[None, :, None]
+        k_pos = k_idx[None, None, :]
+        m = torch.ones((1, sq, skv), dtype=torch.bool, device=dev)
+        if kv is not None:
+            m = m & (k_pos < kv.reshape(-1, 1, 1))
+        if causal:
+            m = m & (k_pos <= q_pos)
+        if window is not None:
+            m = m & (q_pos - k_pos < window)
+        s = torch.where(m[:, None], s, _NEG)
+    else:
+        m = _mask(sq, skv, causal, window, off, kv_len=kv, device=dev)
+        s = torch.where(m[None, None], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
+    return out.to(q.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    chunk: int = 1024,
+    offset=0,
+    kv_len=None,
+) -> torch.Tensor:
+    """Online-softmax attention over kv chunks of ``chunk`` rows, never
+    materializing the (sq, skv) scores; same masking contract as
+    :func:`ref_attention`.  A Python loop stands in for the reference's
+    ``lax.scan``."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    dv = v.shape[-1]
+    group = hq // hkv
+    if skv <= chunk:
+        return ref_attention(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            offset=offset, kv_len=kv_len,
+        )
+    dev = q.device
+    skv_true = skv
+    pad = -skv % chunk
+    if pad:  # padded positions are masked out below
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        skv += pad
+    scale = d ** -0.5
+    off = _as_i32(offset, dev)
+    kv = None if kv_len is None else _as_i32(kv_len, dev)
+    per_row = off.ndim == 1 or (kv is not None and kv.ndim == 1)
+    q_pos = (
+        off.reshape(-1, 1) + torch.arange(sq, device=dev)[None]  # (b, sq)
+        if per_row else off + torch.arange(sq, device=dev)
+    )
+    limit = (
+        torch.full((), skv_true, dtype=torch.int32, device=dev) if kv is None
+        else torch.clamp(kv, max=skv_true)
+    )
+    qf = q.float()
+    m_i = torch.full((b, hq, sq), _NEG, dtype=torch.float32, device=dev)
+    l_i = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hq, sq, dv), dtype=torch.float32, device=dev)
+    for ci in range(skv // chunk):
+        kb = k[:, :, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
+        if group > 1:
+            kb = kb.repeat_interleave(group, dim=1)
+            vb = vb.repeat_interleave(group, dim=1)
+        kb, vb = kb.float(), vb.float()
+        k_pos = ci * chunk + torch.arange(chunk, device=dev)
+        if per_row:
+            lim = torch.broadcast_to(limit.reshape(-1), (b,))
+            valid = k_pos[None, :] < lim[:, None]  # (b, chunk)
+        else:
+            valid = k_pos < limit
+        if kv is not None:
+            vzero = valid[:, None, :, None] if per_row else valid[None, None, :, None]
+            vb = torch.where(vzero, vb, 0.0)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        if per_row:
+            msk = torch.broadcast_to(valid[:, None, :], (b, sq, chunk))
+            if causal:
+                msk = msk & (k_pos[None, None, :] <= q_pos[:, :, None])
+            if window is not None:
+                msk = msk & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+            s = torch.where(msk[:, None], s, _NEG)
+        else:
+            msk = torch.broadcast_to(valid[None, :], (sq, chunk))
+            if causal:
+                msk = msk & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                msk = msk & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(msk[None, None], s, _NEG)
+        m_new = torch.maximum(m_i, s.amax(dim=-1))
+        alpha = torch.exp(m_i - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_i = l_i * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m_i = m_new
+    out = acc / torch.clamp(l_i, min=1e-30)[..., None]
+    return out.to(q.dtype)

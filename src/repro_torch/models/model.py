@@ -1,0 +1,160 @@
+"""The dense attention decoder (counterpart of src/repro/models/model.py).
+
+A model is ``n_groups`` repetitions of a layer ``pattern``; parameters and
+caches are stacked per pattern position over groups, as in the reference,
+and the forward pass is a Python loop over groups (the reference's
+``lax.scan``; PyTorch runs eagerly).
+
+Entry points:
+  * :func:`make_cache`  — a zeroed decode cache,
+  * :func:`forward`     — logits for prefill/decode,
+  * :func:`prefill_step` / :func:`decode_step` — the serving steps (the
+    reference's train/step.py:137-165 folded in).  ``prefill_step`` takes
+    the logits of the row the caller names — the last REAL prompt token —
+    where the reference reads the last padded position.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import attn_forward, mlp_forward, norm
+
+__all__ = ["make_cache", "forward", "prefill_step", "decode_step"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def make_cache(
+    cfg: ModelConfig, batch: int, cache_len: int, device="cuda"
+) -> dict:
+    """Zeroed decode cache; leaves (G, b, kv_heads, cache_len, head_dim)."""
+    shape = (
+        cfg.n_groups, batch, cfg.n_kv_heads, cache_len, cfg.resolved_head_dim
+    )
+    dt = _DTYPES[cfg.dtype]
+    return {
+        f"pos{p}": {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+        }
+        for p in range(len(cfg.pattern))
+    }
+
+
+def _hidden(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    *,
+    mode: str,
+    cache: dict | None,
+    pos: int | None,
+    cache_len: int,
+) -> tuple[torch.Tensor, dict]:
+    """Embedding through the final norm: (hidden (b, s, d), cache)."""
+    if not cfg.use_rope or cfg.embed_scale:
+        raise NotImplementedError(
+            f"{cfg.name}: absolute positions / embedding scale not ported yet"
+        )
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    dev = x.device
+    positions = (
+        torch.tensor([pos], device=dev) if mode == "decode"
+        else torch.arange(s, device=dev)
+    )
+    n_pos = len(cfg.pattern)
+    new_layers: list[list[dict]] = [[] for _ in range(n_pos)]
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(cfg.pattern):
+            p = _slice(params[f"pos{i}"], g)
+            c = _slice(cache[f"pos{i}"], g) if mode == "decode" else None
+            h = norm(x, p["norm_mixer"], cfg)
+            y, nc = attn_forward(
+                p["attn"], h, cfg, spec, mode=mode, positions=positions,
+                cache=c, pos=pos, cache_len=cache_len,
+            )
+            new_layers[i].append(nc)
+            x = x + y
+            if spec.mlp == "dense":
+                x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
+    if mode == "decode":
+        new_cache = cache  # written in place, layer by layer
+    else:
+        new_cache = {
+            f"pos{i}": {
+                name: torch.stack([nc[name] for nc in new_layers[i]])
+                for name in ("k", "v")
+            }
+            for i in range(n_pos)
+        }
+    return norm(x, params["final_norm"], cfg), new_cache
+
+
+def _slice(tree: dict, g: int) -> dict:
+    """Group ``g`` of a stacked tree: views, so decode writes land in the
+    stacked cache."""
+    return {
+        k: _slice(v, g) if isinstance(v, dict) else v[g]
+        for k, v in tree.items()
+    }
+
+
+def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head
+    if cfg.logit_softcap is not None:
+        c = cfg.logit_softcap
+        logits = (torch.tanh(logits.float() / c) * c).to(logits.dtype)
+    if cfg.vocab_padded != cfg.vocab:
+        # Mask the padding columns so argmax never sees them.
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def forward(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    *,
+    mode: str = "prefill",
+    cache: dict | None = None,
+    pos: int | None = None,
+    cache_len: int = 0,
+) -> tuple[torch.Tensor, dict]:
+    """Run the model: ``tokens`` (b, s) int — s == 1 in decode mode with
+    ``pos`` the scalar position of the new token.  Returns
+    ``(logits (b, s, vocab_padded), cache)``; in prefill the cache leaves
+    are ``cache_len`` long, in decode ``cache`` is updated in place."""
+    x, new_cache = _hidden(
+        cfg, params, tokens, mode=mode, cache=cache, pos=pos,
+        cache_len=cache_len,
+    )
+    return _head(cfg, params, x), new_cache
+
+
+def prefill_step(
+    cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+    cache_len: int, last: int,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill a bucket-padded batch: ``(logits at row last (b, vocab),
+    cache)``.  ``last`` is the index of the last real prompt token
+    (s - 1), so the bucket's pad positions never pick the first token."""
+    x, cache = _hidden(
+        cfg, params, tokens, mode="prefill", cache=None, pos=None,
+        cache_len=cache_len,
+    )
+    return _head(cfg, params, x[:, last]), cache
+
+
+def decode_step(
+    cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+    pos: int,
+) -> tuple[torch.Tensor, dict]:
+    """One decode token: ``(logits (b, vocab), cache)``."""
+    x, cache = _hidden(
+        cfg, params, tokens, mode="decode", cache=cache, pos=pos,
+        cache_len=0,
+    )
+    return _head(cfg, params, x[:, 0]), cache

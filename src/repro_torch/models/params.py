@@ -1,0 +1,192 @@
+"""Parameter schema, seeded init, and the bridge from the JAX package.
+
+The schema mirrors src/repro/models/params.py for the dense attention
+decoder: a nested dict of :class:`ParamDef` whose per-layer leaves are
+stacked over ``n_groups`` (the reference's scan layout), so a parameter
+tree of one package maps onto the other's leaf for leaf.
+
+* :func:`init_params` draws the weights from an explicit
+  :class:`torch.Generator` (normal, std = fan_in^-1/2, as the reference).
+  The draws differ from ``jax.random``'s; cross-package tests carry the
+  reference's own weights over with :func:`params_from_numpy` instead.
+* :func:`params_from_numpy` takes the reference ``init_params`` tree as
+  numpy arrays (stacked ``(n_groups, ...)`` leaves included), checks every
+  shape against the schema and moves it to ``device``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import LayerSpec, ModelConfig
+
+__all__ = [
+    "ParamDef",
+    "model_schema",
+    "init_params",
+    "params_from_numpy",
+    "count_params",
+]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative definition of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | ones
+    dtype: str = "bfloat16"
+    scale_axis: int = 0  # fan-in axis for the normal init scale
+
+
+Schema = dict[str, Any]  # nested dict of ParamDef
+
+
+def _attn_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
+    if spec.cross_attn:
+        raise NotImplementedError("cross-attention is not ported yet")
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qdim, kvdim = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    dt = cfg.dtype
+    return {
+        "wq": ParamDef((d, qdim), dtype=dt),
+        "wk": ParamDef((d, kvdim), dtype=dt),
+        "wv": ParamDef((d, kvdim), dtype=dt),
+        "wo": ParamDef((qdim, d), dtype=dt),
+    }
+
+
+def _mlp_schema(cfg: ModelConfig) -> Schema:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = cfg.dtype
+    s: Schema = {
+        "w_in": ParamDef((d, f), dtype=dt),
+        "w_out": ParamDef((f, d), dtype=dt),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        s["w_gate"] = ParamDef((d, f), dtype=dt)
+    return s
+
+
+def _layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
+    if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
+        raise NotImplementedError(
+            f"layer {spec} is not ported yet: this package runs attention "
+            "mixers with dense MLPs"
+        )
+    dt = cfg.dtype
+    s: Schema = {
+        "norm_mixer": ParamDef((cfg.d_model,), init="ones", dtype=dt),
+        "attn": _attn_schema(cfg, spec),
+    }
+    if spec.mlp == "dense":
+        s["norm_mlp"] = ParamDef((cfg.d_model,), init="ones", dtype=dt)
+        s["mlp"] = _mlp_schema(cfg)
+    return s
+
+
+def _stack(schema: Schema, n: int) -> Schema:
+    """Prepend a stacked 'layers' axis of size n to every ParamDef."""
+    out: Schema = {}
+    for k, v in schema.items():
+        if isinstance(v, ParamDef):
+            out[k] = ParamDef(
+                shape=(n,) + v.shape, init=v.init, dtype=v.dtype,
+                scale_axis=v.scale_axis + 1,
+            )
+        else:
+            out[k] = _stack(v, n)
+    return out
+
+
+def model_schema(cfg: ModelConfig) -> Schema:
+    """Full parameter schema for one architecture."""
+    if cfg.encoder_decoder or cfg.vision_prefix:
+        raise NotImplementedError(f"{cfg.name}: not ported yet")
+    dt = cfg.dtype
+    s: Schema = {
+        "embed": ParamDef((cfg.vocab_padded, cfg.d_model), dtype=dt),
+        "final_norm": ParamDef((cfg.d_model,), init="ones", dtype=dt),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded), dtype=dt)
+    for p, spec in enumerate(cfg.pattern):
+        s[f"pos{p}"] = _stack(_layer_schema(cfg, spec), cfg.n_groups)
+    return s
+
+
+def _leaves(schema: Schema, prefix: str = "") -> list[tuple[str, ParamDef]]:
+    out = []
+    for k, v in sorted(schema.items()):
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, ParamDef):
+            out.append((path, v))
+        else:
+            out.extend(_leaves(v, path))
+    return out
+
+
+def _map_schema(
+    schema: Schema, fn: Callable[[str, ParamDef], Any], prefix: str = ""
+) -> Any:
+    out = {}
+    for k, v in schema.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out[k] = fn(path, v) if isinstance(v, ParamDef) else _map_schema(
+            v, fn, path
+        )
+    return out
+
+
+def init_params(
+    cfg: ModelConfig, generator: torch.Generator, device="cuda"
+) -> dict:
+    """Seeded weights: every normal leaf is drawn in f32 on the CPU from
+    ``generator`` (in sorted path order, so the draw is independent of
+    dict order and device), scaled by fan_in^-1/2, cast, then moved."""
+    schema = model_schema(cfg)
+    drawn: dict[str, torch.Tensor] = {}
+    for path, d in _leaves(schema):
+        dtype = _DTYPES[d.dtype]
+        if d.init == "ones":
+            t = torch.ones(d.shape, dtype=dtype)
+        else:
+            fan_in = d.shape[d.scale_axis]
+            std = 1.0 / math.sqrt(max(fan_in, 1))
+            t = (torch.randn(d.shape, generator=generator) * std).to(dtype)
+        drawn[path] = t
+    return _map_schema(schema, lambda p, d: drawn[p].to(device))
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    """The JAX package's parameter tree (``init_params`` leaves turned into
+    numpy arrays) as a torch tree on ``device``, leaf for leaf.  bfloat16
+    leaves (numpy's ``ml_dtypes`` bfloat16) cross through float32, which
+    holds every bfloat16 value exactly."""
+
+    def convert(path: str, d: ParamDef) -> torch.Tensor:
+        node = tree
+        for key in path.split("/"):
+            node = node[key]
+        arr = np.asarray(node)
+        if tuple(arr.shape) != d.shape:
+            raise ValueError(
+                f"{path}: shape {arr.shape} != schema {d.shape}"
+            )
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+        t = torch.from_numpy(np.array(arr))  # an owned, writable copy
+        return t.to(dtype=_DTYPES[d.dtype], device=device)
+
+    return _map_schema(model_schema(cfg), convert)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count from the schema."""
+    return sum(int(np.prod(d.shape)) for _, d in _leaves(model_schema(cfg)))

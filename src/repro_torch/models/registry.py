@@ -1,0 +1,31 @@
+"""--arch <id> registry: the architectures this package runs.
+
+Only the configs the port serves are listed; the JAX package's registry
+(src/repro/models/registry.py) holds the rest, which arrive with the
+slices that port their layers.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+
+_MODULES = {
+    "paper-gpt2-124m": "repro_torch.configs.paper_gpt2",
+}
+
+ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[arch]).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[arch]).SMOKE

@@ -1,0 +1,206 @@
+"""The kernels' plain PyTorch versions held against the Pallas kernels.
+
+The JAX side runs ``repro.kernels.gemm.vortex_gemm`` and
+``repro.kernels.attention.flash_attention`` with ``interpret=True``, as the
+JAX package's own tests do on the CPU; the port's wrappers, given CPU
+tensors, run their plain versions.  Inputs come from numpy with a seed.
+Tolerances, relative to the output scale: float32 1e-5 (two f32
+accumulation orders); bfloat16 GEMM 2^-7 (one bf16 ulp, the rounding of
+the final cast); bfloat16 attention 2^-5 (the Pallas kernel also rounds
+the probabilities to bf16 before the PV product, the plain version keeps
+them in f32).  The hand-written CUDA kernels are held
+against the same plain versions on the card (the ``cuda``-marked case
+here, and chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.attention import (
+    flash_attention,
+    flash_attention_plain,
+)
+from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
+
+
+def _oracle():
+    """The JAX side, imported per test so this file also collects where
+    jax is absent (the card's machine runs only the ``cuda`` case)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.attention import flash_attention as pallas_attention
+    from repro.kernels.gemm import vortex_gemm as pallas_gemm
+
+    return jnp, pallas_gemm, pallas_attention
+
+
+TOL = {np.float32: 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def _close(out: torch.Tensor, ref, tol: float, where: str) -> None:
+    o = out.float().numpy()
+    r = np.asarray(ref, np.float32)
+    assert o.shape == r.shape, where
+    assert np.isfinite(o).all(), f"{where}: non-finite output"
+    scale = max(float(np.abs(r).max()), 1.0)
+    err = float(np.abs(o - r).max())
+    assert err <= tol * scale, f"{where}: max|err| {err} > {tol} * {scale}"
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+GEMM_CASES = [
+    # (M, N, K, m_true, bm, bn, bk): NaN tails past m_true, N/K tails that
+    # do not divide the blocks.
+    (48, 40, 24, 37, 16, 16, 16),
+    (33, 50, 70, 20, 16, 32, 16),
+    (64, 128, 128, 64, 32, 128, 128),
+    (17, 8, 40, 1, 16, 8, 32),
+]
+
+
+@pytest.mark.parametrize("case", GEMM_CASES, ids=[str(c[:4]) for c in GEMM_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_plain_matches_pallas(case, dtype):
+    jnp, pallas_gemm, _ = _oracle()
+    M, N, K, m_true, bm, bn, bk = case
+    rng = np.random.default_rng(M * 131 + N)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    a[m_true:] = np.nan  # the pad tail of a staged bucket buffer
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = pallas_gemm(
+        jnp.asarray(a, jdt), jnp.asarray(b, jdt), m_true,
+        block_m=bm, block_n=bn, block_k=bk, interpret=True,
+    )
+    tdt = getattr(torch, dtype)
+    out = vortex_gemm(
+        torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt), m_true,
+        block_m=bm, block_n=bn, block_k=bk,
+    )
+    assert out.dtype == tdt
+    assert (out[m_true:] == 0).all()  # rows past m_true are exactly zero
+    _close(out, np.asarray(ref.astype(jnp.float32)),
+           TOL[np.float32 if dtype == "float32" else "bfloat16"], str(case))
+
+
+def test_gemm_rejects_degenerate_blocks():
+    a, b = torch.zeros(4, 4), torch.zeros(4, 4)
+    with pytest.raises(ValueError):
+        vortex_gemm(a, b, block_m=0, block_n=8, block_k=8)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv_len, q_offset)
+ATTN_CASES = {
+    "causal": (2, 4, 4, 40, 40, 16, 16, 16, True, None, None, 33, None),
+    "noncausal_gqa": (2, 4, 2, 24, 24, 16, 8, 16, False, None, None, 20, None),
+    "window": (1, 2, 2, 32, 32, 16, 16, 8, True, 5, None, 32, None),
+    "softcap": (1, 2, 1, 24, 24, 16, 8, 8, True, None, 4.0, 19, None),
+    "per_row_kv_zero": (3, 2, 2, 16, 24, 16, 16, 8, False, None, None,
+                        [24, 0, 9], None),
+    "decode_offset": (3, 4, 2, 1, 32, 16, 1, 16, False, None, None,
+                      [17, 32, 0], [16, 31, -1]),
+    "decode_scalar": (2, 4, 4, 1, 48, 64, 1, 16, False, None, None, 30, 29),
+}
+
+
+def _attn_inputs(case, seed):
+    b, hq, hkv, sq, skv, d = case[:6]
+    kv_len = case[11]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    lens = np.broadcast_to(np.asarray(kv_len), (b,))
+    for i, n in enumerate(lens):  # garbage past each row's extent
+        k[i, :, n:] = np.nan
+        v[i, :, n:] = np.nan
+    return q, k, v
+
+
+@pytest.mark.parametrize("name", list(ATTN_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_pallas(name, dtype):
+    jnp, _, pallas_attention = _oracle()
+    case = ATTN_CASES[name]
+    (b, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv_len,
+     q_off) = case
+    q, k, v = _attn_inputs(case, seed=len(name))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = pallas_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(kv_len, jnp.int32),
+        None if q_off is None else jnp.asarray(q_off, jnp.int32),
+        block_q=bq, block_k=bk, causal=causal, window=window,
+        softcap=softcap, interpret=True,
+    )
+    tdt = getattr(torch, dtype)
+    kv_t = kv_len if isinstance(kv_len, int) else torch.tensor(kv_len)
+    off_t = q_off if q_off is None or isinstance(q_off, int) \
+        else torch.tensor(q_off)
+    out = flash_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), kv_t, off_t, block_q=bq, block_k=bk,
+        causal=causal, window=window, softcap=softcap,
+    )
+    assert out.dtype == tdt
+    lens = np.broadcast_to(np.asarray(kv_len), (b,))
+    for i, n in enumerate(lens):
+        if n == 0:  # a kv_len == 0 row is exactly zero on both sides
+            assert (out[i] == 0).all()
+            assert (np.asarray(ref[i].astype(jnp.float32)) == 0).all()
+    tol = TOL[np.float32] if dtype == "float32" else 4 * TOL["bfloat16"]
+    _close(out, np.asarray(ref.astype(jnp.float32)), tol, name)
+
+
+def test_attention_rejects_mismatched_heads():
+    q = torch.zeros(1, 3, 4, 8)
+    kv = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv)
+
+
+# ---------------------------------------------------------------------------
+# On the card: the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        for M, N, K, m_true, bm, bn, bk in GEMM_CASES:
+            rng = np.random.default_rng(M)
+            a = torch.from_numpy(
+                rng.standard_normal((M, K)).astype(np.float32)).to(dev, dtype)
+            b = torch.from_numpy(
+                rng.standard_normal((K, N)).astype(np.float32)).to(dev, dtype)
+            a[m_true:] = float("nan")
+            out = vortex_gemm(a, b, m_true, block_m=bm, block_n=bn, block_k=bk)
+            ref = vortex_gemm_plain(a, b, m_true)
+            _close(out.cpu(), ref.float().cpu().numpy(), tol, "gemm")
+        for name, case in ATTN_CASES.items():
+            (b_, hq, hkv, sq, skv, d, bq, bk_, causal, window, softcap,
+             kv_len, q_off) = case
+            q, k, v = (torch.from_numpy(x).to(dev, dtype)
+                       for x in _attn_inputs(case, seed=len(name)))
+            kv_t = kv_len if isinstance(kv_len, int) else torch.tensor(kv_len)
+            off_t = q_off if q_off is None or isinstance(q_off, int) \
+                else torch.tensor(q_off)
+            out = flash_attention(
+                q, k, v, kv_t, off_t, block_q=bq, block_k=bk_, causal=causal,
+                window=window, softcap=softcap,
+            )
+            ref = flash_attention_plain(
+                q, k, v, kv_t, off_t, causal=causal, window=window,
+                softcap=softcap,
+            )
+            _close(out.cpu(), ref.float().cpu().numpy(), 4 * tol, name)
+    torch.cuda.synchronize()
