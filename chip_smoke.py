@@ -9,28 +9,41 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 2. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32: the GEMM with NaN-poisoned m_true tails and N/K
    tails that do not divide the block; attention causal and not, window,
-   softcap, GQA, per-row kv_len including 0, and decode with q_offset.
+   softcap, GQA, per-row kv_len including 0, and decode with q_offset;
+   the grouped GEMM with NaN past each group's count, counts of 0, partial
+   and C, r = G/E of 1 and more, K/N tails, and rows past each count
+   exactly 0.
 3. Main path 1: ``vortex.ops.gemm`` at dynamic M in {1, bucket-1, bucket,
    bucket+1, a prime} — exactly one kernel launch per call, 0 padded calls.
+3b. Main path 1b: ``vortex.ops.conv2d`` at ResNet-50 shapes (He et al.
+   2016, Table 1; bf16, batch 1, 3, 8): conv2_x 3x3 64->64 on 58x58 and
+   conv3_x 3x3 128->128 stride 2 on 57x57 — one GEMM launch per call,
+   0 padded calls, agreement with the plain version.
 4. Main path 2: ``VortexServer`` serving paper-gpt2-124m at full width
    (seeded torch init), 8 requests of batch 1-8 and prompt 4-64,
    max_new 8, max_cache 256 — one decode step per token, n_layers
    decode-attention launches per token, 0 padded calls, 0 stage copies at
    aligned kv buckets; one request's prefill and decode logits against
    the same server with impl="torch".
+4b. Main path 3: the same on granite-moe-1b-a400m at full width (24
+   layers, 32 experts top-8): also 3 grouped-GEMM launches per layer per
+   forward (72), 0 padded grouped calls, the mean dropped_frac, and the
+   share of (token, choice) expert assignments that differ between the
+   impl="cuda" and impl="torch" runs.
 5. Time each kernel at the main path's shapes beside its plain version,
    its bound and one PyTorch library call computing the same function
    (device time per call from torch.profiler).
 6. Print the kernels line, then the result line.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
-1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMM (one bf16 ulp of
-the final cast) and 2^-6 for attention (one ulp plus the f32 softmax
-order); server logits 5e-2 (bf16 activations through 12 layers, two
-attention lowerings).
+1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMMs, grouped and
+conv included (one bf16 ulp of the final cast), and 2^-6 for attention
+(one ulp plus the f32 softmax order); server logits 5e-2 (bf16
+activations through 12 or 24 layers, two attention lowerings).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -46,7 +59,12 @@ H100_PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, same
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 LOGIT_TOL = 5e-2
-ARCH = "paper-gpt2-124m"
+ARCHS = ("paper-gpt2-124m", "granite-moe-1b-a400m")
+# ResNet-50 (He et al. 2016, Table 1): the first 3x3 conv of conv2_x on its
+# 56x56 map and the strided 3x3 conv that opens conv3_x, as VALID convs on
+# the padded input: (name, h = w, cin, cout, stride).
+RESNET_CONVS = (("conv2_x", 58, 64, 64, 1), ("conv3_x", 57, 128, 128, 2))
+CONV_BATCHES = (1, 3, 8)
 
 
 def fail(msg: str) -> None:
@@ -121,6 +139,10 @@ def phase_kernels(dev, errs: dict) -> None:
         flash_attention_plain,
     )
     from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
+    from repro_torch.kernels.grouped_gemm import (
+        vortex_grouped_gemm,
+        vortex_grouped_gemm_plain,
+    )
 
     g = torch.Generator().manual_seed(0)
 
@@ -144,6 +166,19 @@ def phase_kernels(dev, errs: dict) -> None:
         "decode_offset": (3, 12, 12, 1, 256, 64, 1, 64, False, None, None,
                           [100, 0, 256], [99, -1, 255]),
     }
+    # (G, E, C, K, N, counts, block_m, block_n, block_k): r = G/E of 1, 4
+    # and 8; counts of 0, partial and C; K/N tails; the last at granite's
+    # expert widths (K = 1024, N = 512), 8 sequences of decode routing.
+    dec_counts = [0] * 256
+    route_g = torch.Generator().manual_seed(5)
+    for seq in range(8):
+        for e in torch.randperm(32, generator=route_g)[:8].tolist():
+            dec_counts[e * 8 + seq] = 1  # expert-major: group = e * r + seq
+    grouped_cases = [
+        (4, 4, 20, 70, 50, [0, 7, 20, 20], 16, 32, 16),
+        (8, 2, 33, 64, 96, [33, 0, 1, 32, 5, 33, 0, 17], 64, 64, 32),
+        (256, 32, 1, 1024, 512, dec_counts, 64, 128, 64),
+    ]
     for dtype in (torch.float32, torch.bfloat16):
         for M, N, K, mt, bm, bn, bk in gemm_cases:
             a, b = rnd(M, K, dtype=dtype), rnd(K, N, dtype=dtype)
@@ -184,6 +219,23 @@ def phase_kernels(dev, errs: dict) -> None:
             form = "decode" if sq == 1 else "prefill"
             key = f"flash_attention_{form}"
             errs[key] = max(errs[key], err)
+        for G, E, C, K, N, counts, bm, bn, bk in grouped_cases:
+            x, w = rnd(G, C, K, dtype=dtype), rnd(E, K, N, dtype=dtype)
+            for i, n in enumerate(counts):
+                x[i, n:] = float("nan")  # routing pad past each count
+            cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+            out = vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
+                                      block_k=bk)
+            err = check(
+                f"vortex_grouped_gemm {dtype} G={G} E={E} C={C} K={K} N={N} "
+                f"blocks=({bm},{bn},{bk})",
+                out, vortex_grouped_gemm_plain(x, w, cnt), TOL[dtype])
+            for i, n in enumerate(counts):
+                if not (out[i, n:] == 0).all():
+                    fail(f"vortex_grouped_gemm: group {i} rows past its "
+                         f"count {n} are not exactly zero")
+            errs["vortex_grouped_gemm"] = max(errs["vortex_grouped_gemm"],
+                                              err)
     torch.cuda.synchronize()
 
 
@@ -237,20 +289,120 @@ def phase_gemm(dev, kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: main path 2 — VortexServer on paper-gpt2-124m
+# Phase 3b: main path 1b — vortex.ops.conv2d at ResNet-50 shapes
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(dev, kernels) -> dict:
+def phase_conv(dev, kernels) -> dict:
+    from repro_torch import vortex
+    from repro_torch.kernels.conv import conv_weight_matrix, im2col
+    from repro_torch.kernels.gemm import vortex_gemm_plain
+
+    eng = vortex.Engine()  # the defaults: H100 lattice, CUDA kernels, card
+    g = torch.Generator().manual_seed(3)
+    weights = {
+        name: torch.randn(3, 3, cin, cout, generator=g).mul_(
+            (9 * cin) ** -0.5).to(dev, torch.bfloat16)
+        for name, _, cin, cout, _ in RESNET_CONVS
+    }
+    inputs = [
+        (name, stride, torch.randn(b, hw, hw, cin, generator=g)
+         .to(dev, torch.bfloat16))
+        for b in CONV_BATCHES for name, hw, cin, _, stride in RESNET_CONVS
+    ]
+    kernels.reset_launch_counts()
+    outs = []
+    with vortex.use(eng):
+        for name, stride, x in inputs:
+            n0 = kernels.launch_counts()["vortex_gemm"]
+            outs.append(vortex.ops.conv2d(x, weights[name], stride=stride))
+            if kernels.launch_counts()["vortex_gemm"] - n0 != 1:
+                fail("vortex.ops.conv2d did not make exactly one GEMM launch")
+    launches = kernels.launch_counts()["vortex_gemm"]
+    torch.cuda.synchronize()
+    st = eng.stats()["conv2d"]
+    print(f"main path conv2d: calls={len(inputs)} kernel_launches={launches} "
+          f"engine_launches={st['launches']} padded_calls={st['padded_calls']} "
+          f"stage_copies={st['stage_copies']}")
+    if launches != len(inputs) or st["padded_calls"] != 0:
+        fail("conv2d main path: expected one launch per call and 0 padded")
+    for (name, stride, x), out in zip(inputs, outs):
+        w = weights[name]
+        cols, (b, ho, wo) = im2col(x, 3, 3, stride)
+        if out.shape != (b, ho, wo, w.shape[3]):
+            fail(f"conv2d main path: output shape {tuple(out.shape)}")
+        ref = vortex_gemm_plain(cols, conv_weight_matrix(w))
+        check(f"vortex.ops.conv2d {name} b={b} M={b * ho * wo}",
+              out.reshape(ref.shape), ref, TOL[torch.bfloat16])
+    name, hw, cin, cout, stride = RESNET_CONVS[0]
+    b = max(CONV_BATCHES)
+    m = b * ((hw - 3) // stride + 1) ** 2
+    x8 = next(x for n, _, x in inputs if n == name and x.shape[0] == b)
+    sel = eng.op_kernel("conv2d", (x8, weights[name]),
+                        {"stride": stride}).select(m)
+    return {"launches": launches, "name": name, "b": b, "hw": hw,
+            "cin": cin, "cout": cout, "stride": stride, "M": m,
+            "blocks": sel.strategy.l1}
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 4b: main paths 2 and 3 — VortexServer on paper-gpt2-124m and
+# granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def grouped_launches_by_form(kernels, per_form: dict):
+    """Count the grouped-GEMM launches of every prefill and decode forward
+    the server makes (``per_form``) and check each forward's count."""
+    from repro_torch.launch import serve
+
+    real = {"prefill": serve.prefill_step, "decode": serve.decode_step}
+
+    def counted(form):
+        def step(*args, **kwargs):
+            n0 = kernels.launch_counts()["vortex_grouped_gemm"]
+            out = real[form](*args, **kwargs)
+            n = kernels.launch_counts()["vortex_grouped_gemm"] - n0
+            per_form[form] += n
+            per_form[f"{form}_forwards"] += 1
+            per_form["per_forward"].add(n)
+            return out
+        return step
+
+    serve.prefill_step, serve.decode_step = counted("prefill"), \
+        counted("decode")
+    try:
+        yield
+    finally:
+        serve.prefill_step, serve.decode_step = real["prefill"], \
+            real["decode"]
+
+
+def routing_flips(topi_a: list, topi_b: list, b: int, s: int) -> float:
+    """Share of (token, choice) assignments of the real rows whose expert
+    is not among the other run's choices for that token, over all layers."""
+    differ = total = 0
+    for ta, tb in zip(topi_a, topi_b):
+        ta, tb = ta[:b, :s], tb[:b, :s]
+        same = (ta[..., :, None] == tb[..., None, :]).any(-1)
+        differ += int((~same).sum())
+        total += same.numel()
+    return differ / max(total, 1)
+
+
+def phase_serve(dev, kernels, arch: str) -> dict:
     from repro_torch.launch.serve import Request, VortexServer
     from repro_torch.models.model import decode_step, prefill_step
     from repro_torch.models.registry import get_config
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    moe = cfg.moe is not None
     t0 = time.perf_counter()
     server = VortexServer(cfg, max_cache=256, seed=0)
     print(f"server: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
-          f"heads={cfg.n_heads}x{cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} moe={cfg.moe} "
           f"vocab={cfg.vocab} dtype={cfg.dtype} "
           f"hardware={server.engine.config.hardware} "
           f"impl={server.engine.config.impl} init_s={time.perf_counter() - t0:.2f}")
@@ -263,9 +415,12 @@ def phase_serve(dev, kernels) -> dict:
         reqs.append(Request(tokens=toks, max_new=8))
     server.warmup(max_batch=8, m_max=64, max_new=8)
 
+    per_form = {"prefill": 0, "decode": 0, "prefill_forwards": 0,
+                "decode_forwards": 0, "per_forward": set()}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    outs = [server.generate(r) for r in reqs]
+    with grouped_launches_by_form(kernels, per_form):
+        outs = [server.generate(r) for r in reqs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -274,7 +429,7 @@ def phase_serve(dev, kernels) -> dict:
     steps = sum(r.max_new - 1 for r in reqs)
     st = server.engine_dispatch_stats()
     ds = st["decode_step"]
-    print(f"main path serve: requests={len(reqs)} "
+    print(f"main path serve {cfg.name}: requests={len(reqs)} "
           f"shapes={[r.tokens.shape for r in reqs]} tokens={tokens} "
           f"decode_steps={ds['launches']} wall_s={wall:.3f} "
           f"kernel_launches={counts}")
@@ -296,6 +451,25 @@ def phase_serve(dev, kernels) -> dict:
         fail(f"serve: padded calls or stage copies on the decode path: {dec}")
     if st["kv_pool"]["leases_active"] != 0:
         fail("serve: kv pool leases leaked")
+    dropped = None
+    if moe:
+        per_layer = 3 * cfg.n_layers
+        gg = st["grouped_gemm"]
+        dropped = server.mean_dropped_frac()
+        print(f"grouped_gemm: launches prefill={per_form['prefill']} "
+              f"decode={per_form['decode']} per forward="
+              f"{sorted(per_form['per_forward'])} engine={gg} "
+              f"mean dropped_frac={dropped:.6f}")
+        if (per_form["prefill"] != per_layer * len(reqs)
+                or per_form["decode"] != per_layer * steps
+                or per_form["per_forward"] != {per_layer}
+                or counts["vortex_grouped_gemm"] != per_layer * (len(reqs) + steps)):
+            fail(f"serve: expected {per_layer} grouped-GEMM launches per "
+                 f"forward, got {per_form}")
+        if gg["padded_calls"] != 0:
+            fail(f"serve: {gg['padded_calls']} padded grouped-GEMM calls")
+    elif counts["vortex_grouped_gemm"]:
+        fail("serve: a dense model launched the grouped GEMM")
 
     # One request against the same server lowered with impl="torch".
     plain = VortexServer(cfg, max_cache=256, params=server.params, impl="torch")
@@ -308,28 +482,39 @@ def phase_serve(dev, kernels) -> dict:
     kvb = server.kv_bucket(max(sp, s + 1))  # room for the decode row at s
     worst = {}
     logits = {}
+    topi = {}
     for name, srv in (("cuda", server), ("torch", plain)):
         with srv.engine.use():
-            lp, cache = prefill_step(cfg, srv.params, toks, cache_len=kvb,
-                                     last=s - 1)
+            lp, cache, sp_stats = prefill_step(
+                cfg, srv.params, toks, cache_len=kvb, last=s - 1)
             nxt = lp.argmax(-1)[:, None] if name == "cuda" else logits["next"]
             logits.setdefault("next", nxt)
-            ld, _ = decode_step(cfg, srv.params, cache, nxt, s)
+            ld, _, sd_stats = decode_step(cfg, srv.params, cache, nxt, s)
         logits[name] = (lp[:b], ld[:b])
+        topi[name] = (sp_stats["topi"], sd_stats["topi"])
     for i, phase in enumerate(("prefill", "decode")):
         # The vocab pad columns hold -1e30 on both sides; compare the rest.
         err, rel = rel_err(logits["cuda"][i][:, :cfg.vocab],
                            logits["torch"][i][:, :cfg.vocab])
         worst[phase] = rel
-        print(f"serve {phase} logits vs impl=torch: max_abs_err={err:.4g} "
-              f"rel={rel:.4g} (tolerance {LOGIT_TOL})")
+        print(f"serve {cfg.name} {phase} logits vs impl=torch: "
+              f"max_abs_err={err:.4g} rel={rel:.4g} (tolerance {LOGIT_TOL})")
         if not rel <= LOGIT_TOL:
             fail(f"serve {phase} logits disagree with impl='torch': {rel}")
+    flips = None
+    if moe:
+        flips = [routing_flips(topi["cuda"][i], topi["torch"][i], b,
+                               s if i == 0 else 1) for i in (0, 1)]
+        print(f"routing: share of (token, choice) assignments whose expert "
+              f"differs between impl=cuda and impl=torch: prefill="
+              f"{flips[0]:.6g} decode={flips[1]:.6g} "
+              f"(b={b}, s={s}, {cfg.n_layers} layers)")
+    del plain
     torch.cuda.synchronize()
 
-    # The shapes the main path gave the attention kernels: the largest
-    # request's prefill, and its last decode step (kv_len = pos + 1 rows of
-    # the kv bucket the cache had grown to by then).
+    # The shapes the main path gave the kernels: the largest request's
+    # prefill, and its last decode step (kv_len = pos + 1 rows of the kv
+    # bucket the cache had grown to by then).
     big = max(reqs, key=lambda q: q.tokens.size)
     bp = server.batch_bucket(big.tokens.shape[0])
     sp = server.seq_bucket(big.tokens.shape[1])
@@ -340,7 +525,8 @@ def phase_serve(dev, kernels) -> dict:
     return {
         "counts": counts, "cfg": cfg, "server": server, "bp": bp, "sp": sp,
         "kvb": kvb, "kv_len": kv_len, "logit_rel": worst,
-        "tokens": tokens, "wall_s": wall,
+        "tokens": tokens, "wall_s": wall, "per_form": per_form,
+        "dropped_frac": dropped, "routing_flips": flips,
     }
 
 
@@ -467,6 +653,136 @@ def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
     return rows
 
 
+def routed_counts(g, bp: int, s: int, E: int, k: int, C: int) -> list[int]:
+    """Per-group row counts of one MoE layer's dispatch for ``bp``
+    sequences of ``s`` tokens, each token choosing ``k`` distinct experts
+    uniformly (as the seeded router does), capped at capacity ``C``;
+    expert-major, group = e * bp + sequence."""
+    counts = [0] * (E * bp)
+    for seq in range(bp):
+        for _ in range(s):
+            for e in torch.randperm(E, generator=g)[:k].tolist():
+                counts[e * bp + seq] += 1
+    return [min(c, C) for c in counts]
+
+
+def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
+    """Rows 3 (grouped GEMM, prefill and decode forms, at the shapes the
+    granite server gave the kernel) and 4 (conv2d at conv2_x, b = 8)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.workloads import GroupedGemmWorkload
+    from repro_torch.kernels.conv import (
+        conv_weight_matrix,
+        im2col,
+        vortex_conv2d,
+    )
+    from repro_torch.kernels.gemm import vortex_gemm_plain
+    from repro_torch.kernels.grouped_gemm import (
+        vortex_grouped_gemm,
+        vortex_grouped_gemm_plain,
+    )
+    from repro_torch.models.layers import moe_capacity
+
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(4)
+    rows = []
+    cfg, server = moe_info["cfg"], moe_info["server"]
+    E, k, fe, d = (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+                   cfg.d_model)
+    bp, sp = moe_info["bp"], moe_info["sp"]
+    G, r = E * bp, bp
+    # The first projection (w_in: K = d_model, N = d_ff_expert); w_gate is
+    # the same call and w_out its transpose in shape.
+    kern = server.engine.kernel_for(
+        GroupedGemmWorkload(C=None, G=G, E=E, N=fe, K=d))
+    w = (torch.randn(E, d, fe, generator=g) * E ** -0.5).to(dev, dt)
+    for form, s in (("prefill", sp), ("decode", 1)):
+        C = moe_capacity(cfg, s)
+        sel = kern.select(C)
+        cp = sel.padded_m
+        bm, bn, bk = sel.strategy.l1
+        counts = routed_counts(g, bp, s, E, k, C)
+        x = torch.randn(G, cp, d, generator=g).to(dev, dt)
+        for i, n in enumerate(counts):
+            x[i, n:] = float("nan")  # staged routing pad
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        rows_valid = torch.arange(cp, device=dev)[None, :] < cnt[:, None]
+        xm = torch.where(rows_valid[..., None], x, 0.0).reshape(E, r * cp, d)
+
+        def kernel_call():
+            return vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
+                                       block_k=bk)
+
+        err = check(f"vortex_grouped_gemm {form} at the main path's shape",
+                    kernel_call(), vortex_grouped_gemm_plain(x, w, cnt),
+                    TOL[dt])
+        errs["vortex_grouped_gemm"] = max(errs["vortex_grouped_gemm"], err)
+        valid = sum(counts)
+        used = sum(1 for e in range(E) if any(counts[e * r:(e + 1) * r]))
+        nbytes = 2 * (valid * d + used * d * fe + G * cp * fe) + 4 * G
+        bnd, by = bound_ms(nbytes, 2.0 * valid * d * fe, dt)
+        rows.append(timed(
+            {
+                "name": f"vortex_grouped_gemm ({form})", "route": "cuda",
+                "source": "src/repro_torch/csrc/grouped_gemm.cu",
+                "replaces": "src/repro/kernels/grouped_gemm.py:95",
+                "launches": moe_info["per_form"][form],
+                "max_abs_err": errs["vortex_grouped_gemm"],
+                "bound_ms": bnd, "bound_by": by,
+                "shape": f"x=({G},{cp},{d}) w=({E},{d},{fe}) C={C} "
+                         f"rows={valid} experts={used} "
+                         f"blocks=({bm},{bn},{bk}) bf16",
+            },
+            ms=kernel_call,
+            plain_ms=lambda: vortex_grouped_gemm_plain(x, w, cnt),
+            library_ms=lambda: torch.bmm(xm, w),
+        ))
+
+    name, b, hw = conv_info["name"], conv_info["b"], conv_info["hw"]
+    cin, cout, stride = conv_info["cin"], conv_info["cout"], conv_info["stride"]
+    bm, bn, bk = conv_info["blocks"]
+    M = conv_info["M"]
+    x = torch.randn(b, hw, hw, cin, generator=g).to(dev, dt)
+    w = (torch.randn(3, 3, cin, cout, generator=g) * (9 * cin) ** -0.5).to(
+        dev, dt)
+    x_lib = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+    w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def conv():
+        return vortex_conv2d(x, w, stride=stride, block_m=bm, block_n=bn,
+                             block_k=bk)
+
+    def conv_plain():
+        cols, (b_, ho, wo) = im2col(x, 3, 3, stride)
+        return vortex_gemm_plain(cols, conv_weight_matrix(w)).reshape(
+            b_, ho, wo, cout)
+
+    err = check(f"vortex_conv2d {name} b={b} at the main path's shape",
+                conv(), conv_plain(), TOL[dt])
+    nbytes = 2 * (b * hw * hw * cin + 9 * cin * cout + M * cout)
+    bnd, by = bound_ms(nbytes, 2.0 * M * cout * 9 * cin, dt)
+    rows.append(timed(
+        {
+            "name": "vortex_conv2d", "route": "cuda",
+            "source": "src/repro_torch/kernels/conv.py",
+            "replaces": "src/repro/kernels/conv.py:36",
+            "launches": conv_info["launches"],
+            "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by,
+            "shape": f"ResNet-50 {name} x=({b},{hw},{hw},{cin}) 3x3 "
+                     f"{cin}->{cout} stride {stride}: im2col + gemm.cu at "
+                     f"M={M} N={cout} K={9 * cin} blocks=({bm},{bn},{bk}) "
+                     "bf16",
+        },
+        ms=conv,
+        plain_ms=conv_plain,
+        library_ms=lambda: F.conv2d(x_lib, w_lib, stride=stride),
+    ))
+    torch.cuda.synchronize()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script runs on an NVIDIA GPU")
@@ -489,14 +805,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     errs = {"vortex_gemm": 0.0, "flash_attention_prefill": 0.0,
-            "flash_attention_decode": 0.0}
+            "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
     phase_kernels(dev, errs)
     print("phase 2: kernels agree with their plain versions")
     gemm_info = phase_gemm(dev, kernels)
     print("phase 3: vortex.ops.gemm main path ok")
-    serve_info = phase_serve(dev, kernels)
-    print("phase 4: VortexServer main path ok")
+    conv_info = phase_conv(dev, kernels)
+    print("phase 3b: vortex.ops.conv2d main path ok")
+    serve_info = phase_serve(dev, kernels, ARCHS[0])
+    print(f"phase 4: VortexServer main path on {ARCHS[0]} ok")
+    moe_info = phase_serve(dev, kernels, ARCHS[1])
+    print(f"phase 4b: VortexServer main path on {ARCHS[1]} ok")
     rows = phase_time(dev, gemm_info, serve_info, errs)
+    rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
     for r in rows:
         print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "

@@ -29,8 +29,10 @@ from repro_torch.core.selector import RuntimeSelector, Selection, SelectorStats
 from repro_torch.core.workloads import (
     WORKLOADS,
     AttentionWorkload,
+    Conv2dWorkload,
     DecodeAttentionWorkload,
     GemmWorkload,
+    GroupedGemmWorkload,
     SelectionDeviationError,
     Workload,
     make_workload,

@@ -29,6 +29,7 @@ from repro_torch.core.cost_model import l0_analytical_cost, strategy_cost
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.rkernel import Strategy
 from repro_torch.core.workloads import Workload
+from repro_torch.device import resolve_device
 
 __all__ = [
     "Profiler",
@@ -93,7 +94,8 @@ class TableProfiler(Profiler):
 
 
 class WallClockProfiler(Profiler):
-    """Real wall-clock measurement of tile contractions on one device.
+    """Real wall-clock measurement of tile contractions on one device: the
+    card by default (raises without a GPU; pass ``device="cpu"``).
 
     On a CUDA device each timing is the minimum over ``repeats`` launches
     bracketed by CUDA events (PyTorch returns before the card finishes, so
@@ -104,8 +106,9 @@ class WallClockProfiler(Profiler):
 
     name = "wallclock"
 
-    def __init__(self, device="cpu", repeats: int = 5):
-        self._device = torch.device(device)
+    def __init__(self, device="cuda", repeats: int = 5):
+        # The card unless asked: raises without a GPU unless device="cpu".
+        self._device = resolve_device(device)
         self._repeats = repeats
         self._cache: dict[str, float] = {}
 

@@ -328,25 +328,26 @@ class VortexKernel:
         wl = self._wl
         entry = self._entry_for(sel, args)
         st = self.dispatch_stats
-        scalars = wl.runtime_scalars(sel, *args)
-        shapes = wl.staged_shapes(sel, *args)
+        view = wl.stage_view(*args)
+        scalars = wl.runtime_scalars(sel, *view)
+        shapes = wl.staged_shapes(sel, *view)
         unaligned = [
             i for i, s in enumerate(shapes)
-            if s is not None and tuple(args[i].shape) != s
+            if s is not None and tuple(view[i].shape) != s
         ]
         if not unaligned:
             with self._stats_lock:
                 st.calls += 1
                 st.aligned_calls += 1
                 st.launches += 1
-            out = entry.run(*args, *scalars)
+            out = entry.run(*view, *scalars)
             return wl.finalize(sel, out, *args)
-        device = args[unaligned[0]].device
-        need = {i: (shapes[i], args[i].dtype) for i in unaligned}
+        device = view[unaligned[0]].device
+        need = {i: (shapes[i], view[i].dtype) for i in unaligned}
         bufs = entry.pool.acquire(need, device)
-        staged = list(args)
+        staged = list(view)
         for i in unaligned:
-            _stage_into(bufs[i], args[i])
+            _stage_into(bufs[i], view[i])
             staged[i] = bufs[i]
         with self._stats_lock:
             st.calls += 1
@@ -363,23 +364,24 @@ class VortexKernel:
             entry.pool.release(bufs, device)
         return wl.finalize(sel, out, *args)
 
-    def _call_padded(self, sel, entry, args) -> torch.Tensor:
+    def _call_padded(self, sel, entry, args, view) -> torch.Tensor:
         """The zero-pad reference path: the same executable and extent
-        scalars, with fresh zero-padded tensors instead of engine buffers."""
+        scalars, with fresh zero-padded tensors instead of engine buffers.
+        ``view`` is ``stage_view(*args)``; ``finalize`` gets the raw args."""
         wl = self._wl
         st = self.dispatch_stats
-        scalars = wl.runtime_scalars(sel, *args)
-        shapes = wl.staged_shapes(sel, *args)
+        scalars = wl.runtime_scalars(sel, *view)
+        shapes = wl.staged_shapes(sel, *view)
         aligned = all(
-            s is None or tuple(args[i].shape) == s
+            s is None or tuple(view[i].shape) == s
             for i, s in enumerate(shapes)
         )
         if aligned:
-            out = entry.fn(*args, *scalars)
+            out = entry.fn(*view, *scalars)
         else:
             with self._stats_lock:
                 st.padded_calls += 1
-            out = entry.fn(*wl.prepare(sel, *args), *scalars)
+            out = entry.fn(*wl.prepare(sel, *view), *scalars)
         return wl.finalize(sel, out, *args)
 
     def call_padded(self, *args) -> torch.Tensor:
@@ -391,7 +393,7 @@ class VortexKernel:
         entry = self._entry_for(sel, args)
         with self._stats_lock:
             self.dispatch_stats.calls += 1
-        return self._call_padded(sel, entry, args)
+        return self._call_padded(sel, entry, args, wl.stage_view(*args))
 
     @property
     def cache_info(self) -> dict:

@@ -18,7 +18,11 @@ The registered workloads of this slice:
   * :class:`AttentionWorkload`   — flash attention, dynamic sequence length
     (the l1 m-tile is the query block, the l1 k-tile the key/value block),
   * :class:`DecodeAttentionWorkload` — single-token decode against a
-    kv-bucketed cache (shares the attention lattice).
+    kv-bucketed cache (shares the attention lattice),
+  * :class:`GroupedGemmWorkload` — the MoE expert FFN: G ragged GEMMs in
+    one launch, dynamic capacity C (shares the gemm lattice),
+  * :class:`Conv2dWorkload`      — VALID Conv2D as an im2col GEMM, dynamic
+    M = b*h'*w' (its ``stage_view`` is the im2col).
 
 The pricing half (lattice, footprints, traffic, buckets) is the JAX
 package's field for field; the execution half speaks PyTorch.
@@ -43,6 +47,8 @@ __all__ = [
     "GemmWorkload",
     "AttentionWorkload",
     "DecodeAttentionWorkload",
+    "GroupedGemmWorkload",
+    "Conv2dWorkload",
     "SelectionDeviationError",
     "WORKLOADS",
     "register_workload",
@@ -244,7 +250,10 @@ class Workload:
     # scalars (``runtime_scalars``) and masks the pad tail in-kernel, so the
     # pad region of a staged buffer may hold ARBITRARY GARBAGE.  The engine:
     #
-    #   1. compares each call arg's shape against ``staged_shapes`` — args
+    #   0. maps the call args to the executable's inputs (``stage_view``:
+    #      the identity, or im2col for conv); every hook below but
+    #      ``finalize`` sees this VIEW,
+    #   1. compares each view arg's shape against ``staged_shapes`` — args
     #      that already match run with ZERO copies (the aligned fast path),
     #   2. copies mismatched args into engine-owned bucket buffers in place
     #      (O(true-size) writes, no allocation, no zero fill) and makes ONE
@@ -267,22 +276,28 @@ class Workload:
         the executable is specialized on)."""
         return ()
 
-    def staged_shapes(self, sel, *args) -> tuple:
-        """Per call arg: the bucket-shaped staging-buffer shape, or None
+    def stage_view(self, *args) -> tuple:
+        """Map call args to the tensors the executable consumes (identity
+        unless the workload transforms data first, e.g. im2col)."""
+        return args
+
+    def staged_shapes(self, sel, *view) -> tuple:
+        """Per view arg: the bucket-shaped staging-buffer shape, or None
         for args passed through unstaged."""
         raise NotImplementedError
 
-    def runtime_scalars(self, sel, *args) -> tuple:
+    def runtime_scalars(self, sel, *view) -> tuple:
         """True runtime extents appended to every executable call."""
         return ()
 
-    def prepare(self, sel, *args) -> tuple:
-        """Reference path: zero-pad the call args to the bucket shapes."""
+    def prepare(self, sel, *view) -> tuple:
+        """Reference path: zero-pad the view args to the bucket shapes."""
         raise NotImplementedError
 
     def finalize(self, sel, out, *args):
-        """Slice the bucket-shaped output back to the true extents (a view
-        of the launch's own fresh output, never of an engine buffer)."""
+        """Slice the bucket-shaped output back to the true extents of the
+        RAW call args (a view of the launch's own fresh output, never of
+        an engine buffer)."""
         raise NotImplementedError
 
     def build_executable(self, sel, *, impl: str) -> Callable:
@@ -383,6 +398,133 @@ class GemmWorkload(Workload):
                 # reach the real rows; the extent scalar is unused.
                 del m_true
                 return ref_gemm(a, b)
+
+        else:
+            raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+        return fn
+
+
+# ---------------------------------------------------------------------------
+# Grouped GEMM (ragged MoE expert FFN)
+# ---------------------------------------------------------------------------
+
+
+@register_workload
+@dataclasses.dataclass(frozen=True)
+class GroupedGemmWorkload(Workload):
+    """Ragged grouped GEMM: out[g] = x[g] @ w[g // (G//E)], per-group extents.
+
+    The MoE expert FFN after capacity-bounded routing: G capacity-shaped
+    ``(C, K)`` activation slabs against a stacked ``(E, K, N)`` expert
+    weight tensor (``r = G // E`` consecutive groups — expert-major — per
+    stack entry).  Only ``counts[g]`` rows of slab g are real.  The
+    capacity C is the dynamic extent (a routing outcome); the true extents
+    ride into the kernel as a ``(G,)`` int32 DEVICE vector, and one launch
+    covers all G groups at any routing skew.
+
+    Selection prices the per-group ``(C, N, K)`` view: G multiplies every
+    candidate's time alike, so the per-group argmin is the whole-launch
+    argmin and the gemm lattice applies verbatim (``lattice_key`` is the
+    literal gemm signature).  :meth:`flops` reports the G-scaled work.
+
+    Call signature: ``grouped_gemm(x, w, counts)``.  Rows of ``x[g]`` at
+    or past ``counts[g]`` may hold anything; the matching output rows are
+    exactly zero in every impl, so staged dispatch is bit-identical to the
+    zero-padded reference path.
+    """
+
+    C: int | None  # capacity (rows per group), dynamic
+    G: int  # total groups = E * groups_per_expert
+    E: int  # weight stack entries
+    N: int
+    K: int
+    dtype_bytes: int = 2
+    acc_bytes: int = 4
+    dynamic_dims: tuple[str, ...] = ("C",)
+
+    kind: ClassVar[str] = "grouped_gemm"
+
+    @classmethod
+    def bind(cls, x, w, counts) -> "GroupedGemmWorkload":
+        return cls(
+            C=None, G=x.shape[0], E=w.shape[0], N=w.shape[2], K=w.shape[1]
+        )
+
+    @classmethod
+    def dispatch_key(cls, x, w, counts) -> tuple:
+        return (x.shape[0], w.shape[0], w.shape[1], w.shape[2])
+
+    @property
+    def lattice_key(self) -> tuple:
+        # The GemmWorkload(M=None, N, K) signature: both kinds hash to one
+        # scored-lattice cache entry.
+        return (
+            "gemm", None, self.N, self.K,
+            self.dtype_bytes, self.acc_bytes, ("M",),
+        )
+
+    def runtime_dims(self, m_runtime: int | None = None) -> Tile:
+        c = self.C if m_runtime is None else m_runtime
+        if c is None:
+            raise ValueError("runtime capacity required")
+        return (c, self.N, self.K)
+
+    def flops(self, m: int | None = None) -> float:
+        c, n, k = self.runtime_dims(m)
+        return 2.0 * self.G * c * n * k  # the work of all groups
+
+    def program(self, hw: HardwareSpec) -> RKernelProgram:
+        return _make_program(
+            hw,
+            self.kind,
+            {
+                0: ("load_tile_to_reg", "store_reg", "dot"),
+                1: ("copy_hbm_to_smem", "copy_smem_to_hbm", ""),
+            },
+        )
+
+    # -- execution ---------------------------------------------------------
+
+    def dynamic_extent(self, x, w, counts) -> int:
+        return x.shape[1]
+
+    def stage_view(self, x, w, counts) -> tuple:
+        # counts as a (G,) int32 tensor on x's device: a no-op for the
+        # routing output, a host-to-device copy for a list.
+        cnt = torch.as_tensor(counts, device=x.device)
+        if cnt.dtype != torch.int32:
+            cnt = cnt.to(torch.int32)
+        return x, w, cnt.reshape(self.G)
+
+    def staged_shapes(self, sel, x, w, counts) -> tuple:
+        # Only the activation slabs are bucket-shaped (on the capacity
+        # axis); weights and the counts vector pass through unstaged.
+        return ((self.G, sel.padded_m, self.K), None, None)
+
+    def prepare(self, sel, x, w, counts) -> tuple:
+        if sel.padded_m != x.shape[1]:
+            x = _pad_dim(x, 1, sel.padded_m)
+        return x, w, counts
+
+    def finalize(self, sel, out, x, w, counts):
+        c = x.shape[1]
+        return out[:, :c] if sel.padded_m != c else out
+
+    def build_executable(self, sel, *, impl: str):
+        m1, n1, k1 = sel.strategy.l1
+        _check_bucket_tiles(self.kind, sel, (("c", sel.padded_m, m1),))
+        if impl == "cuda":
+            from repro_torch.kernels.grouped_gemm import vortex_grouped_gemm
+
+            def fn(x, w, counts):
+                return vortex_grouped_gemm(
+                    x, w, counts, block_m=m1, block_n=n1, block_k=k1,
+                )
+
+        elif impl == "torch":
+            from repro_torch.kernels.grouped_gemm import (
+                vortex_grouped_gemm_plain as fn,
+            )
 
         else:
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
@@ -681,3 +823,114 @@ class DecodeAttentionWorkload(AttentionWorkload):
         else:
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
         return fn
+
+
+# ---------------------------------------------------------------------------
+# Conv2D (im2col GEMM view)
+# ---------------------------------------------------------------------------
+
+
+@register_workload
+@dataclasses.dataclass(frozen=True)
+class Conv2dWorkload(Workload):
+    """Conv2D (VALID padding) lowered to the hierarchized GEMM space.
+
+    im2col turns Conv2D into a GEMM with M = b*h'*w' (dynamic batch and
+    spatial extents), N = cout, K = kh*kw*cin — after which the lattice,
+    analyzer and selector apply unchanged (paper Table 4).  ``stage_view``
+    is the im2col, so the engine stages the patch matrix, and the
+    executable is the GEMM workload's.
+
+    Call signature: ``conv2d(x, w, stride=...)`` with x (b, h, w, cin) and
+    w (kh, kw, cin, cout).
+    """
+
+    m: int | None  # b*h'*w', dynamic
+    cin: int
+    cout: int
+    kh: int
+    kw: int
+    stride: int = 1
+    dtype_bytes: int = 2
+    acc_bytes: int = 4
+    dynamic_dims: tuple[str, ...] = ("m",)
+
+    kind: ClassVar[str] = "conv2d"
+
+    @classmethod
+    def bind(cls, x, w, *, stride: int = 1) -> "Conv2dWorkload":
+        kh, kw, cin, cout = w.shape
+        return cls(m=None, cin=cin, cout=cout, kh=kh, kw=kw, stride=stride)
+
+    @classmethod
+    def dispatch_key(cls, x, w, *, stride: int = 1) -> tuple:
+        return (*w.shape, stride)
+
+    @property
+    def N(self) -> int:
+        return self.cout
+
+    @property
+    def K(self) -> int:
+        return self.kh * self.kw * self.cin
+
+    def runtime_dims(self, m_runtime: int | None = None) -> Tile:
+        m = self.m if m_runtime is None else m_runtime
+        if m is None:
+            raise ValueError("runtime output-pixel count required")
+        return (m, self.N, self.K)
+
+    def program(self, hw: HardwareSpec) -> RKernelProgram:
+        return _make_program(
+            hw,
+            self.kind,
+            {
+                0: ("load_tile_to_reg", "store_reg", "dot"),
+                1: ("im2col_hbm_to_smem", "copy_smem_to_hbm", ""),
+            },
+        )
+
+    # -- execution ---------------------------------------------------------
+
+    def _out_hw(self, x) -> tuple[int, int]:
+        _, h, w, _ = x.shape
+        return (
+            (h - self.kh) // self.stride + 1,
+            (w - self.kw) // self.stride + 1,
+        )
+
+    def dynamic_extent(self, x, w) -> int:
+        ho, wo = self._out_hw(x)
+        return x.shape[0] * ho * wo
+
+    def stage_view(self, x, w) -> tuple:
+        from repro_torch.kernels.conv import conv_weight_matrix, im2col
+
+        cols, _ = im2col(x, self.kh, self.kw, self.stride)
+        return cols, conv_weight_matrix(w)
+
+    def staged_shapes(self, sel, cols, wmat) -> tuple:
+        return ((sel.padded_m, self.K), None)
+
+    def runtime_scalars(self, sel, cols, wmat) -> tuple:
+        return (cols.shape[0],)
+
+    def prepare(self, sel, cols, wmat) -> tuple:
+        if sel.padded_m != cols.shape[0]:
+            cols = _pad_dim(cols, 0, sel.padded_m)
+        return cols, wmat
+
+    def finalize(self, sel, out, x, w):
+        ho, wo = self._out_hw(x)
+        m = x.shape[0] * ho * wo
+        # out[:m] of the launch's fresh (padded_m, cout) output is
+        # contiguous, so the reshape is a view of it.
+        return out[:m].reshape(x.shape[0], ho, wo, self.cout)
+
+    def build_executable(self, sel, *, impl: str):
+        # The executable is the GEMM kernel on the im2col matrix; the
+        # expansion itself runs in stage_view().
+        return GemmWorkload(
+            M=None, N=self.N, K=self.K, dtype_bytes=self.dtype_bytes,
+            acc_bytes=self.acc_bytes,
+        ).build_executable(sel, impl=impl)

@@ -6,16 +6,18 @@ went through the kernels.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import attention, gemm
+from repro_torch.kernels import attention, gemm, grouped_gemm
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
+_COUNTERS = (gemm.LAUNCHES, attention.LAUNCHES, grouped_gemm.LAUNCHES)
+
 
 def launch_counts() -> dict[str, int]:
-    return {**gemm.LAUNCHES, **attention.LAUNCHES}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (gemm.LAUNCHES, attention.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

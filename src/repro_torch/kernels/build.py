@@ -23,7 +23,7 @@ __all__ = ["library", "CUDA_ERROR_NAMES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("gemm.cu", "attention.cu")
+SOURCES = ("gemm.cu", "attention.cu", "grouped_gemm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -101,6 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, vp,
     ]
     lib.flash_attention_launch.restype = i
+    lib.vortex_grouped_gemm_launch.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp,
+    ]
+    lib.vortex_grouped_gemm_launch.restype = i
 
 
 def library() -> ctypes.CDLL:

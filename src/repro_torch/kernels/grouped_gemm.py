@@ -1,0 +1,106 @@
+"""Ragged grouped GEMM: the wrapper of ``csrc/grouped_gemm.cu``.
+
+Replaces the Pallas TPU kernel ``vortex_grouped_gemm`` (src/repro/kernels/
+grouped_gemm.py, body ``_grouped_gemm_kernel``).  out[g] = x[g] @ w[g // r]
+for x ``(G, C, K)`` capacity-shaped activation slabs and w ``(E, K, N)``
+stacked expert weights (``r = G // E`` consecutive groups per expert), with
+an f32 accumulator.  ``counts`` ``(G,)`` holds each group's true row
+count: rows at or past it may hold anything (NaN included) and the
+matching output rows are exactly zero.  One launch covers every group,
+and the selected tile (block_m, block_n, block_k) is honoured verbatim.
+
+Bound on the H100: the tensor cores in prefill, the expert weights' bytes
+in decode (see the note in csrc/grouped_gemm.cu).  A tensor on the CPU
+takes :func:`vortex_grouped_gemm_plain`; a CUDA tensor launches the kernel
+or raises.  ``counts`` stays on the device: the kernel reads it there, so
+the wrapper never waits for routing to finish.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.gemm import validate_blocks
+from repro_torch.kernels.ref import ref_grouped_gemm
+
+__all__ = ["vortex_grouped_gemm", "vortex_grouped_gemm_plain", "LAUNCHES"]
+
+# Launches of the CUDA kernel, counted where it is launched and nowhere
+# else; chip_smoke.py zeroes it around the main path.
+LAUNCHES = {"vortex_grouped_gemm": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def vortex_grouped_gemm_plain(x, w, counts) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: rows at or past
+    ``counts[g]`` are selected to zero with ``torch.where`` (the pad may
+    hold NaN), then one einsum over the ``(E, r, C, K)`` reshape."""
+    return ref_grouped_gemm(x, w, counts)
+
+
+def vortex_grouped_gemm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    counts,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """``(G, C, N)`` grouped product; the output has ``x``'s dtype.
+
+    ``counts`` is a ``(G,)`` integer tensor (on the card: on ``x``'s
+    device) or a sequence of ints.  Non-contiguous operands are made
+    contiguous (a copy): the kernel walks dense row-major slabs.
+    """
+    G, C, K = x.shape
+    E, K2, N = w.shape
+    if K != K2 or E < 1 or G % E:
+        raise ValueError(
+            f"vortex_grouped_gemm: x {tuple(x.shape)} and w {tuple(w.shape)} "
+            "need equal K and a group count that is a multiple of E"
+        )
+    validate_blocks(
+        "vortex_grouped_gemm", block_m=block_m, block_n=block_n,
+        block_k=block_k,
+    )
+    if x.device.type == "cpu":
+        return vortex_grouped_gemm_plain(x, w, counts)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(
+            f"vortex_grouped_gemm: operands on {x.device} and {w.device}; the "
+            "kernel takes x and w on one CUDA device"
+        )
+    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
+        raise TypeError(
+            f"vortex_grouped_gemm: dtypes {x.dtype}, {w.dtype}; the kernel "
+            "takes float32 or bfloat16 for both"
+        )
+    if -(-N // block_n) > 65535:
+        raise ValueError(
+            f"vortex_grouped_gemm: {-(-N // block_n)} column blocks exceed "
+            "the grid's y limit of 65535"
+        )
+    cnt = torch.as_tensor(counts, device=x.device)
+    if cnt.numel() != G or cnt.is_floating_point():
+        raise ValueError(
+            f"vortex_grouped_gemm: counts must hold {G} integers, got "
+            f"{tuple(cnt.shape)} {cnt.dtype}"
+        )
+    cnt = cnt.to(torch.int32).reshape(G).contiguous()
+    x, w = x.contiguous(), w.contiguous()
+    from repro_torch.kernels.build import library
+
+    lib = library()
+    out = torch.empty((G, C, N), dtype=x.dtype, device=x.device)
+    rc = lib.vortex_grouped_gemm_launch(
+        x.data_ptr(), w.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+        G, E, C, N, K, block_m, block_n, block_k, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(
+            f"vortex_grouped_gemm: kernel launch failed (cudaError {rc})"
+        )
+    LAUNCHES["vortex_grouped_gemm"] += 1
+    return out

@@ -9,7 +9,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ref_gemm", "ref_attention", "chunked_attention"]
+__all__ = [
+    "ref_gemm",
+    "ref_grouped_gemm",
+    "ref_attention",
+    "chunked_attention",
+    "ref_conv2d",
+    "ref_conv1d",
+]
 
 _NEG = -1e30
 
@@ -18,6 +25,32 @@ def ref_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """A @ B accumulated in float32, cast to ``out_dtype`` (default A's)."""
     out = torch.matmul(a.float(), b.float())
     return out.to(out_dtype or a.dtype)
+
+
+def ref_grouped_gemm(
+    x: torch.Tensor, w: torch.Tensor, counts=None, out_dtype=None
+) -> torch.Tensor:
+    """out[g] = x[g] @ w[g // (G // E)], accumulated in float32.
+
+    x ``(G, C, K)``, w ``(E, K, N)``; groups are expert-major (``r = G//E``
+    consecutive groups share a weight stack entry).  ``counts`` (optional
+    ``(G,)`` int) marks each group's real rows: rows at or past it may hold
+    anything, NaN included, and are SELECTED to zero (not multiplied by
+    zero) before the product, so the matching output rows are exactly 0.
+    """
+    G, C, K = x.shape
+    E = w.shape[0]
+    xf = x.float()
+    if counts is not None:
+        valid = (
+            torch.arange(C, device=x.device)[None, :]
+            < _as_i32(counts, x.device).reshape(G, 1)
+        )
+        xf = torch.where(valid[..., None], xf, 0.0)
+    out = torch.einsum(
+        "erck,ekn->ercn", xf.reshape(E, G // E, C, K), w.float()
+    )
+    return out.reshape(G, C, -1).to(out_dtype or x.dtype)
 
 
 def _as_i32(x, device) -> torch.Tensor:
@@ -183,3 +216,44 @@ def chunked_attention(
         m_i = m_new
     out = acc / torch.clamp(l_i, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial dim: (low, high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _check_padding(padding: str) -> None:
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def ref_conv1d(
+    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME"
+) -> torch.Tensor:
+    """(b, t, cin) * (kw, cin, cout) -> (b, t', cout), in ``x``'s dtype.
+    On the card a float32 convolution may run in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is False."""
+    _check_padding(padding)
+    xt = x.permute(0, 2, 1)
+    if padding == "SAME":
+        xt = torch.nn.functional.pad(xt, _same_pads(x.shape[1], w.shape[0], stride))
+    out = torch.nn.functional.conv1d(xt, w.permute(2, 1, 0), stride=stride)
+    return out.permute(0, 2, 1)
+
+
+def ref_conv2d(
+    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME"
+) -> torch.Tensor:
+    """(b, h, w, cin) * (kh, kw, cin, cout) -> (b, h', w', cout), in
+    ``x``'s dtype (same TF32 note as :func:`ref_conv1d`)."""
+    _check_padding(padding)
+    xt = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        ph = _same_pads(x.shape[1], w.shape[0], stride)
+        pw = _same_pads(x.shape[2], w.shape[1], stride)
+        xt = torch.nn.functional.pad(xt, (*pw, *ph))
+    out = torch.nn.functional.conv2d(xt, w.permute(3, 2, 0, 1), stride=stride)
+    return out.permute(0, 2, 3, 1)

@@ -18,13 +18,16 @@ written into it in place, and rows past ``pos`` are dead weight the kv_len
 mask never reads.  When ``pos`` outgrows the bucket the cache is copied
 once into the next bucket's buffers (amortized doubling).  ``decode_stats``
 (a DispatchStats) counts one step per token, growth copies and pad
-fallbacks (always 0).
+fallbacks (always 0).  An MoE model's expert FFNs dispatch through the
+grouped-GEMM workload, with the capacity (set by the PADDED prompt length)
+as its dynamic extent; ``mean_dropped_frac`` reports the capacity drops.
 
 Unlike the reference, the first generated token is the argmax at the last
 REAL prompt position (s - 1), not at the last padded position of the
 sequence bucket.
 
 ``python -m repro_torch.launch.serve --arch paper-gpt2-124m --requests 8``
+``python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --requests 8``
 """
 from __future__ import annotations
 
@@ -41,8 +44,10 @@ from repro_torch.core.workloads import (
     AttentionWorkload,
     DecodeAttentionWorkload,
     GemmWorkload,
+    GroupedGemmWorkload,
 )
 from repro_torch.core.hardware import get_hardware
+from repro_torch.models.layers import moe_capacity
 from repro_torch.models.model import decode_step, prefill_step
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_config, get_smoke_config
@@ -211,6 +216,10 @@ class VortexServer:
         # Per-token decode accounting: one step per token, zero pad
         # fallbacks, a stage copy only when the cache grows.
         self.decode_stats = DispatchStats()
+        # MoE capacity drops: the sum of every forward's mean dropped_frac
+        # (a device scalar, read only by mean_dropped_frac) and the count.
+        self._dropped_sum = torch.zeros((), device=self.device)
+        self._moe_forwards = 0
 
     # -- engine-owned bucketing ---------------------------------------------
 
@@ -315,11 +324,13 @@ class VortexServer:
         self, *, max_batch: int = 1, m_max: int | None = None,
         max_new: int = 8,
     ) -> int:
-        """Build, before traffic, every attention executable the requests
-        up to ``max_batch``/``m_max``/``max_new`` can reach (and, on the
-        card, the kernel library itself): prefill attention over the seq
-        buckets and decode attention over the kv buckets, per batch
-        bucket.  Returns the number of executables built."""
+        """Build, before traffic, every executable the requests up to
+        ``max_batch``/``m_max``/``max_new`` can reach (and, on the card,
+        the kernel library itself): prefill attention over the seq
+        buckets, decode attention over the kv buckets and, for an MoE
+        model, the grouped-GEMM capacity buckets that the seq buckets and
+        decode (s = 1) imply, per batch bucket.  Returns the number of
+        executables built."""
         cfg, eng = self.cfg, self.engine
         m_max = self.max_cache if m_max is None else min(m_max, self.max_cache)
         hd = cfg.resolved_head_dim
@@ -338,24 +349,48 @@ class VortexServer:
             ))
             for spec in cfg.pattern
         }
-        before = sum(k.cache_info["entries"] for k in attn | dec)
+        bps = [1]
+        while bps[-1] < pow2_bucket(max_batch):
+            bps.append(2 * bps[-1])
+        grouped = set()
+        c_max = 0
+        if cfg.moe is not None:
+            E, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+            # Prefill runs at every seq bucket, decode at s = 1.
+            c_max = max(moe_capacity(cfg, sp)
+                        for sp in self.seq_buckets(m_max))
+            grouped = {
+                eng.kernel_for(GroupedGemmWorkload(C=None, G=E * bp, E=E,
+                                                   N=n, K=k))
+                for bp in bps
+                for n, k in ((fe, cfg.d_model), (cfg.d_model, fe))
+            }
         m_kv = max(self.decode_buckets(m_max=m_max, max_new=max_new))
         # Only the shapes matter (exec_key): meta tensors allocate nothing.
         def meta(*shape):
             return torch.empty(shape, device="meta")
 
-        bp = 1
-        while True:
+        def built() -> int:
+            return sum(k.cache_info["entries"] for k in attn | dec | grouped)
+
+        before = built()
+        for bp in bps:
             for k in attn:
                 k.precompile(m_max, meta(bp, H, 1, hd), meta(bp, KV, 1, hd),
                              meta(bp, KV, 1, hd))
             for k in dec:
                 k.precompile(m_kv, meta(bp, H, 1, hd), meta(bp, KV, 1, hd),
                              meta(bp, KV, 1, hd), 1)
-            if bp >= pow2_bucket(max_batch):
-                break
-            bp *= 2
-        return sum(k.cache_info["entries"] for k in attn | dec) - before
+        for k in grouped:
+            k.precompile(c_max)
+        return built() - before
+
+    def mean_dropped_frac(self) -> float:
+        """Mean MoE ``dropped_frac`` over every forward served so far (0.0
+        for a dense model); one device-to-host read."""
+        if not self._moe_forwards:
+            return 0.0
+        return float(self._dropped_sum.item()) / self._moe_forwards
 
     # -- introspection ------------------------------------------------------
 
@@ -380,6 +415,11 @@ class VortexServer:
 
     # -- serving ------------------------------------------------------------
 
+    def _note_moe(self, stats: dict) -> None:
+        if self.cfg.moe is not None:
+            self._dropped_sum += stats["dropped_frac"]
+            self._moe_forwards += 1
+
     def generate(self, req: Request) -> np.ndarray:
         """Greedy tokens ``(batch, max_new)`` for one request."""
         b, s = req.tokens.shape
@@ -398,10 +438,11 @@ class VortexServer:
         self._note(self._prefill_seen, (bp, sp), "prefill_buckets",
                    "bucket_hits")
         with self.engine.use():
-            logits, cache = prefill_step(
+            logits, cache, stats = prefill_step(
                 cfg, params, torch.from_numpy(toks).to(dev),
                 cache_len=kvb, last=s - 1,
             )
+        self._note_moe(stats)
         tok = logits.argmax(-1)
         out = [tok.cpu().numpy()]
         pos = s - 1
@@ -423,9 +464,10 @@ class VortexServer:
                 self._note(self._decode_seen, (bp, kvb), "decode_buckets",
                            "decode_bucket_hits")
                 with self.engine.use():
-                    logits, cache = decode_step(
+                    logits, cache, stats = decode_step(
                         cfg, params, cache, tok[:, None], pos
                     )
+                self._note_moe(stats)
                 st.launches += 1
                 tok = logits.argmax(-1)
                 out.append(tok.cpu().numpy())
@@ -444,7 +486,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument(
         "--warmup", action="store_true",
-        help="build every attention executable before serving",
+        help="build every attention and grouped-GEMM executable first",
     )
     args = ap.parse_args()
 
@@ -454,7 +496,7 @@ def main() -> None:
     )
     if args.warmup:
         n = server.warmup(max_batch=8, m_max=64, max_new=args.max_new)
-        print(f"warmup: {n} attention executables built")
+        print(f"warmup: {n} executables built")
     rng = np.random.default_rng(args.seed)
 
     t0 = time.perf_counter()
@@ -480,6 +522,9 @@ def main() -> None:
         f"decode: tokens={ds.calls} steps={ds.launches} "
         f"growth_copies={ds.stage_copies} padded={ds.padded_calls}"
     )
+    if cfg.moe is not None:
+        print(f"moe: mean dropped_frac={server.mean_dropped_frac():.6f} "
+              "over every prefill and decode forward")
     for kind, d in server.engine_dispatch_stats().items():
         if kind == "kv_pool":  # lease ledger, not dispatch counters
             print(

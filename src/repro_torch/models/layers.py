@@ -1,7 +1,7 @@
 """The attention-decoder layers (counterpart of src/repro/models/layers.py).
 
-Every mixer/MLP is a plain function ``(params, x, ...) -> y`` on tensors,
-in two modes:
+Attention, dense MLPs and top-k routed MoE.  Every mixer/MLP is a plain
+function ``(params, x, ...) -> y`` on tensors, in two modes:
 
   * ``prefill`` — the full (bucket-padded) sequence, emitting a decode cache
     of length ``cache_len``,
@@ -11,10 +11,14 @@ With a :mod:`repro_torch.vortex` session installed, prefill attention and
 each decode token's attention are served by the engine (the lattice picks
 the kernel's tiles; on the card they launch the hand-written kernels),
 exactly where the reference routes them; without one the plain chunked
-attention runs inline.  The projections are plain matmuls, as the JAX
-package leaves them to XLA.
+attention runs inline.  Likewise each MoE layer serves its experts through
+three ``grouped_gemm`` dispatches (one launch per projection for all
+experts) under a session, and through inline einsums without one.  The
+dense projections are plain matmuls, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +35,9 @@ __all__ = [
     "apply_rope",
     "attn_forward",
     "mlp_forward",
+    "route",
+    "moe_capacity",
+    "moe_forward",
     "ATTN_CHUNK",
 ]
 
@@ -238,3 +245,133 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if "w_gate" in p else None
     return _glu_act(cfg, h, g) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(cfg: ModelConfig, s: int) -> int:
+    """Rows per expert slab for a routing group of ``s`` tokens:
+    ``max(1, ceil(s * top_k * capacity_factor / num_experts))``."""
+    m = cfg.moe
+    return max(1, int(math.ceil(s * m.top_k * m.capacity_factor
+                                / m.num_experts)))
+
+
+def route(
+    p: dict, x: torch.Tensor, cfg: ModelConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing in f32: ``(probs (b, s, E), topw (b, s, k) renormalised
+    to sum 1, topi (b, s, k))``, choices in descending probability."""
+    probs = torch.softmax(
+        torch.einsum("gtd,de->gte", x.float(), p["router"].float()), dim=-1
+    )
+    topw, topi = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def _expert_ffn(
+    p: dict, buf: torch.Tensor, cfg: ModelConfig, counts: torch.Tensor
+) -> torch.Tensor:
+    """buf: (g, E, C, d) -> (g, E, C, d) through the per-expert FFNs.
+
+    ``counts`` (g, E) int32 is each expert slab's TRUE row count; rows past
+    it are routing pad (zero-filled by :func:`moe_forward`).  With an
+    engine session installed the three projections are three
+    ``grouped_gemm`` dispatches, each ONE launch for all g*E slabs with the
+    capacity as the bucketed extent and the counts riding in as the
+    device-side extent vector.  Without one, inline einsums.
+    """
+    engine = session.installed_engine()
+    if engine is not None:
+        g, E, C, d = buf.shape
+        # Expert-major group layout (g, E, C, d) -> (E*g, C, d): the r = g
+        # consecutive groups of each expert share one weight-stack entry
+        # (the grouped_gemm contract: weight index = group // r).
+        xs = buf.transpose(0, 1).reshape(E * g, C, d)
+        cnt = counts.transpose(0, 1).reshape(E * g)
+        h = engine.dispatch("grouped_gemm", xs, p["w_in"], cnt)
+        gate = (
+            engine.dispatch("grouped_gemm", xs, p["w_gate"], cnt)
+            if "w_gate" in p else None
+        )
+        h = _glu_act(cfg, h, gate)
+        out = engine.dispatch("grouped_gemm", h, p["w_out"], cnt)
+        return out.reshape(E, g, C, -1).transpose(0, 1)
+
+    h = torch.einsum("gecd,edf->gecf", buf, p["w_in"])
+    gate = (
+        torch.einsum("gecd,edf->gecf", buf, p["w_gate"])
+        if "w_gate" in p else None
+    )
+    h = _glu_act(cfg, h, gate)
+    return torch.einsum("gecf,efd->gecd", h, p["w_out"])
+
+
+def moe_forward(
+    p: dict, x: torch.Tensor, cfg: ModelConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE with sort-based, capacity-bounded dispatch.
+
+    Each batch row is a routing group.  Every expert has capacity
+    ``C = moe_capacity(cfg, s)`` rows and admits its
+    first C assignments in flat (token, choice) order (a stable argsort
+    keeps that order); a dropped assignment contributes exactly 0 to its
+    token's combine, with no renormalisation over the kept experts.  The
+    dispatch is gather-only, as in the reference.  Returns ``(y, aux,
+    dropped_frac, topi)``: the Switch load-balance loss, the fraction of
+    assignments the capacity bound dropped, and the (b, s, k) expert
+    choices — every statistic a device tensor, never read on the host.
+    """
+    m = cfg.moe
+    b, s, d = x.shape
+    E, k = m.num_experts, m.top_k
+    C = moe_capacity(cfg, s)
+    dev = x.device
+    probs, topw, topi = route(p, x, cfg)
+
+    # Aux loss (Switch): E * sum_e f_e * P_e over all tokens.
+    f_e = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(f_e * probs.mean(dim=(0, 1)))
+
+    S = s * k
+    flat_e = topi.reshape(b, S)
+    order = torch.argsort(flat_e, dim=-1, stable=True)  # sorted pos -> flat
+    sorted_e = torch.gather(flat_e, 1, order)
+    experts = torch.arange(E, device=dev)
+    # Start of each expert's segment in the sorted order.
+    first = torch.searchsorted(
+        sorted_e, experts.expand(b, E).contiguous(), right=False
+    )                                                     # (b, E)
+    # Forward map: slot (e, c) <- sorted position first[e] + c.
+    p_grid = first[:, :, None] + torch.arange(C, device=dev)  # (b, E, C)
+    p_clip = p_grid.clamp(max=S - 1).reshape(b, E * C)
+    e_at_p = torch.gather(sorted_e, 1, p_clip).reshape(b, E, C)
+    valid = (p_grid < S) & (e_at_p == experts[None, :, None])
+    token_idx = torch.gather(order, 1, p_clip) // k       # (b, E*C)
+    buf = torch.gather(x, 1, token_idx[..., None].expand(b, E * C, d))
+    buf = torch.where(valid.reshape(b, E * C, 1), buf, 0).reshape(b, E, C, d)
+    # ``valid`` is a prefix of each slab, so its sum is the slab's extent.
+    counts = valid.sum(dim=-1, dtype=torch.int32)         # (b, E)
+
+    out_flat = _expert_ffn(p, buf, cfg, counts).reshape(b, E * C, d)
+
+    # Return map: flat position f sits at sorted position inv[f], in slot
+    # (flat_e[f], inv[f] - first[flat_e[f]]).
+    inv = torch.argsort(order, dim=-1)
+    pos_in_e = inv - torch.gather(first, 1, flat_e)
+    kept = pos_in_e < C
+    dropped_frac = 1.0 - kept.float().mean()
+    out_idx = (flat_e * C + pos_in_e).clamp(max=E * C - 1)
+    y_tok = torch.gather(out_flat, 1, out_idx[..., None].expand(b, S, d))
+    y_tok = torch.where(kept[..., None], y_tok, 0).float()
+    y_tok = y_tok * topw.reshape(b, S)[..., None]
+    y = y_tok.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
+
+    if m.num_shared:
+        h = x @ p["shared_in"]
+        gate = x @ p["shared_gate"] if "shared_gate" in p else None
+        y = y + _glu_act(cfg, h, gate) @ p["shared_out"]
+    return y, aux, dropped_frac, topi

@@ -1,4 +1,5 @@
-"""The dense attention decoder (counterpart of src/repro/models/model.py).
+"""The attention decoder, dense or MoE (counterpart of
+src/repro/models/model.py).
 
 A model is ``n_groups`` repetitions of a layer ``pattern``; parameters and
 caches are stacked per pattern position over groups, as in the reference,
@@ -18,7 +19,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import attn_forward, mlp_forward, norm
+from repro_torch.models.layers import (
+    attn_forward,
+    mlp_forward,
+    moe_forward,
+    norm,
+)
 
 __all__ = ["make_cache", "forward", "prefill_step", "decode_step"]
 
@@ -51,8 +57,11 @@ def _hidden(
     cache: dict | None,
     pos: int | None,
     cache_len: int,
-) -> tuple[torch.Tensor, dict]:
-    """Embedding through the final norm: (hidden (b, s, d), cache)."""
+) -> tuple[torch.Tensor, dict, dict]:
+    """Embedding through the final norm: (hidden (b, s, d), cache,
+    moe_stats).  ``moe_stats`` holds the mean ``dropped_frac`` over the
+    MoE layers (a device scalar; 0 without MoE layers) and ``topi``, each
+    MoE layer's (b, s, k) expert choices in layer order."""
     if not cfg.use_rope or cfg.embed_scale:
         raise NotImplementedError(
             f"{cfg.name}: absolute positions / embedding scale not ported yet"
@@ -66,6 +75,8 @@ def _hidden(
     )
     n_pos = len(cfg.pattern)
     new_layers: list[list[dict]] = [[] for _ in range(n_pos)]
+    dropped: list[torch.Tensor] = []
+    topis: list[torch.Tensor] = []
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.pattern):
             p = _slice(params[f"pos{i}"], g)
@@ -79,6 +90,13 @@ def _hidden(
             x = x + y
             if spec.mlp == "dense":
                 x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
+            elif spec.mlp == "moe":
+                y, _, drop, topi = moe_forward(
+                    p["moe"], norm(x, p["norm_mlp"], cfg), cfg
+                )
+                x = x + y
+                dropped.append(drop)
+                topis.append(topi)
     if mode == "decode":
         new_cache = cache  # written in place, layer by layer
     else:
@@ -89,7 +107,14 @@ def _hidden(
             }
             for i in range(n_pos)
         }
-    return norm(x, params["final_norm"], cfg), new_cache
+    stats = {
+        "dropped_frac": (
+            torch.stack(dropped).mean() if dropped
+            else torch.zeros((), device=dev)
+        ),
+        "topi": topis,
+    }
+    return norm(x, params["final_norm"], cfg), new_cache, stats
 
 
 def _slice(tree: dict, g: int) -> dict:
@@ -122,39 +147,45 @@ def forward(
     cache: dict | None = None,
     pos: int | None = None,
     cache_len: int = 0,
-) -> tuple[torch.Tensor, dict]:
+    return_moe_stats: bool = False,
+) -> tuple:
     """Run the model: ``tokens`` (b, s) int — s == 1 in decode mode with
     ``pos`` the scalar position of the new token.  Returns
-    ``(logits (b, s, vocab_padded), cache)``; in prefill the cache leaves
-    are ``cache_len`` long, in decode ``cache`` is updated in place."""
-    x, new_cache = _hidden(
+    ``(logits (b, s, vocab_padded), cache[, moe_stats])``; in prefill the
+    cache leaves are ``cache_len`` long, in decode ``cache`` is updated in
+    place.  ``return_moe_stats`` appends ``{"dropped_frac": mean fraction
+    of (token, choice) assignments the MoE capacity bound dropped, over
+    the MoE layers, "topi": per-layer expert choices}``."""
+    x, new_cache, stats = _hidden(
         cfg, params, tokens, mode=mode, cache=cache, pos=pos,
         cache_len=cache_len,
     )
-    return _head(cfg, params, x), new_cache
+    ret = (_head(cfg, params, x), new_cache)
+    return ret + (stats,) if return_moe_stats else ret
 
 
 def prefill_step(
     cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     cache_len: int, last: int,
-) -> tuple[torch.Tensor, dict]:
+) -> tuple[torch.Tensor, dict, dict]:
     """Prefill a bucket-padded batch: ``(logits at row last (b, vocab),
-    cache)``.  ``last`` is the index of the last real prompt token
-    (s - 1), so the bucket's pad positions never pick the first token."""
-    x, cache = _hidden(
+    cache, moe_stats)`` (``moe_stats`` as :func:`forward` returns it).
+    ``last`` is the index of the last real prompt token (s - 1), so the
+    bucket's pad positions never pick the first token."""
+    x, cache, stats = _hidden(
         cfg, params, tokens, mode="prefill", cache=None, pos=None,
         cache_len=cache_len,
     )
-    return _head(cfg, params, x[:, last]), cache
+    return _head(cfg, params, x[:, last]), cache, stats
 
 
 def decode_step(
     cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
     pos: int,
-) -> tuple[torch.Tensor, dict]:
-    """One decode token: ``(logits (b, vocab), cache)``."""
-    x, cache = _hidden(
+) -> tuple[torch.Tensor, dict, dict]:
+    """One decode token: ``(logits (b, vocab), cache, moe_stats)``."""
+    x, cache, stats = _hidden(
         cfg, params, tokens, mode="decode", cache=cache, pos=pos,
         cache_len=0,
     )
-    return _head(cfg, params, x[:, 0]), cache
+    return _head(cfg, params, x[:, 0]), cache, stats

@@ -1,12 +1,14 @@
 """Parameter schema, seeded init, and the bridge from the JAX package.
 
-The schema mirrors src/repro/models/params.py for the dense attention
-decoder: a nested dict of :class:`ParamDef` whose per-layer leaves are
-stacked over ``n_groups`` (the reference's scan layout), so a parameter
-tree of one package maps onto the other's leaf for leaf.
+The schema mirrors src/repro/models/params.py for the attention decoder
+with dense or MoE MLPs: a nested dict of :class:`ParamDef` whose per-layer
+leaves are stacked over ``n_groups`` (the reference's scan layout), so a
+parameter tree of one package maps onto the other's leaf for leaf.
 
 * :func:`init_params` draws the weights from an explicit
-  :class:`torch.Generator` (normal, std = fan_in^-1/2, as the reference).
+  :class:`torch.Generator` (normal, std = fan_in^-1/2, as the reference,
+  save that an expert stack's fan-in is its input width, not the expert
+  count).
   The draws differ from ``jax.random``'s; cross-package tests carry the
   reference's own weights over with :func:`params_from_numpy` instead.
 * :func:`params_from_numpy` takes the reference ``init_params`` tree as
@@ -74,20 +76,49 @@ def _mlp_schema(cfg: ModelConfig) -> Schema:
     return s
 
 
+def _moe_schema(cfg: ModelConfig) -> Schema:
+    m = cfg.moe
+    if m is None:
+        raise ValueError(f"{cfg.name}: an 'moe' layer needs cfg.moe")
+    d, fe, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    dt = cfg.dtype
+    s: Schema = {
+        # Router in f32: tiny, and routing decisions are precision-sensitive.
+        "router": ParamDef((d, E), dtype="float32"),
+        # Expert stacks: the init's fan-in is each expert's input width
+        # (axis 1).  The reference leaves axis 0, the expert count, which
+        # makes seeded expert outputs ~sqrt(d / E) too large (ROADMAP C2).
+        "w_in": ParamDef((E, d, fe), dtype=dt, scale_axis=1),
+        "w_out": ParamDef((E, fe, d), dtype=dt, scale_axis=1),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        s["w_gate"] = ParamDef((E, d, fe), dtype=dt, scale_axis=1)
+    if m.num_shared:
+        f_sh = m.num_shared * fe
+        s["shared_in"] = ParamDef((d, f_sh), dtype=dt)
+        s["shared_out"] = ParamDef((f_sh, d), dtype=dt)
+        if cfg.act in ("swiglu", "geglu"):
+            s["shared_gate"] = ParamDef((d, f_sh), dtype=dt)
+    return s
+
+
 def _layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
-    if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
+    if spec.mixer != "attn":
         raise NotImplementedError(
             f"layer {spec} is not ported yet: this package runs attention "
-            "mixers with dense MLPs"
+            "mixers with dense or MoE MLPs"
         )
     dt = cfg.dtype
     s: Schema = {
         "norm_mixer": ParamDef((cfg.d_model,), init="ones", dtype=dt),
         "attn": _attn_schema(cfg, spec),
     }
-    if spec.mlp == "dense":
+    if spec.mlp != "none":
         s["norm_mlp"] = ParamDef((cfg.d_model,), init="ones", dtype=dt)
-        s["mlp"] = _mlp_schema(cfg)
+        if spec.mlp == "dense":
+            s["mlp"] = _mlp_schema(cfg)
+        else:
+            s["moe"] = _moe_schema(cfg)
     return s
 
 

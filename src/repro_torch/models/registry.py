@@ -14,6 +14,7 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
 
 _MODULES = {
     "paper-gpt2-124m": "repro_torch.configs.paper_gpt2",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)

@@ -80,15 +80,26 @@ def test_engine_config_raises_without_gpu(no_gpu):
     assert (cfg.device, cfg.impl, cfg.hardware) == ("cpu", "torch", "h100_sxm")
 
 
-def test_server_raises_without_gpu(no_gpu):
-    from repro_torch.configs.paper_gpt2 import SMOKE
+@pytest.mark.parametrize("arch", ["paper-gpt2-124m", "granite-moe-1b-a400m"])
+def test_server_raises_without_gpu(no_gpu, arch):
     from repro_torch.launch.serve import VortexServer
+    from repro_torch.models.registry import get_smoke_config
 
+    smoke = get_smoke_config(arch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        VortexServer(SMOKE)
-    server = VortexServer(SMOKE, device="cpu", max_cache=64)
+        VortexServer(smoke)
+    server = VortexServer(smoke, device="cpu", max_cache=64)
     assert server.device.type == "cpu"
     assert server.engine.config.impl == "torch"
+
+
+def test_wallclock_profiler_defaults_to_the_card(no_gpu):
+    from repro_torch.core import WallClockProfiler
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WallClockProfiler()
+    prof = WallClockProfiler(device="cpu", repeats=1)
+    assert prof.measure_l0((4, 4, 4), "simd") > 0
 
 
 def test_serve_main_raises_without_gpu(no_gpu, monkeypatch):
@@ -101,7 +112,11 @@ def test_serve_main_raises_without_gpu(no_gpu, monkeypatch):
 
 def test_kernel_wrappers_take_cuda_tensors_or_cpu_only():
     from repro_torch.kernels.gemm import vortex_gemm
+    from repro_torch.kernels.grouped_gemm import vortex_grouped_gemm
 
     a = torch.zeros(4, 4)
     with pytest.raises(ValueError):
         vortex_gemm(a.to("meta"), a.to("meta"), block_m=4, block_n=4, block_k=4)
+    x = torch.zeros(2, 4, 4, device="meta")
+    with pytest.raises(ValueError):
+        vortex_grouped_gemm(x, x, [4, 4], block_m=4, block_n=4, block_k=4)

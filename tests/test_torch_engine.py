@@ -1,5 +1,9 @@
 """The port's dispatch engine: masked-tail staging, counters, buckets.
 
+Every registered kind runs through the same cases: gemm, prefill and
+decode attention, the grouped GEMM (NaN routing pad past its per-group
+counts) and conv2d (whose ``stage_view`` is the im2col).
+
 Inside the port, staged dispatch (engine-owned buffers whose pad tails are
 NaN-poisoned) must be BIT-identical to the zero-pad reference path, with
 one launch per call and zero padded calls.  Against the JAX package, every
@@ -45,10 +49,29 @@ def _decode_args(rng, m):
     return q, k, v, max(m - 3, 1)
 
 
+def _grouped_args(rng, m):
+    # Capacity m; counts of 0, a partial count and m.  Routing pad past
+    # each count is NaN, which must never reach a real row.
+    x = rng.standard_normal((4, m, 16)).astype(np.float32)
+    counts = np.array([0, m // 2, m, m], np.int32)
+    for g, n in enumerate(counts):
+        x[g, n:] = np.nan
+    w = rng.standard_normal((2, 16, 12)).astype(np.float32)
+    return x, w, counts
+
+
+def _conv_args(rng, m):
+    # A 3x3 window over (m + 2) x 3 pixels: the dynamic extent b*h'*w' is m.
+    return (rng.standard_normal((1, m + 2, 3, 4)).astype(np.float32),
+            rng.standard_normal((3, 3, 4, 8)).astype(np.float32))
+
+
 KINDS = {
     "gemm": (_gemm_args, {}),
     "attention": (_attn_args, {"causal": True}),
     "decode_attention": (_decode_args, {}),
+    "grouped_gemm": (_grouped_args, {}),
+    "conv2d": (_conv_args, {}),
 }
 
 
@@ -171,6 +194,25 @@ def test_precompile_builds_every_bucket_and_names_a_failing_one():
     bad = vortex.compile(Broken(M=None, N=40, K=64), engine=eng)
     with pytest.raises(PrecompileError, match="bucket="):
         bad.precompile(32)
+
+
+def test_grouped_gemm_prices_on_the_gemm_lattice_like_the_reference():
+    from repro.core.workloads import GroupedGemmWorkload as RefGrouped
+
+    from repro_torch.core.workloads import GemmWorkload, GroupedGemmWorkload
+
+    wl = GroupedGemmWorkload(C=None, G=64, E=32, N=512, K=1024)
+    ref = RefGrouped(C=None, G=64, E=32, N=512, K=1024)
+    assert wl.lattice_key == GemmWorkload(M=None, N=512, K=1024).signature
+    assert wl.lattice_key == ref.lattice_key
+    for c in (1, 20, 64):
+        assert wl.flops(c) == ref.flops(c) == 2.0 * 64 * c * 512 * 1024
+    # One engine shares one scored lattice between the two kinds.
+    eng = _engine()
+    eng.kernel_for(GemmWorkload(M=None, N=512, K=1024))
+    n = len(eng._scored_cache)
+    eng.kernel_for(wl)
+    assert len(eng._scored_cache) == n
 
 
 def test_engine_on_cpu_refuses_the_cuda_impl():

@@ -1,14 +1,18 @@
 """The kernels' plain PyTorch versions held against the Pallas kernels.
 
-The JAX side runs ``repro.kernels.gemm.vortex_gemm`` and
-``repro.kernels.attention.flash_attention`` with ``interpret=True``, as the
-JAX package's own tests do on the CPU; the port's wrappers, given CPU
-tensors, run their plain versions.  Inputs come from numpy with a seed.
+The JAX side runs ``repro.kernels.gemm.vortex_gemm``,
+``repro.kernels.attention.flash_attention`` and
+``repro.kernels.grouped_gemm.vortex_grouped_gemm`` with ``interpret=True``,
+as the JAX package's own tests do on the CPU (and ``repro.kernels.conv``'s
+im2col and conv through XLA); the port's wrappers, given CPU tensors, run
+their plain versions.  Inputs come from numpy with a seed.
 Tolerances, relative to the output scale: float32 1e-5 (two f32
-accumulation orders); bfloat16 GEMM 2^-7 (one bf16 ulp, the rounding of
-the final cast); bfloat16 attention 2^-5 (the Pallas kernel also rounds
-the probabilities to bf16 before the PV product, the plain version keeps
-them in f32).  The hand-written CUDA kernels are held
+accumulation orders); bfloat16 GEMM and grouped GEMM 2^-7 (one bf16 ulp,
+the rounding of the final cast); bfloat16 attention 2^-5 (the Pallas
+kernel also rounds the probabilities to bf16 before the PV product, the
+plain version keeps them in f32); im2col exact (it moves values).  Rows
+past a grouped GEMM's count are exactly zero.  The hand-written CUDA
+kernels are held
 against the same plain versions on the card (the ``cuda``-marked case
 here, and chip_smoke.py).
 """
@@ -20,7 +24,13 @@ from repro_torch.kernels.attention import (
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels.conv import im2col, vortex_conv2d
 from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
+from repro_torch.kernels.grouped_gemm import (
+    vortex_grouped_gemm,
+    vortex_grouped_gemm_plain,
+)
+from repro_torch.kernels.ref import ref_conv1d, ref_conv2d
 
 
 def _oracle():
@@ -166,6 +176,131 @@ def test_attention_rejects_mismatched_heads():
 
 
 # ---------------------------------------------------------------------------
+# Grouped GEMM
+# ---------------------------------------------------------------------------
+
+GROUPED_CASES = {
+    # (G, E, C, K, N, counts, bm, bn, bk): counts of 0, partial and C, NaN
+    # past each count, K/N tails that do not divide the blocks.
+    "r1": (3, 3, 20, 24, 40, [0, 7, 20], 8, 16, 16),
+    "r2_tails": (4, 2, 17, 70, 50, [17, 0, 5, 16], 16, 32, 16),
+    "r4": (8, 2, 9, 32, 24, [9, 1, 0, 9, 3, 8, 0, 2], 8, 8, 32),
+}
+
+
+def _grouped_inputs(case, seed):
+    G, E, C, K, N, counts = case[:6]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((G, C, K)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    for g, n in enumerate(counts):  # the routing pad past each count
+        x[g, n:] = np.nan
+    return x, w, np.asarray(counts, np.int32)
+
+
+@pytest.mark.parametrize("name", list(GROUPED_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_gemm_plain_matches_pallas(name, dtype):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.grouped_gemm import vortex_grouped_gemm as pallas_gg
+
+    case = GROUPED_CASES[name]
+    bm, bn, bk = case[6:]
+    x, w, counts = _grouped_inputs(case, seed=len(name))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = pallas_gg(
+        jnp.asarray(x, jdt), jnp.asarray(w, jdt), jnp.asarray(counts),
+        block_m=bm, block_n=bn, block_k=bk, interpret=True,
+    )
+    tdt = getattr(torch, dtype)
+    out = vortex_grouped_gemm(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt),
+        torch.from_numpy(counts), block_m=bm, block_n=bn, block_k=bk,
+    )
+    assert out.dtype == tdt
+    for g, n in enumerate(counts):  # rows past each count are exactly zero
+        assert (out[g, n:] == 0).all()
+    _close(out, np.asarray(ref.astype(jnp.float32)),
+           TOL[np.float32 if dtype == "float32" else "bfloat16"], name)
+
+
+def test_grouped_gemm_rejects_bad_shapes_and_blocks():
+    x, w = torch.zeros(3, 4, 8), torch.zeros(2, 8, 5)
+    with pytest.raises(ValueError):  # G = 3 is not a multiple of E = 2
+        vortex_grouped_gemm(x, w, [4, 4, 4])
+    with pytest.raises(ValueError):
+        vortex_grouped_gemm(torch.zeros(4, 4, 8), w, [4] * 4, block_n=0)
+
+
+# ---------------------------------------------------------------------------
+# Conv: im2col + the GEMM
+# ---------------------------------------------------------------------------
+
+CONV_CASES = [
+    # (b, h, w, cin, kh, kw, cout, stride)
+    (2, 9, 7, 3, 3, 3, 5, 1),
+    (1, 11, 10, 4, 3, 2, 6, 2),
+    (3, 5, 5, 2, 1, 1, 4, 1),
+]
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=[str(c) for c in CONV_CASES])
+def test_im2col_matches_reference(case):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.conv import im2col as ref_im2col
+
+    b, h, w, cin, kh, kw, _, stride = case
+    x = np.random.default_rng(h).standard_normal((b, h, w, cin)).astype(
+        np.float32)
+    ref, ref_dims = ref_im2col(jnp.asarray(x), kh, kw, stride)
+    cols, dims = im2col(torch.from_numpy(x), kh, kw, stride)
+    assert dims == tuple(ref_dims)
+    assert cols.is_contiguous()
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=[str(c) for c in CONV_CASES])
+def test_conv2d_matches_reference(case):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ref import ref_conv2d as jax_conv2d
+
+    b, h, w, cin, kh, kw, cout, stride = case
+    rng = np.random.default_rng(w)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    wt = rng.standard_normal((kh, kw, cin, cout)).astype(np.float32)
+    for padding in ("VALID", "SAME"):
+        ref = np.asarray(jax_conv2d(jnp.asarray(x), jnp.asarray(wt),
+                                    stride=stride, padding=padding))
+        _close(ref_conv2d(torch.from_numpy(x), torch.from_numpy(wt),
+                          stride=stride, padding=padding), ref,
+               TOL[np.float32], f"ref_conv2d {padding}")
+    out = vortex_conv2d(torch.from_numpy(x), torch.from_numpy(wt),
+                        stride=stride, block_m=16, block_n=8, block_k=8)
+    _close(out, np.asarray(jax_conv2d(jnp.asarray(x), jnp.asarray(wt),
+                                      stride=stride, padding="VALID")),
+           TOL[np.float32], "vortex_conv2d")
+
+
+@pytest.mark.parametrize("stride,padding", [(1, "SAME"), (2, "SAME"),
+                                            (1, "VALID")])
+def test_conv1d_matches_reference(stride, padding):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ref import ref_conv1d as jax_conv1d
+
+    rng = np.random.default_rng(stride)
+    x = rng.standard_normal((2, 13, 3)).astype(np.float32)
+    wt = rng.standard_normal((4, 3, 5)).astype(np.float32)
+    ref = jax_conv1d(jnp.asarray(x), jnp.asarray(wt), stride=stride,
+                     padding=padding)
+    _close(ref_conv1d(torch.from_numpy(x), torch.from_numpy(wt),
+                      stride=stride, padding=padding), np.asarray(ref),
+           TOL[np.float32], "ref_conv1d")
+
+
+# ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -203,4 +338,24 @@ def test_cuda_kernels_match_plain_on_card():
                 softcap=softcap,
             )
             _close(out.cpu(), ref.float().cpu().numpy(), 4 * tol, name)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        for name, case in GROUPED_CASES.items():
+            bm, bn, bk = case[6:]
+            x, w, counts = (torch.from_numpy(a).to(dev) for a in
+                            _grouped_inputs(case, seed=len(name)))
+            x, w = x.to(dtype), w.to(dtype)
+            out = vortex_grouped_gemm(x, w, counts, block_m=bm, block_n=bn,
+                                      block_k=bk)
+            ref = vortex_grouped_gemm_plain(x, w, counts)
+            for g, n in enumerate(counts.tolist()):
+                assert (out[g, n:] == 0).all(), (name, g)
+            _close(out.cpu(), ref.float().cpu().numpy(), tol, name)
     torch.cuda.synchronize()
