@@ -9,7 +9,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 2. Hold each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32: the GEMM with NaN-poisoned m_true tails and N/K
    tails that do not divide the block; attention causal and not, window,
-   softcap, GQA, per-row kv_len including 0, and decode with q_offset;
+   softcap, GQA (granite's 16/8 heads too), per-row kv_len including 0,
+   and decode with q_offset;
    the grouped GEMM with NaN past each group's count, counts of 0, partial
    and C, r = G/E of 1 and more, K/N tails, and rows past each count
    exactly 0.
@@ -165,6 +166,10 @@ def phase_kernels(dev, errs: dict) -> None:
         "softcap": (1, 4, 4, 64, 64, 64, 128, 16, True, None, 5.0, 50, 0),
         "decode_offset": (3, 12, 12, 1, 256, 64, 1, 64, False, None, None,
                           [100, 0, 256], [99, -1, 255]),
+        # granite-moe-1b-a400m's heads: 16 query heads over 8 kv heads of 64.
+        "gqa_16_8": (2, 16, 8, 64, 64, 64, 64, 64, True, None, None, 50, 0),
+        "decode_gqa_16_8": (4, 16, 8, 1, 256, 64, 1, 64, False, None, None,
+                            [71, 0, 256, 1], [70, -1, 255, 0]),
     }
     # (G, E, C, K, N, counts, block_m, block_n, block_k): r = G/E of 1, 4
     # and 8; counts of 0, partial and C; K/N tails; the last at granite's
