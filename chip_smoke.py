@@ -11,11 +11,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    tails that do not divide the block; attention causal and not, window,
    softcap, GQA (granite's 16/8 heads too), per-row kv_len including 0,
    and decode with q_offset;
-   the grouped GEMM with NaN past each group's count, counts of 0, partial
-   and C, r = G/E of 1 and more, K/N tails, and rows past each count
-   exactly 0.
+   the grouped GEMM with NaN past each group's count, counts of 0, 1,
+   partial and C, r = G/E of 1 and more, K/N tails, and rows past each
+   count exactly 0.  Every GEMM and grouped case runs under each backend
+   its tile admits (``cuda_core`` always; ``tensor_core`` at multiples of
+   the (64, 8, 16) wgmma atom, which bf16 runs as wgmma and float32 as the
+   FMA loop), and each launch must take the path its backend and dtype
+   name.  The tensor-core cases include a NaN tail inside a 64-row atom
+   (m_true 77; counts 1, 5, 17, 33), ragged K/N (K = 70, N = 50 at
+   (64, 8, 16)), the largest accumulator (64, 512, 16), (512, 32, 64) at
+   conv2_x, and (64, 8, 64) at granite's expert widths.
 3. Main path 1: ``vortex.ops.gemm`` at dynamic M in {1, bucket-1, bucket,
    bucket+1, a prime} — exactly one kernel launch per call, 0 padded calls.
+   Phases 3, 3b, 4 and 4b also check that every bf16 launch of the GEMM and
+   the grouped GEMM took the tensor-core path (its launch counter).
 3b. Main path 1b: ``vortex.ops.conv2d`` at ResNet-50 shapes (He et al.
    2016, Table 1; bf16, batch 1, 3, 8): conv2_x 3x3 64->64 on 58x58 and
    conv3_x 3x3 128->128 stride 2 on 57x57 — one GEMM launch per call,
@@ -134,7 +143,7 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(dev, errs: dict) -> None:
+def phase_kernels(dev, kernels, errs: dict) -> None:
     from repro_torch.kernels.attention import (
         flash_attention,
         flash_attention_plain,
@@ -156,6 +165,13 @@ def phase_kernels(dev, errs: dict) -> None:
         (256, 768, 768, 200, 128, 128, 64),
         (33, 50, 70, 33, 16, 32, 16),
         (5, 3072, 768, 3, 64, 256, 128),
+        (33, 50, 70, 33, 64, 8, 16),             # ragged K and N
+        (130, 1024, 64, 129, 64, 512, 16),       # the largest accumulator
+        (25088, 64, 576, 25000, 512, 32, 64),    # conv2_x's GEMM at b = 8
+        (200, 512, 1024, 150, 64, 8, 64),        # granite's w_in widths
+        (200, 1024, 512, 77, 64, 8, 64),         # granite's w_out widths
+        (150, 40, 200, 130, 64, 8, 48),          # a k-step off a power of 2
+        (300, 16, 96, 250, 192, 16, 32),         # three warpgroups
     ]
     attn_cases = {
         # (b, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv, off)
@@ -179,21 +195,51 @@ def phase_kernels(dev, errs: dict) -> None:
     for seq in range(8):
         for e in torch.randperm(32, generator=route_g)[:8].tolist():
             dec_counts[e * 8 + seq] = 1  # expert-major: group = e * r + seq
+    pre_counts = routed_counts(route_g, 8, 16, 32, 8, 64)
     grouped_cases = [
         (4, 4, 20, 70, 50, [0, 7, 20, 20], 16, 32, 16),
         (8, 2, 33, 64, 96, [33, 0, 1, 32, 5, 33, 0, 17], 64, 64, 32),
         (256, 32, 1, 1024, 512, dec_counts, 64, 128, 64),
+        (4, 4, 20, 70, 50, [0, 7, 20, 20], 64, 8, 16),  # ragged K and N
+        # counts of 0, 1, partial (inside the first and second atom) and C
+        (8, 2, 70, 64, 96, [70, 0, 1, 33, 5, 17, 0, 69], 64, 32, 32),
+        (256, 32, 1, 1024, 512, dec_counts, 64, 8, 64),   # granite decode
+        (256, 32, 64, 1024, 512, pre_counts, 64, 8, 64),  # granite prefill
+        (256, 32, 64, 512, 1024, pre_counts, 64, 8, 64),  # ... its w_out
     ]
+
+    def backends(bm, bn, bk):
+        tc = bm % 64 == 0 and bn % 8 == 0 and bk % 16 == 0
+        return ("cuda_core", "tensor_core") if tc else ("cuda_core",)
+
+    def took(name, backend, dtype, n0):
+        """Fails unless the last launch of ``name`` took the path that its
+        backend and dtype fix before the launch."""
+        path = "tensor_core" if (backend, dtype) == (
+            "tensor_core", torch.bfloat16) else "cuda_core"
+        n = kernels.launch_counts()
+        if n[f"{name}.{path}"] - n0[f"{name}.{path}"] != 1 \
+                or n[name] - n0[name] != 1:
+            fail(f"{name} {backend} {dtype}: the launch did not take the "
+                 f"{path} path")
+
     for dtype in (torch.float32, torch.bfloat16):
         for M, N, K, mt, bm, bn, bk in gemm_cases:
             a, b = rnd(M, K, dtype=dtype), rnd(K, N, dtype=dtype)
             a[mt:] = float("nan")
-            err = check(
-                f"vortex_gemm {dtype} M={M} N={N} K={K} m_true={mt} "
-                f"blocks=({bm},{bn},{bk})",
-                vortex_gemm(a, b, mt, block_m=bm, block_n=bn, block_k=bk),
-                vortex_gemm_plain(a, b, mt), TOL[dtype])
-            errs["vortex_gemm"] = max(errs["vortex_gemm"], err)
+            for backend in backends(bm, bn, bk):
+                n0 = kernels.launch_counts()
+                out = vortex_gemm(a, b, mt, block_m=bm, block_n=bn,
+                                  block_k=bk, backend=backend)
+                took("vortex_gemm", backend, dtype, n0)
+                err = check(
+                    f"vortex_gemm {dtype} {backend} M={M} N={N} K={K} "
+                    f"m_true={mt} blocks=({bm},{bn},{bk})",
+                    out, vortex_gemm_plain(a, b, mt), TOL[dtype])
+                if not (out[mt:] == 0).all():
+                    fail(f"vortex_gemm {backend}: rows past m_true {mt} are "
+                         "not exactly zero")
+                errs["vortex_gemm"] = max(errs["vortex_gemm"], err)
         for name, c in attn_cases.items():
             b_, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv, off = c
             q = rnd(b_, hq, sq, d, dtype=dtype)
@@ -229,19 +275,33 @@ def phase_kernels(dev, errs: dict) -> None:
             for i, n in enumerate(counts):
                 x[i, n:] = float("nan")  # routing pad past each count
             cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
-            out = vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
-                                      block_k=bk)
-            err = check(
-                f"vortex_grouped_gemm {dtype} G={G} E={E} C={C} K={K} N={N} "
-                f"blocks=({bm},{bn},{bk})",
-                out, vortex_grouped_gemm_plain(x, w, cnt), TOL[dtype])
-            for i, n in enumerate(counts):
-                if not (out[i, n:] == 0).all():
-                    fail(f"vortex_grouped_gemm: group {i} rows past its "
-                         f"count {n} are not exactly zero")
-            errs["vortex_grouped_gemm"] = max(errs["vortex_grouped_gemm"],
-                                              err)
+            ref = vortex_grouped_gemm_plain(x, w, cnt)
+            for backend in backends(bm, bn, bk):
+                n0 = kernels.launch_counts()
+                out = vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
+                                          block_k=bk, backend=backend)
+                took("vortex_grouped_gemm", backend, dtype, n0)
+                err = check(
+                    f"vortex_grouped_gemm {dtype} {backend} G={G} E={E} C={C} "
+                    f"K={K} N={N} blocks=({bm},{bn},{bk})",
+                    out, ref, TOL[dtype])
+                for i, n in enumerate(counts):
+                    if not (out[i, n:] == 0).all():
+                        fail(f"vortex_grouped_gemm {backend}: group {i} rows "
+                             f"past its count {n} are not exactly zero")
+                errs["vortex_grouped_gemm"] = max(
+                    errs["vortex_grouped_gemm"], err)
     torch.cuda.synchronize()
+
+
+def all_tensor_core(counts: dict, where: str) -> None:
+    """Fails unless every launch of the GEMM and the grouped GEMM in
+    ``counts`` (all bf16 on the main paths) took the tensor-core path."""
+    for name in ("vortex_gemm", "vortex_grouped_gemm"):
+        if counts[f"{name}.tensor_core"] != counts[name]:
+            fail(f"{where}: {counts[name] - counts[f'{name}.tensor_core']} of "
+                 f"{counts[name]} bf16 {name} launches did not take the "
+                 "tensor-core path")
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +340,7 @@ def phase_gemm(dev, kernels) -> dict:
           f"stage_copies={after['stage_copies'] - before['stage_copies']}")
     if launches != len(ms) or padded != 0:
         fail("gemm main path: expected one launch per call and 0 padded calls")
+    all_tensor_core(kernels.launch_counts(), "gemm main path")
     worst = 0.0
     for a, out in zip(inputs, outs):
         if out.shape != (a.shape[0], d):
@@ -290,7 +351,7 @@ def phase_gemm(dev, kernels) -> dict:
         fail(f"gemm main path disagrees with the plain version: {worst}")
     sel = op.select(bucket)
     return {"launches": launches, "M": bucket, "N": d, "K": d,
-            "blocks": sel.strategy.l1}
+            "blocks": sel.strategy.l1, "backend": sel.strategy.backend}
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +392,7 @@ def phase_conv(dev, kernels) -> dict:
           f"stage_copies={st['stage_copies']}")
     if launches != len(inputs) or st["padded_calls"] != 0:
         fail("conv2d main path: expected one launch per call and 0 padded")
+    all_tensor_core(kernels.launch_counts(), "conv2d main path")
     for (name, stride, x), out in zip(inputs, outs):
         w = weights[name]
         cols, (b, ho, wo) = im2col(x, 3, 3, stride)
@@ -347,7 +409,7 @@ def phase_conv(dev, kernels) -> dict:
                         {"stride": stride}).select(m)
     return {"launches": launches, "name": name, "b": b, "hw": hw,
             "cin": cin, "cout": cout, "stride": stride, "M": m,
-            "blocks": sel.strategy.l1}
+            "blocks": sel.strategy.l1, "backend": sel.strategy.backend}
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +518,7 @@ def phase_serve(dev, kernels, arch: str) -> dict:
         fail(f"serve: padded calls or stage copies on the decode path: {dec}")
     if st["kv_pool"]["leases_active"] != 0:
         fail("serve: kv pool leases leaked")
+    all_tensor_core(counts, f"serve {cfg.name}")
     dropped = None
     if moe:
         per_layer = 3 * cfg.n_layers
@@ -559,10 +622,15 @@ def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
 
     M, N, K = gemm_info["M"], gemm_info["N"], gemm_info["K"]
     bm, bn, bk = gemm_info["blocks"]
+    be = gemm_info["backend"]
     a = torch.randn(M, K, generator=g).to(dev, dt)
     b = torch.randn(K, N, generator=g).to(dev, dt)
-    err = check("vortex_gemm at the main path's shape",
-                vortex_gemm(a, b, M, block_m=bm, block_n=bn, block_k=bk),
+
+    def gemm():
+        return vortex_gemm(a, b, M, block_m=bm, block_n=bn, block_k=bk,
+                           backend=be)
+
+    err = check("vortex_gemm at the main path's shape", gemm(),
                 vortex_gemm_plain(a, b, M), TOL[dt])
     errs["vortex_gemm"] = max(errs["vortex_gemm"], err)
     bnd, by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * N * K, dt)
@@ -574,9 +642,9 @@ def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
             "launches": gemm_info["launches"],
             "max_abs_err": errs["vortex_gemm"],
             "bound_ms": bnd, "bound_by": by,
-            "shape": f"M={M} N={N} K={K} blocks=({bm},{bn},{bk}) bf16",
+            "shape": f"M={M} N={N} K={K} blocks=({bm},{bn},{bk}) {be} bf16",
         },
-        ms=lambda: vortex_gemm(a, b, M, block_m=bm, block_n=bn, block_k=bk),
+        ms=gemm,
         plain_ms=lambda: vortex_gemm_plain(a, b, M),
         library_ms=lambda: torch.matmul(a, b),
     ))
@@ -707,6 +775,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
         sel = kern.select(C)
         cp = sel.padded_m
         bm, bn, bk = sel.strategy.l1
+        be = sel.strategy.backend
         counts = routed_counts(g, bp, s, E, k, C)
         x = torch.randn(G, cp, d, generator=g).to(dev, dt)
         for i, n in enumerate(counts):
@@ -717,7 +786,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
 
         def kernel_call():
             return vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
-                                       block_k=bk)
+                                       block_k=bk, backend=be)
 
         err = check(f"vortex_grouped_gemm {form} at the main path's shape",
                     kernel_call(), vortex_grouped_gemm_plain(x, w, cnt),
@@ -737,7 +806,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
                 "bound_ms": bnd, "bound_by": by,
                 "shape": f"x=({G},{cp},{d}) w=({E},{d},{fe}) C={C} "
                          f"rows={valid} experts={used} "
-                         f"blocks=({bm},{bn},{bk}) bf16",
+                         f"blocks=({bm},{bn},{bk}) {be} bf16",
             },
             ms=kernel_call,
             plain_ms=lambda: vortex_grouped_gemm_plain(x, w, cnt),
@@ -747,6 +816,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
     name, b, hw = conv_info["name"], conv_info["b"], conv_info["hw"]
     cin, cout, stride = conv_info["cin"], conv_info["cout"], conv_info["stride"]
     bm, bn, bk = conv_info["blocks"]
+    be = conv_info["backend"]
     M = conv_info["M"]
     x = torch.randn(b, hw, hw, cin, generator=g).to(dev, dt)
     w = (torch.randn(3, 3, cin, cout, generator=g) * (9 * cin) ** -0.5).to(
@@ -756,7 +826,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
 
     def conv():
         return vortex_conv2d(x, w, stride=stride, block_m=bm, block_n=bn,
-                             block_k=bk)
+                             block_k=bk, backend=be)
 
     def conv_plain():
         cols, (b_, ho, wo) = im2col(x, 3, 3, stride)
@@ -778,7 +848,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
             "shape": f"ResNet-50 {name} x=({b},{hw},{hw},{cin}) 3x3 "
                      f"{cin}->{cout} stride {stride}: im2col + gemm.cu at "
                      f"M={M} N={cout} K={9 * cin} blocks=({bm},{bn},{bk}) "
-                     "bf16",
+                     f"{be} bf16",
         },
         ms=conv,
         plain_ms=conv_plain,
@@ -811,7 +881,7 @@ def main() -> int:
 
     errs = {"vortex_gemm": 0.0, "flash_attention_prefill": 0.0,
             "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
-    phase_kernels(dev, errs)
+    phase_kernels(dev, kernels, errs)
     print("phase 2: kernels agree with their plain versions")
     gemm_info = phase_gemm(dev, kernels)
     print("phase 3: vortex.ops.gemm main path ok")

@@ -383,11 +383,14 @@ class GemmWorkload(Workload):
         if impl == "cuda":
             from repro_torch.kernels.gemm import vortex_gemm
 
-            # The selected tile runs verbatim: N/K tails are masked
-            # in-kernel, the m pad tail via the runtime extent.
+            # The selected tile and backend run verbatim: N/K tails are
+            # masked in-kernel, the m pad tail via the runtime extent.
+            backend = sel.strategy.backend
+
             def fn(a, b, m_true):
                 return vortex_gemm(
                     a, b, m_true, block_m=m1, block_n=n1, block_k=k1,
+                    backend=backend,
                 )
 
         elif impl == "torch":
@@ -516,9 +519,12 @@ class GroupedGemmWorkload(Workload):
         if impl == "cuda":
             from repro_torch.kernels.grouped_gemm import vortex_grouped_gemm
 
+            backend = sel.strategy.backend
+
             def fn(x, w, counts):
                 return vortex_grouped_gemm(
                     x, w, counts, block_m=m1, block_n=n1, block_k=k1,
+                    backend=backend,
                 )
 
         elif impl == "torch":

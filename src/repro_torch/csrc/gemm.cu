@@ -6,26 +6,33 @@
 // `m_true` read as zero (the pad tail of a staged bucket buffer may hold
 // NaN), static K/N tails masked, out-of-bounds stores dropped, and the
 // selected layer-1 tile (block_m, block_n, block_k) honoured verbatim as
-// the launch geometry: grid = (cdiv(N, block_n), cdiv(M, block_m)), the
-// k reduction walked in block_k steps inside the block.
+// the launch geometry, the k reduction walked in block_k steps inside the
+// block.
 //
 // What bounds it on this card: at the shapes the engine serves (M up to a
-// few thousand, N = K = 768) the product is compute-bound on the tensor
-// cores (989 TFLOP/s bf16).  This first kernel does its FMAs on the CUDA
-// cores in f32, so it is bounded by the 67 TFLOP/s FP32 rate and by
-// shared-memory traffic; wgmma/TMA are later work.  What the design does
-// about it: each block stages (sub_m x kc) and (kc x sub_n) operand slices
-// in shared memory, every thread keeps a 4x4 register micro-tile, so each
-// operand element loaded from device memory is reused 64 times.
+// few thousand, N = K = 768; conv2d's im2col at M = 25,088) the product
+// is bound by the bytes it moves or by the tensor cores (989 TFLOP/s bf16).
+// Two paths, one per backend of the H100 lattice, chosen by the wrapper
+// from the selected strategy's backend and the dtype before the launch:
 //
-// Shared-memory footprint (kc*sub_m + kc*sub_n)*4 bytes with
-// sub_m <= block_m, sub_n <= block_n, kc <= block_k, which never exceeds
-// the lattice's l1_tile_bytes for the tile (GemmWorkload.l1_tile_bytes),
-// so every tile the H100 lattice admits launches.  Masked lanes are never
-// read: every load is predicated and yields 0.
+// - tensor_core (bf16): vortex_gemm_tc_launch, the wgmma tile on a
+//   cp.async ring in csrc/tc_tile.cuh; grid = (cdiv(M, block_m),
+//   cdiv(N, block_n)).
+// - cuda_core (a cuda_core strategy, or float32 at either backend: Hopper
+//   has no exact f32 tensor-core product): vortex_gemm_launch, f32 FMAs on
+//   the CUDA cores.  Each block stages (sub_m x kc) and (kc x sub_n)
+//   operand slices in shared memory and every thread keeps a 4x4 register
+//   micro-tile, so each operand element loaded from device memory is
+//   reused 64 times; grid = (cdiv(N, block_n), cdiv(M, block_m)).  Shared
+//   memory (kc*sub_m + kc*sub_n)*4 bytes with sub_m <= block_m,
+//   sub_n <= block_n, kc <= block_k never exceeds the lattice's
+//   l1_tile_bytes for the tile, so every tile the lattice admits launches.
+//   Masked lanes are never read: every load is predicated and yields 0.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -139,7 +146,7 @@ int launch(const void* a, const void* b, void* out, int M, int N, int K, int m_t
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (A, B and C share it).
+// The CUDA-core path.  dtype: 0 = float32, 1 = bfloat16 (A, B and C share it).
 extern "C" int vortex_gemm_launch(const void* a, const void* b, void* out, int M, int N,
                                   int K, int m_true, int block_m, int block_n,
                                   int block_k, int dtype, void* stream) {
@@ -149,4 +156,35 @@ extern "C" int vortex_gemm_launch(const void* a, const void* b, void* out, int M
   if (dtype == 1)
     return launch<__nv_bfloat16>(a, b, out, M, N, K, m_true, block_m, block_n, block_k, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core path (bf16): the tile plan (wm, wn, nw, atoms, stages,
+// smem_bytes) comes from kernels/gemm.py `tensor_core_plan`.
+extern "C" int vortex_gemm_tc_launch(const void* a, const void* b, void* out, int M, int N,
+                                     int K, int m_true, int block_m, int block_n, int block_k,
+                                     int wm, int wn, int nw, int atoms, int stages,
+                                     int smem_bytes, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (block_m <= 0) return (int)cudaErrorInvalidValue;
+  tc::Args p{};
+  p.x = static_cast<const __nv_bfloat16*>(a);
+  p.w = static_cast<const __nv_bfloat16*>(b);
+  p.counts = nullptr;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.rows = M;
+  p.N = N;
+  p.K = K;
+  p.m_true = m_true;
+  p.r = 1;
+  p.gm = (M + block_m - 1) / block_m;
+  p.block_m = block_m;
+  p.block_n = block_n;
+  p.block_k = block_k;
+  p.wm = wm;
+  p.wn = wn;
+  p.stages = stages;
+  p.vec_x = K % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  p.vec_w = N % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  p.vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return tc::launch(p, 1, nw, atoms, smem_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -13,21 +13,33 @@
 // block_n, block_k) is the launch geometry, and one launch covers every
 // group: grid = (G * cdiv(C, block_m), cdiv(N, block_n)), the flattened
 // (group, m-tile) index on x, whose limit is 2^31 - 1 (y stops at 65535).
+// An expert's r groups are adjacent on x, so its weight tiles come from L2.
 //
 // What bounds it on this card: at the served shapes (granite-moe: K = 1024,
-// N = 512 or the reverse) prefill is compute-bound on the tensor cores
-// and decode (one real row per expert slab) is bound by reading the expert
-// weights.  This first kernel is csrc/gemm.cu's loop plus a group index:
-// FMAs on the CUDA cores in f32 through shared-memory staged operand
-// slices and 4x4 register micro-tiles (each loaded element reused 64
-// times).  What its design does about the data-dependent work: a 64-row
-// sub-tile that starts at or past counts[g] skips the k loop and only
-// stores zeros, so an empty group costs its output write and nothing else.
+// N = 512 or the reverse) prefill is bound by the bytes of the expert
+// weights and the output, and decode (one real row per expert slab) by
+// reading the expert weights.  Two paths, chosen by the wrapper from the
+// selected strategy's backend and the dtype before the launch:
+//
+// - tensor_core (bf16): vortex_grouped_gemm_tc_launch, the wgmma tile on a
+//   cp.async ring in csrc/tc_tile.cuh.  Rows past the count are never read
+//   and their shared-memory rows are zeroed once, a 64-row atom past the
+//   count issues no wgmma, and a tile past it only stores zeros: in decode
+//   a CTA reads one row of x and its weight tile.
+// - cuda_core (a cuda_core strategy, or float32 at either backend):
+//   vortex_grouped_gemm_launch, csrc/gemm.cu's FMA loop plus a group
+//   index: shared-memory staged operand slices and 4x4 register
+//   micro-tiles; a 64-row sub-tile that starts at or past counts[g] skips
+//   the k loop and only stores zeros.
+//
 // Like the TPU grid, every group of an expert re-reads that expert's
-// weight tile (r reads per expert); sharing them is later work.
+// weight tile (r reads per expert, from L2); sharing them in shared memory
+// is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -154,8 +166,8 @@ int launch(const void* x, const void* w, const int* counts, void* out, int G, in
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it); counts is a
-// device int32 (G,) vector.  G must be a multiple of E.
+// The CUDA-core path.  dtype: 0 = float32, 1 = bfloat16 (x, w and out share
+// it); counts is a device int32 (G,) vector.  G must be a multiple of E.
 extern "C" int vortex_grouped_gemm_launch(const void* x, const void* w, const void* counts,
                                           void* out, int G, int E, int C, int N, int K,
                                           int block_m, int block_n, int block_k, int dtype,
@@ -169,4 +181,36 @@ extern "C" int vortex_grouped_gemm_launch(const void* x, const void* w, const vo
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, c, out, G, E, C, N, K, block_m, block_n, block_k, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core path (bf16): the tile plan (wm, wn, nw, atoms, stages,
+// smem_bytes) comes from kernels/gemm.py `tensor_core_plan`.
+extern "C" int vortex_grouped_gemm_tc_launch(const void* x, const void* w, const void* counts,
+                                             void* out, int G, int E, int C, int N, int K,
+                                             int block_m, int block_n, int block_k, int wm,
+                                             int wn, int nw, int atoms, int stages,
+                                             int smem_bytes, void* stream) {
+  if (G <= 0 || C <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (E <= 0 || G % E != 0 || K < 0 || block_m <= 0) return (int)cudaErrorInvalidValue;
+  tc::Args p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.counts = static_cast<const int*>(counts);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.rows = C;
+  p.N = N;
+  p.K = K;
+  p.m_true = C;
+  p.r = G / E;
+  p.gm = (C + block_m - 1) / block_m;
+  p.block_m = block_m;
+  p.block_n = block_n;
+  p.block_k = block_k;
+  p.wm = wm;
+  p.wn = wn;
+  p.stages = stages;
+  p.vec_x = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.vec_w = N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return tc::launch(p, G, nw, atoms, smem_bytes, static_cast<cudaStream_t>(stream));
 }

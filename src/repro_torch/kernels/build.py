@@ -4,9 +4,10 @@ The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
 source started together, then linked into one shared library with a plain
 C interface that :mod:`ctypes` loads.  The library lands in
 ``csrc/_build/`` (listed in ``.gitignore``) under a name keyed by the
-sources' content hash, so an edited source rebuilds and a built one is
-reused.  Nothing here runs at import time: the CPU-only test environment
-imports every module and has no ``nvcc``.
+content hash of every ``csrc/*.cu`` and ``csrc/*.cuh``, so an edited
+source or header rebuilds and a built one is reused.  Nothing here runs
+at import time: the CPU-only test environment imports every module and
+has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -58,9 +59,9 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -97,6 +98,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vortex_gemm_launch.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.vortex_gemm_launch.restype = i
+    lib.vortex_gemm_tc_launch.argtypes = [
+        vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, vp,
+    ]
+    lib.vortex_gemm_tc_launch.restype = i
     lib.flash_attention_launch.argtypes = [
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, vp,
     ]
@@ -105,6 +110,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp,
     ]
     lib.vortex_grouped_gemm_launch.restype = i
+    lib.vortex_grouped_gemm_tc_launch.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, i, vp,
+    ]
+    lib.vortex_grouped_gemm_tc_launch.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -6,13 +6,17 @@ accumulator, rows at or past the runtime ``m_true`` read as zero (the pad
 tail may hold NaN), K/N tails masked, and the selected tile
 (block_m, block_n, block_k) honoured verbatim.
 
-Bound on the H100: compute (tensor-core rate) at the served shapes; the
-kernel runs its FMAs on the CUDA cores through a shared-memory staged,
-register-tiled loop (see the note in csrc/gemm.cu).  A tensor on the CPU
-takes :func:`vortex_gemm_plain`; a CUDA tensor launches the kernel or
-raises.
+Bound on the H100: the bytes moved or the tensor-core rate at the served
+shapes.  The kernel has one path per backend of the H100 lattice (see the
+notes in csrc/gemm.cu and csrc/tc_tile.cuh): ``tensor_core``, a wgmma tile
+on a cp.async ring planned by :func:`tensor_core_plan`, and ``cuda_core``,
+f32 FMAs through a shared-memory staged, register-tiled loop.  A tensor on
+the CPU takes :func:`vortex_gemm_plain`; a CUDA tensor launches the kernel
+or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,14 +24,30 @@ from repro_torch.kernels.ref import ref_gemm
 
 __all__ = [
     "vortex_gemm", "vortex_gemm_plain", "validate_blocks", "gemm_smem_bytes",
-    "LAUNCHES",
+    "BACKENDS", "TensorCorePlan", "tensor_core_plan", "check_backend",
+    "kernel_path", "LAUNCHES",
 ]
 
 # Launches of the CUDA kernel, counted where it is launched and nowhere
-# else; chip_smoke.py zeroes it around the main path.
-LAUNCHES = {"vortex_gemm": 0}
+# else: the total, and each path (``kernel_path``) on its own.
+# chip_smoke.py zeroes them around the main path.
+LAUNCHES = {
+    "vortex_gemm": 0, "vortex_gemm.tensor_core": 0, "vortex_gemm.cuda_core": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The H100 lattice's backends (core/hardware.py H100_SXM).
+BACKENDS = ("tensor_core", "cuda_core")
+TENSOR_CORE_ATOM = (64, 8, 16)  # wgmma m64nNk16, bf16
+SMEM_PER_BLOCK = 232448  # the most shared memory one block may use
+_MAX_STAGES = 4
+# (atom width, atoms per warpgroup) pairs built in csrc/tc_tile.cuh: at most
+# 64 f32 accumulators a thread.
+_TC_VARIANTS = frozenset({
+    (8, 1), (8, 2), (8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (16, 8),
+    (32, 1), (32, 2), (32, 4), (64, 1), (64, 2), (128, 1),
+})
 
 
 def validate_blocks(kind: str, **blocks: int) -> None:
@@ -42,8 +62,108 @@ def validate_blocks(kind: str, **blocks: int) -> None:
 
 
 def gemm_smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
-    """Shared memory one block of csrc/gemm.cu uses (mirrors its launch)."""
+    """Shared memory one block of csrc/gemm.cu's CUDA-core path uses
+    (mirrors its launch)."""
     return min(block_k, 16) * (min(block_m, 64) + min(block_n, 64)) * 4
+
+
+class TensorCorePlan(NamedTuple):
+    """How csrc/tc_tile.cuh runs one (block_m, block_n, block_k) tile: a
+    ``wm`` x ``wn`` grid of warpgroups, each owning ``atoms`` 64 x
+    ``n_atom`` wgmma accumulators, over a ring of ``stages`` k-steps in
+    ``smem_bytes`` of shared memory."""
+
+    wm: int
+    wn: int
+    n_atom: int
+    atoms: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def warpgroups(self) -> int:
+        return self.wm * self.wn
+
+    @property
+    def threads(self) -> int:
+        return 128 * self.warpgroups
+
+    @property
+    def acc_per_thread(self) -> int:
+        """f32 accumulator registers a thread holds."""
+        return self.atoms * self.n_atom // 2
+
+
+def tensor_core_plan(block_m: int, block_n: int, block_k: int) -> TensorCorePlan:
+    """The launch plan of the tensor-core path for a tile, or ValueError
+    when the path cannot honour the tile (it is never clamped).
+
+    Warpgroups split the tile's 64-row atoms first (up to 4), then its
+    columns into slices of at least 64; each warpgroup's slice is cut into
+    atoms of the widest power of two up to 128 that divides it.  The ring
+    holds as many k-steps (2 to 4) as stay within the tile's priced
+    footprint, ``l1_tile_bytes`` = 2 stages + the f32 accumulator
+    (core/workloads.py); the epilogue stages the bf16 tile, rows padded by
+    8, in the same shared memory.
+    """
+    am, an, ak = TENSOR_CORE_ATOM
+    if block_m % am or block_n % an or block_k % ak:
+        raise ValueError(
+            f"tensor_core tile ({block_m}, {block_n}, {block_k}) is not a "
+            f"multiple of the wgmma atom {TENSOR_CORE_ATOM}"
+        )
+    m_atoms = block_m // am
+    wm = max(d for d in (4, 3, 2, 1) if m_atoms % d == 0)
+    wn = 1
+    while wm * wn * 2 <= 4 and block_n % (wn * 2 * 64) == 0:
+        wn *= 2
+    cols = block_n // wn
+    n_atom = max(w for w in (128, 64, 32, 16, 8) if cols % w == 0)
+    atoms = (m_atoms // wm) * (cols // n_atom)
+    if (n_atom, atoms) not in _TC_VARIANTS:
+        raise ValueError(
+            f"tensor_core tile ({block_m}, {block_n}, {block_k}) needs "
+            f"{atoms} accumulators of 64 x {n_atom} a warpgroup; the kernel "
+            f"is built for {sorted(_TC_VARIANTS)}"
+        )
+    stage = 2 * (block_m * block_k + block_k * block_n)
+    budget = min(2 * stage + 4 * block_m * block_n, SMEM_PER_BLOCK)
+    stages = 2
+    while stages < _MAX_STAGES and (stages + 1) * stage <= budget:
+        stages += 1
+    smem = max(stages * stage, 2 * block_m * (block_n + 8))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"tensor_core tile ({block_m}, {block_n}, {block_k}) needs {smem} "
+            f"bytes of shared memory; a block has {SMEM_PER_BLOCK}"
+        )
+    return TensorCorePlan(wm, wn, n_atom, atoms, stages, smem)
+
+
+def check_backend(
+    kind: str, backend: str, block_m: int, block_n: int, block_k: int
+) -> TensorCorePlan | None:
+    """Validate the (backend, tile) pair: the tensor-core plan, or None for
+    ``cuda_core`` (whose FMA loop takes any positive tile)."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"{kind}: unknown backend {backend!r}; the kernels serve {BACKENDS}"
+        )
+    if backend == "cuda_core":
+        return None
+    try:
+        return tensor_core_plan(block_m, block_n, block_k)
+    except ValueError as e:
+        raise ValueError(f"{kind}: {e}") from None
+
+
+def kernel_path(plan: TensorCorePlan | None, dtype: torch.dtype) -> str:
+    """The path a launch takes, fixed before it from the backend and dtype:
+    bf16 at a ``tensor_core`` strategy runs the wgmma tile; a ``cuda_core``
+    strategy, and float32 at either backend, run the FMA loop (Hopper has no
+    exact f32 tensor-core product: TF32 keeps about 3 digits)."""
+    return "tensor_core" if plan is not None and dtype == torch.bfloat16 \
+        else "cuda_core"
 
 
 def vortex_gemm_plain(a, b, m_true=None, out_dtype=None) -> torch.Tensor:
@@ -64,12 +184,21 @@ def vortex_gemm(
     block_m: int = 128,
     block_n: int = 128,
     block_k: int = 128,
+    backend: str = "cuda_core",
     out_dtype=None,
 ) -> torch.Tensor:
     """C = A @ B with the Vortex layer-1 tile as the launch geometry.
 
     ``m_true`` (a Python int) is the number of real leading rows of ``a``;
     the rest of ``a`` is never read.  The output has ``a``'s dtype.
+
+    ``backend`` is the selected strategy's backend.  The (backend, tile)
+    pair is validated first, on every device: an unknown backend, or a
+    ``tensor_core`` tile that is not a multiple of (64, 8, 16) or that the
+    wgmma tile cannot hold, raises ``ValueError``.  On the card the path is
+    fixed before the launch (:func:`kernel_path`): bf16 at ``tensor_core``
+    runs wgmma on a cp.async ring; ``cuda_core``, and float32 at either
+    backend, run f32 FMAs on the CUDA cores.
     """
     M, K = a.shape
     K2, N = b.shape
@@ -78,6 +207,7 @@ def vortex_gemm(
     validate_blocks(
         "vortex_gemm", block_m=block_m, block_n=block_n, block_k=block_k
     )
+    plan = check_backend("vortex_gemm", backend, block_m, block_n, block_k)
     m_true = M if m_true is None else int(m_true)
     if a.device.type == "cpu":
         return vortex_gemm_plain(a, b, m_true, out_dtype)
@@ -95,21 +225,34 @@ def vortex_gemm(
         raise TypeError("vortex_gemm: the kernel writes the operands' dtype")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("vortex_gemm: operands must be contiguous")
-    if -(-M // block_m) > 65535:
+    path = kernel_path(plan, a.dtype)
+    # grid y: column blocks on the tensor-core path, row blocks on the other.
+    y_blocks = -(-N // block_n) if path == "tensor_core" else -(-M // block_m)
+    if y_blocks > 65535:
         raise ValueError(
-            f"vortex_gemm: {-(-M // block_m)} row blocks exceed the grid's "
-            "y limit of 65535"
+            f"vortex_gemm: {y_blocks} blocks exceed the grid's y limit of 65535"
         )
     from repro_torch.kernels.build import library
 
     lib = library()
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    rc = lib.vortex_gemm_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-        max(0, min(m_true, M)), block_m, block_n, block_k,
-        _DTYPE_CODE[a.dtype], torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    m_live = max(0, min(m_true, M))
+    if path == "tensor_core":
+        rc = lib.vortex_gemm_tc_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, m_live,
+            block_m, block_n, block_k, plan.wm, plan.wn, plan.n_atom,
+            plan.atoms, plan.stages, plan.smem_bytes, stream,
+        )
+    else:
+        rc = lib.vortex_gemm_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, m_live,
+            block_m, block_n, block_k, _DTYPE_CODE[a.dtype], stream,
+        )
     if rc:
-        raise RuntimeError(f"vortex_gemm: kernel launch failed (cudaError {rc})")
+        raise RuntimeError(
+            f"vortex_gemm: {path} kernel launch failed (cudaError {rc})"
+        )
     LAUNCHES["vortex_gemm"] += 1
+    LAUNCHES[f"vortex_gemm.{path}"] += 1
     return out

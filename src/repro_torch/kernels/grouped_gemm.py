@@ -9,24 +9,30 @@ count: rows at or past it may hold anything (NaN included) and the
 matching output rows are exactly zero.  One launch covers every group,
 and the selected tile (block_m, block_n, block_k) is honoured verbatim.
 
-Bound on the H100: the tensor cores in prefill, the expert weights' bytes
-in decode (see the note in csrc/grouped_gemm.cu).  A tensor on the CPU
-takes :func:`vortex_grouped_gemm_plain`; a CUDA tensor launches the kernel
-or raises.  ``counts`` stays on the device: the kernel reads it there, so
+Bound on the H100: the bytes of the expert weights and the output (see
+the note in csrc/grouped_gemm.cu).  The kernel has the same two paths as
+csrc/gemm.cu: a wgmma tile on a cp.async ring for bf16 at a
+``tensor_core`` strategy, f32 FMAs on the CUDA cores otherwise.  A tensor
+on the CPU takes :func:`vortex_grouped_gemm_plain`; a CUDA tensor launches
+the kernel or raises.  ``counts`` stays on the device: the kernel reads it there, so
 the wrapper never waits for routing to finish.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.gemm import validate_blocks
+from repro_torch.kernels.gemm import check_backend, kernel_path, validate_blocks
 from repro_torch.kernels.ref import ref_grouped_gemm
 
 __all__ = ["vortex_grouped_gemm", "vortex_grouped_gemm_plain", "LAUNCHES"]
 
 # Launches of the CUDA kernel, counted where it is launched and nowhere
-# else; chip_smoke.py zeroes it around the main path.
-LAUNCHES = {"vortex_grouped_gemm": 0}
+# else: the total, and each path (``kernel_path``) on its own.
+# chip_smoke.py zeroes them around the main path.
+LAUNCHES = {
+    "vortex_grouped_gemm": 0, "vortex_grouped_gemm.tensor_core": 0,
+    "vortex_grouped_gemm.cuda_core": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,12 +52,20 @@ def vortex_grouped_gemm(
     block_m: int = 128,
     block_n: int = 128,
     block_k: int = 128,
+    backend: str = "cuda_core",
 ) -> torch.Tensor:
     """``(G, C, N)`` grouped product; the output has ``x``'s dtype.
 
     ``counts`` is a ``(G,)`` integer tensor (on the card: on ``x``'s
     device) or a sequence of ints.  Non-contiguous operands are made
     contiguous (a copy): the kernel walks dense row-major slabs.
+
+    ``backend`` is the selected strategy's backend, validated with the
+    tile on every device as in :func:`~repro_torch.kernels.gemm.vortex_gemm`.
+    On the card the path is fixed before the launch: bf16 at
+    ``tensor_core`` runs wgmma on a cp.async ring; ``cuda_core``, and
+    float32 at either backend, run f32 FMAs on the CUDA cores (Hopper has
+    no exact f32 tensor-core product).
     """
     G, C, K = x.shape
     E, K2, N = w.shape
@@ -64,6 +78,8 @@ def vortex_grouped_gemm(
         "vortex_grouped_gemm", block_m=block_m, block_n=block_n,
         block_k=block_k,
     )
+    plan = check_backend("vortex_grouped_gemm", backend, block_m, block_n,
+                         block_k)
     if x.device.type == "cpu":
         return vortex_grouped_gemm_plain(x, w, counts)
     if x.device.type != "cuda" or w.device != x.device:
@@ -93,14 +109,24 @@ def vortex_grouped_gemm(
 
     lib = library()
     out = torch.empty((G, C, N), dtype=x.dtype, device=x.device)
-    rc = lib.vortex_grouped_gemm_launch(
-        x.data_ptr(), w.data_ptr(), cnt.data_ptr(), out.data_ptr(),
-        G, E, C, N, K, block_m, block_n, block_k, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    path = kernel_path(plan, x.dtype)
+    if path == "tensor_core":
+        rc = lib.vortex_grouped_gemm_tc_launch(
+            x.data_ptr(), w.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+            G, E, C, N, K, block_m, block_n, block_k, plan.wm, plan.wn,
+            plan.n_atom, plan.atoms, plan.stages, plan.smem_bytes, stream,
+        )
+    else:
+        rc = lib.vortex_grouped_gemm_launch(
+            x.data_ptr(), w.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+            G, E, C, N, K, block_m, block_n, block_k, _DTYPE_CODE[x.dtype],
+            stream,
+        )
     if rc:
         raise RuntimeError(
-            f"vortex_grouped_gemm: kernel launch failed (cudaError {rc})"
+            f"vortex_grouped_gemm: {path} kernel launch failed (cudaError {rc})"
         )
     LAUNCHES["vortex_grouped_gemm"] += 1
+    LAUNCHES[f"vortex_grouped_gemm.{path}"] += 1
     return out

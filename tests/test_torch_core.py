@@ -7,9 +7,11 @@ starts and entries, and ``select(m)`` for every m up to m_max — the same
 numpy arithmetic on the same inputs, so equality, not a tolerance.  The
 H100 spec has no reference; it gets structural checks.
 """
+import dataclasses
 import math
 
 import numpy as np
+import torch
 import pytest
 
 pytest.importorskip("jax")
@@ -33,7 +35,11 @@ from repro_torch.core.analyzer import HybridAnalyzer  # noqa: E402
 from repro_torch.core.candidates import generate_lattice  # noqa: E402
 from repro_torch.core.selector import RuntimeSelector  # noqa: E402
 from repro_torch.kernels.attention import attention_smem_bytes  # noqa: E402
-from repro_torch.kernels.gemm import gemm_smem_bytes  # noqa: E402
+from repro_torch.kernels.gemm import (  # noqa: E402
+    SMEM_PER_BLOCK,
+    gemm_smem_bytes,
+    tensor_core_plan,
+)
 
 M_MAX = 300  # not tile-aligned on purpose
 
@@ -155,12 +161,80 @@ def test_h100_lattice_fits_the_card(wl, backend):
         m1, n1, k1 = tile
         # Every tile the lattice admits launches: the kernel's shared
         # memory never exceeds the priced footprint.
-        if wl.kind == "gemm":
+        if wl.kind == "gemm" and backend == "tensor_core":
+            # The wgmma tile's launch plan (csrc/tc_tile.cuh) for every
+            # tensor_core tile: it fits the priced footprint and a block,
+            # with 1-4 warpgroups and the accumulator in registers.
+            plan = tensor_core_plan(m1, n1, k1)
+            assert plan.smem_bytes <= bound
+            assert plan.smem_bytes <= SMEM_PER_BLOCK == smem_cap
+            assert 1 <= plan.warpgroups <= 4
+            assert plan.acc_per_thread <= 128
+            assert plan.acc_per_thread * plan.threads == m1 * n1
+            assert gemm_smem_bytes(m1, n1, k1) <= bound  # f32 at this tile
+        elif wl.kind == "gemm":
             assert gemm_smem_bytes(m1, n1, k1) <= bound
         else:
             d = wl.head_dim
             assert attention_smem_bytes(m1, k1, d) <= bound
             assert attention_smem_bytes(1, k1, d) <= bound  # decode form
+
+
+def _h100_selection(wl, m, backend):
+    """The H100 selector's pick at M, with its strategy moved to
+    ``backend`` when it picked the other one."""
+    hw = H100_SXM
+    scored = _scored(hw, wl, HybridAnalyzer, TableProfiler(hw), generate_lattice)
+    sel = RuntimeSelector(
+        hw, wl, scored, num_cores=hw.level(2).parallel_units, table_m_max=256,
+    ).select(m)
+    if sel.strategy.backend != backend:
+        tiles = generate_lattice(hw, wl, backend).l1
+        strategy = dataclasses.replace(
+            sel.strategy, tiles=(tiles[0],) * len(sel.strategy.tiles),
+            backend=backend)
+        sel = dataclasses.replace(sel, strategy=strategy, backend=backend)
+    return sel
+
+
+@pytest.mark.parametrize("backend", ["tensor_core", "cuda_core"])
+@pytest.mark.parametrize("kind", ["gemm", "grouped_gemm", "conv2d"])
+def test_cuda_executables_pass_the_selected_backend(kind, backend,
+                                                    monkeypatch):
+    """The impl="cuda" executables hand ``sel.strategy.backend`` to the
+    kernel wrapper with the tile (recorded here on CPU tensors)."""
+    import repro_torch.kernels.gemm as kgemm
+    import repro_torch.kernels.grouped_gemm as kgrouped
+    from repro_torch.core.workloads import (
+        Conv2dWorkload,
+        GroupedGemmWorkload,
+    )
+
+    calls = []
+
+    def recorder(name):
+        def fn(*args, block_m, block_n, block_k, backend):
+            calls.append((name, (block_m, block_n, block_k), backend))
+        return fn
+
+    monkeypatch.setattr(kgemm, "vortex_gemm", recorder("gemm"))
+    monkeypatch.setattr(kgrouped, "vortex_grouped_gemm", recorder("grouped"))
+    if kind == "gemm":
+        wl, args = GemmWorkload(M=None, N=64, K=32), (
+            torch.zeros(64, 32), torch.zeros(32, 64), 40)
+    elif kind == "grouped_gemm":
+        wl, args = GroupedGemmWorkload(C=None, G=4, E=2, N=64, K=32), (
+            torch.zeros(4, 64, 32), torch.zeros(2, 32, 64),
+            torch.zeros(4, dtype=torch.int32))
+    else:
+        wl = Conv2dWorkload(m=None, cin=4, cout=8, kh=3, kw=3)
+        args = (torch.zeros(64, 36), torch.zeros(36, 8), 64)
+    sel = _h100_selection(wl, 64, backend)
+    wl.build_executable(sel, impl="cuda")(*args)
+    assert calls == [(
+        "grouped" if kind == "grouped_gemm" else "gemm", sel.strategy.l1,
+        backend,
+    )]
 
 
 @pytest.mark.parametrize("wl", H100_WLS, ids=["g768", "g3072", "a64", "a16"])

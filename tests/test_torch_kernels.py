@@ -16,6 +16,8 @@ kernels are held
 against the same plain versions on the card (the ``cuda``-marked case
 here, and chip_smoke.py).
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +26,14 @@ from repro_torch.kernels.attention import (
     flash_attention,
     flash_attention_plain,
 )
-from repro_torch.kernels.conv import im2col, vortex_conv2d
-from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
+from repro_torch.kernels import build
+from repro_torch.kernels.conv import conv_weight_matrix, im2col, vortex_conv2d
+from repro_torch.kernels.gemm import (
+    kernel_path,
+    tensor_core_plan,
+    vortex_gemm,
+    vortex_gemm_plain,
+)
 from repro_torch.kernels.grouped_gemm import (
     vortex_grouped_gemm,
     vortex_grouped_gemm_plain,
@@ -99,6 +107,109 @@ def test_gemm_rejects_degenerate_blocks():
     a, b = torch.zeros(4, 4), torch.zeros(4, 4)
     with pytest.raises(ValueError):
         vortex_gemm(a, b, block_m=0, block_n=8, block_k=8)
+
+
+# (backend, block_m, block_n, block_k) pairs no kernel path can honour: an
+# unknown backend, and tensor_core tiles off the (64, 8, 16) wgmma atom.
+BAD_BACKEND_TILES = {
+    "unknown_backend": ("mxu", 64, 8, 16),
+    "tc_block_m_16": ("tensor_core", 16, 8, 16),
+    "tc_block_n_12": ("tensor_core", 64, 12, 16),
+    "tc_block_k_8": ("tensor_core", 64, 8, 8),
+}
+
+
+def _call_on_cpu(kernel, backend, bm, bn, bk, dtype=torch.bfloat16):
+    if kernel == "gemm":
+        a, b = torch.ones(70, 24, dtype=dtype), torch.ones(24, 40, dtype=dtype)
+        return vortex_gemm(a, b, 65, block_m=bm, block_n=bn, block_k=bk,
+                           backend=backend), vortex_gemm_plain(a, b, 65)
+    if kernel == "grouped_gemm":
+        x, w = torch.ones(4, 9, 24, dtype=dtype), torch.ones(2, 24, 40, dtype=dtype)
+        counts = [9, 0, 3, 5]
+        return vortex_grouped_gemm(
+            x, w, counts, block_m=bm, block_n=bn, block_k=bk, backend=backend,
+        ), vortex_grouped_gemm_plain(x, w, counts)
+    x, w = torch.ones(1, 9, 9, 3, dtype=dtype), torch.ones(3, 3, 3, 8, dtype=dtype)
+    cols, (b_, ho, wo) = im2col(x, 3, 3)
+    return vortex_conv2d(x, w, block_m=bm, block_n=bn, block_k=bk,
+                         backend=backend), \
+        vortex_gemm_plain(cols, conv_weight_matrix(w)).reshape(b_, ho, wo, 8)
+
+
+@pytest.mark.parametrize("kernel", ["gemm", "grouped_gemm", "conv2d"])
+@pytest.mark.parametrize("bad", list(BAD_BACKEND_TILES))
+def test_backend_and_tile_are_validated_before_the_cpu_branch(kernel, bad):
+    backend, bm, bn, bk = BAD_BACKEND_TILES[bad]
+    with pytest.raises(ValueError):
+        _call_on_cpu(kernel, backend, bm, bn, bk)
+
+
+@pytest.mark.parametrize("kernel", ["gemm", "grouped_gemm", "conv2d"])
+@pytest.mark.parametrize("backend,tile", [
+    ("tensor_core", (64, 8, 16)), ("tensor_core", (512, 32, 64)),
+    ("cuda_core", (16, 12, 8)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_both_backends_run_the_plain_version_on_cpu(kernel, backend, tile, dtype):
+    out, ref = _call_on_cpu(kernel, backend, *tile, dtype=getattr(torch, dtype))
+    assert out.dtype == ref.dtype
+    assert torch.equal(out, ref)
+
+
+def test_kernel_path_is_fixed_by_backend_and_dtype():
+    plan = tensor_core_plan(64, 8, 64)
+    assert kernel_path(plan, torch.bfloat16) == "tensor_core"
+    # Hopper has no exact f32 tensor-core product: f32 takes the FMA loop.
+    assert kernel_path(plan, torch.float32) == "cuda_core"
+    assert kernel_path(None, torch.bfloat16) == "cuda_core"
+    assert kernel_path(None, torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("tile,plan", [
+    # (block_m, block_n, block_k) -> (wm, wn, n_atom, atoms, stages, smem)
+    ((64, 8, 64), (1, 1, 8, 1, 2, 18432)),
+    ((64, 16, 64), (1, 1, 16, 1, 2, 20480)),
+    ((512, 32, 64), (4, 1, 32, 2, 2, 139264)),
+    ((64, 512, 16), (1, 4, 128, 1, 4, 73728)),
+    ((2048, 16, 16), (4, 1, 16, 8, 3, 198144)),
+])
+def test_tensor_core_plan_of_served_and_extreme_tiles(tile, plan):
+    assert tuple(tensor_core_plan(*tile)) == plan
+
+
+def test_tensor_core_plan_refuses_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError):  # 96 accumulators of 64 x 8
+        tensor_core_plan(64 * 12, 8, 16)
+    with pytest.raises(ValueError):  # past a block's shared memory
+        tensor_core_plan(64, 8, 4096)
+
+
+def test_launch_counts_report_each_path_beside_the_totals():
+    from repro_torch import kernels
+
+    counts = kernels.launch_counts()
+    for name in ("vortex_gemm", "vortex_grouped_gemm"):
+        assert {name, f"{name}.tensor_core", f"{name}.cuda_core"} <= set(counts)
+    # The plain versions on the CPU launch nothing.
+    kernels.reset_launch_counts()
+    vortex_gemm(torch.ones(64, 16, dtype=torch.bfloat16),
+                torch.ones(16, 8, dtype=torch.bfloat16), block_m=64,
+                block_n=8, block_k=16, backend="tensor_core")
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_build_digest_changes_when_a_header_changes(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc,
+                    ignore=shutil.ignore_patterns("_build"))
+    monkeypatch.setattr(build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share a device header"
+    before = build._digest()
+    assert build._digest() == before
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    assert build._digest() != before
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +296,21 @@ GROUPED_CASES = {
     "r1": (3, 3, 20, 24, 40, [0, 7, 20], 8, 16, 16),
     "r2_tails": (4, 2, 17, 70, 50, [17, 0, 5, 16], 16, 32, 16),
     "r4": (8, 2, 9, 32, 24, [9, 1, 0, 9, 3, 8, 0, 2], 8, 8, 32),
+}
+
+
+# The same kinds of case at tensor_core tiles (multiples of (64, 8, 16)): a
+# NaN tail inside a 64-row atom, ragged K/N, the largest accumulator.
+TC_GEMM_CASES = [
+    (100, 96, 80, 77, 64, 64, 32),
+    (33, 50, 70, 33, 64, 8, 16),
+    (130, 1024, 64, 129, 64, 512, 16),
+    (700, 64, 576, 650, 512, 32, 64),
+]
+TC_GROUPED_CASES = {
+    "tc_r2_tails": (4, 2, 17, 70, 50, [17, 0, 5, 16], 64, 8, 16),
+    "tc_counts_0_1_partial_c": (8, 2, 70, 64, 96, [70, 0, 1, 33, 5, 64, 0, 69],
+                                64, 32, 32),
 }
 
 
@@ -321,6 +447,18 @@ def test_cuda_kernels_match_plain_on_card():
             out = vortex_gemm(a, b, m_true, block_m=bm, block_n=bn, block_k=bk)
             ref = vortex_gemm_plain(a, b, m_true)
             _close(out.cpu(), ref.float().cpu().numpy(), tol, "gemm")
+        for M, N, K, m_true, bm, bn, bk in TC_GEMM_CASES:
+            rng = np.random.default_rng(M)
+            a = torch.from_numpy(
+                rng.standard_normal((M, K)).astype(np.float32)).to(dev, dtype)
+            b = torch.from_numpy(
+                rng.standard_normal((K, N)).astype(np.float32)).to(dev, dtype)
+            a[m_true:] = float("nan")
+            out = vortex_gemm(a, b, m_true, block_m=bm, block_n=bn, block_k=bk,
+                              backend="tensor_core")
+            assert (out[m_true:] == 0).all()
+            ref = vortex_gemm_plain(a, b, m_true)
+            _close(out.cpu(), ref.float().cpu().numpy(), tol, "gemm tensor_core")
         for name, case in ATTN_CASES.items():
             (b_, hq, hkv, sq, skv, d, bq, bk_, causal, window, softcap,
              kv_len, q_off) = case
@@ -354,6 +492,17 @@ def test_cuda_grouped_gemm_matches_plain_on_card():
             x, w = x.to(dtype), w.to(dtype)
             out = vortex_grouped_gemm(x, w, counts, block_m=bm, block_n=bn,
                                       block_k=bk)
+            ref = vortex_grouped_gemm_plain(x, w, counts)
+            for g, n in enumerate(counts.tolist()):
+                assert (out[g, n:] == 0).all(), (name, g)
+            _close(out.cpu(), ref.float().cpu().numpy(), tol, name)
+        for name, case in TC_GROUPED_CASES.items():
+            bm, bn, bk = case[6:]
+            x, w, counts = (torch.from_numpy(a).to(dev) for a in
+                            _grouped_inputs(case, seed=len(name)))
+            x, w = x.to(dtype), w.to(dtype)
+            out = vortex_grouped_gemm(x, w, counts, block_m=bm, block_n=bn,
+                                      block_k=bk, backend="tensor_core")
             ref = vortex_grouped_gemm_plain(x, w, counts)
             for g, n in enumerate(counts.tolist()):
                 assert (out[g, n:] == 0).all(), (name, g)
