@@ -3,8 +3,8 @@ tiles, measured on one NVIDIA GPU.
 
     PYTHONPATH=src python benchmarks_torch/tile_sweep.py [--extra 5]
 
-For each of the shapes the main paths give the two wgmma kernels
-(PERF.md's kernel table, rows 1, 3a, 3b and 4), it takes the H100
+For each of the shapes the main paths give the wgmma kernels (PERF.md's
+kernel table, rows 1, 2a, 3a, 3b and 4), it takes the H100
 selector's predicted runtime cost of every ``tensor_core`` tile of the
 lattice at that extent, and times the selected tile and the ``--extra``
 next-cheapest ones (bf16, device time per call from ``torch.profiler``,
@@ -18,7 +18,13 @@ version first:
   capacity 20 in a 64-row bucket) and of 1 token (decode), counts routed
   top-8 of 32 uniformly from a seed;
 * row 4 — ``vortex_gemm`` on ResNet-50 conv2_x's im2col matrix at batch 8
-  (M = 25,088, N = 64, K = 576; the GEMM only, im2col is not timed).
+  (M = 25,088, N = 64, K = 576; the GEMM only, im2col is not timed);
+* row 2a — ``flash_attention`` prefill on paper-gpt2-124m's largest
+  prefill (q (8, 12, 64, 64), causal, kv_len 64), the selected tile
+  against the next ``tensor_core`` (block_q, block_k) tiles;
+* row 2b — ``flash_attention`` decode on its last decode step (q (8, 12,
+  1, 64) against a 128-row cache, kv_len 71) at every block_k of the
+  lattice, which also sets the number of kv splits.
 
 It only measures: no selection, lattice or cost changes.  The card's name
 and power limit are printed first; the last line is one JSON object with
@@ -40,8 +46,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch import vortex  # noqa: E402
 from repro_torch.core.cost_model import runtime_costs  # noqa: E402
 from repro_torch.core.workloads import (  # noqa: E402
+    AttentionWorkload,
+    DecodeAttentionWorkload,
     GemmWorkload,
     GroupedGemmWorkload,
+)
+from repro_torch.kernels.attention import (  # noqa: E402
+    decode_splits,
+    flash_attention,
+    flash_attention_plain,
 )
 from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain  # noqa: E402
 from repro_torch.kernels.grouped_gemm import (  # noqa: E402
@@ -52,6 +65,7 @@ from repro_torch.models.layers import moe_capacity  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 
 TOL = 2.0 ** -7  # bf16: one ulp of the output scale
+ATTN_TOL = 2.0 ** -6  # bf16 attention: one ulp plus the softmax order
 
 
 def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -103,15 +117,16 @@ def routed_counts(rng, seqs: int, s: int, E: int, k: int, C: int) -> list[int]:
     return [min(c, C) for c in counts]
 
 
-def check(out, ref, where: str) -> float:
+def check(out, ref, where: str, tol: float = TOL) -> float:
     o, r = out.float(), ref.float()
     rel = float((o - r).abs().max() / r.abs().max().clamp_min(1e-6))
-    if not (torch.isfinite(o).all() and rel <= TOL):
-        raise RuntimeError(f"{where}: rel {rel} above {TOL}")
+    if not (torch.isfinite(o).all() and rel <= tol):
+        raise RuntimeError(f"{where}: rel {rel} above {tol}")
     return rel
 
 
-def sweep(name: str, kern, m: int, extra: int, make_call, plain) -> dict:
+def sweep(name: str, kern, m: int, extra: int, make_call, plain,
+          tol: float = TOL) -> dict:
     sel = kern.select(m)
     ranked = ranked_tensor_core_tiles(kern, m)
     chosen = tuple(sel.strategy.l1)
@@ -121,7 +136,7 @@ def sweep(name: str, kern, m: int, extra: int, make_call, plain) -> dict:
     rows = []
     for tile in tiles:
         call = make_call(tile)
-        rel = check(call(), ref, f"{name} {tile}")
+        rel = check(call(), ref, f"{name} {tile}", tol)
         rows.append({"tile": list(tile), "predicted_us": cost[tile] * 1e6,
                      "ms": device_ms(call), "rel_err": rel,
                      "selected": tile == chosen})
@@ -198,6 +213,46 @@ def main() -> int:
         out.append(sweep(name, kern, C, args.extra, grouped_call,
                          lambda x=x, cnt=cnt: vortex_grouped_gemm_plain(
                              x, w, cnt)))
+    # Row 2a: prefill attention at the selected tile and the next ones.
+    hd, H, bp, sp = 64, 12, 8, 64
+    kern = eng.kernel_for(AttentionWorkload(seq=None, head_dim=hd))
+    q, k, v = rnd(bp, H, sp, hd), rnd(bp, H, sp, hd), rnd(bp, H, sp, hd)
+
+    def attn_call(tile):
+        bq, _, bk = tile
+        return lambda: flash_attention(q, k, v, sp, block_q=bq, block_k=bk,
+                                       backend="tensor_core")
+
+    out.append(sweep("row 2a attention prefill", kern, sp, args.extra,
+                     attn_call, lambda: flash_attention_plain(q, k, v, sp),
+                     ATTN_TOL))
+
+    # Row 2b: decode attention at every block_k of the lattice.
+    kvb, kv_len = 128, 71
+    kern = eng.kernel_for(DecodeAttentionWorkload(seq=None, head_dim=hd))
+    chosen = kern.select(kvb).strategy.l1[2]
+    q = rnd(bp, H, 1, hd)
+    k, v = rnd(bp, H, kvb, hd), rnd(bp, H, kvb, hd)
+    k[:, :, kv_len:] = float("nan")  # the cache past kv_len
+    v[:, :, kv_len:] = float("nan")
+    ref = flash_attention_plain(q, k, v, kv_len, kv_len - 1, causal=False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for bk in sorted({t[2] for t, _ in ranked_tensor_core_tiles(kern, kvb)}):
+        def call(bk=bk):
+            return flash_attention(q, k, v, kv_len, kv_len - 1, block_q=1,
+                                   block_k=bk, backend="tensor_core",
+                                   causal=False)
+
+        rel = check(call(), ref, f"row 2b decode block_k={bk}", ATTN_TOL)
+        splits = decode_splits(bp * H, kv_len, bk, sms)[1]
+        rows.append({"block_k": bk, "splits": splits, "ms": device_ms(call),
+                     "rel_err": rel, "selected": bk == chosen})
+        print(f"row 2b attention decode: block_k={bk} splits={splits} "
+              f"{'selected ' if bk == chosen else ''}"
+              f"ms={rows[-1]['ms']:.5f} rel={rel:.3g}")
+    out.append({"name": "row 2b attention decode", "m": kvb,
+                "selected": chosen, "tiles": rows})
     print(json.dumps({"card": smi, "sweeps": out}))
     return 0
 

@@ -10,7 +10,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    bfloat16 and float32: the GEMM with NaN-poisoned m_true tails and N/K
    tails that do not divide the block; attention causal and not, window,
    softcap, GQA (granite's 16/8 heads too), per-row kv_len including 0,
-   and decode with q_offset;
+   NaN K/V tails past kv_len, and decode with q_offset; the wgmma prefill
+   kernel at block_q 64-1024 (several warpgroups and rounds, q rows past
+   sq), block_k 16-512 and d = 16, 64 and 128, and the split-kv decode
+   kernel from 1 to many splits, each decode case called twice (its tickets
+   must be reset) and also held against its split-kv plain version.  Every
+   attention case runs under each backend its tile admits and must take the
+   path (prefill.tensor_core, prefill.cuda_core, decode.split_kv) that its
+   form, backend and dtype name;
    the grouped GEMM with NaN past each group's count, counts of 0, 1,
    partial and C, r = G/E of 1 and more, K/N tails, and rows past each
    count exactly 0.  Every GEMM and grouped case runs under each backend
@@ -23,8 +30,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    conv2_x, and (64, 8, 64) at granite's expert widths.
 3. Main path 1: ``vortex.ops.gemm`` at dynamic M in {1, bucket-1, bucket,
    bucket+1, a prime} — exactly one kernel launch per call, 0 padded calls.
-   Phases 3, 3b, 4 and 4b also check that every bf16 launch of the GEMM and
-   the grouped GEMM took the tensor-core path (its launch counter).
+   Phases 3, 3b, 4 and 4b also check that every bf16 launch of the GEMM,
+   the grouped GEMM and prefill attention took the tensor-core path, and
+   every decode-attention launch the split-kv kernel (the launch counters).
 3b. Main path 1b: ``vortex.ops.conv2d`` at ResNet-50 shapes (He et al.
    2016, Table 1; bf16, batch 1, 3, 8): conv2_x 3x3 64->64 on 58x58 and
    conv3_x 3x3 128->128 stride 2 on 57x57 — one GEMM launch per call,
@@ -40,9 +48,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    forward (72), 0 padded grouped calls, the mean dropped_frac, and the
    share of (token, choice) expert assignments that differ between the
    impl="cuda" and impl="torch" runs.
-5. Time each kernel at the main path's shapes beside its plain version,
-   its bound and one PyTorch library call computing the same function
-   (device time per call from torch.profiler).
+5. Time each kernel at the main path's shapes and selected strategy
+   beside its plain version, its bound and one PyTorch library call
+   computing the same function (device time per call from torch.profiler);
+   attention at both servers' shapes (paper-gpt2's 12/12 heads, granite's
+   16/8, whose K/V bytes count over the kv heads).
 6. Print the kernels line, then the result line.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
@@ -147,6 +157,7 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
     from repro_torch.kernels.attention import (
         flash_attention,
         flash_attention_plain,
+        flash_decode_split_plain,
     )
     from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
     from repro_torch.kernels.grouped_gemm import (
@@ -186,6 +197,25 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
         "gqa_16_8": (2, 16, 8, 64, 64, 64, 64, 64, True, None, None, 50, 0),
         "decode_gqa_16_8": (4, 16, 8, 1, 256, 64, 1, 64, False, None, None,
                             [71, 0, 256, 1], [70, -1, 255, 0]),
+        # The wgmma prefill kernel's shapes: several warpgroups (block_q 128,
+        # 256) and rounds (1024 at d = 16), q rows past sq inside the block,
+        # block_k 16 to 512, d = 16 and 128, per-row kv_len with a 0.
+        "bq128_bk128": (2, 8, 8, 200, 256, 64, 128, 128, True, None, None,
+                        190, 0),
+        "bq256_rows_past_sq": (1, 4, 4, 100, 100, 64, 256, 32, True, None,
+                               None, 100, 0),
+        "bk256_gqa": (2, 4, 2, 256, 256, 64, 64, 256, False, None, None,
+                      [230, 0], 0),
+        "d16_bq1024_bk16": (1, 2, 2, 300, 300, 16, 1024, 16, True, None, None,
+                            290, 0),
+        "d16_bk512": (2, 4, 4, 70, 80, 16, 64, 512, False, None, None,
+                      [80, 0], 0),
+        "d128": (1, 4, 2, 200, 200, 128, 128, 64, True, None, None, 180, 0),
+        # The split-kv decode kernel across many splits, d = 128 and 16.
+        "decode_long_d128": (1, 8, 2, 1, 4096, 128, 1, 128, False, None,
+                             None, 3000, 2999),
+        "decode_window_d16": (2, 8, 2, 1, 300, 16, 1, 16, False, 40, 3.0,
+                              [290, 17], [289, 16]),
     }
     # (G, E, C, K, N, counts, block_m, block_n, block_k): r = G/E of 1, 4
     # and 8; counts of 0, partial and C; K/N tails; the last at granite's
@@ -210,6 +240,11 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
 
     def backends(bm, bn, bk):
         tc = bm % 64 == 0 and bn % 8 == 0 and bk % 16 == 0
+        return ("cuda_core", "tensor_core") if tc else ("cuda_core",)
+
+    def attn_backends(form, bq, bk, d):
+        tc = form == "decode" or (
+            bq % 64 == 0 and bk % 16 == 0 and d % 16 == 0 and d <= 256)
         return ("cuda_core", "tensor_core") if tc else ("cuda_core",)
 
     def took(name, backend, dtype, n0):
@@ -242,34 +277,58 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
                 errs["vortex_gemm"] = max(errs["vortex_gemm"], err)
         for name, c in attn_cases.items():
             b_, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv, off = c
-            q = rnd(b_, hq, sq, d, dtype=dtype)
+            q = rnd(b_, hq, sq, d, dtype=dtype) * 2  # peaked softmax rows
             k = rnd(b_, hkv, skv, d, dtype=dtype)
             v = rnd(b_, hkv, skv, d, dtype=dtype)
+            lens = [kv] * b_ if isinstance(kv, int) else kv
+            for i, n in enumerate(lens):
+                k[i, :, n:] = float("nan")  # the staging buffer's tail
+                v[i, :, n:] = float("nan")
             if isinstance(kv, int):
-                k[:, :, kv:] = float("nan")
-                v[:, :, kv:] = float("nan")
                 kv_a, off_a = kv, off
             else:
                 kv_a = torch.tensor(kv, dtype=torch.int32)
                 off_a = torch.tensor(off, dtype=torch.int32) \
                     if isinstance(off, list) else off
-            out = flash_attention(
-                q, k, v, kv_a, off_a, block_q=bq, block_k=bk, causal=causal,
-                window=window, softcap=softcap,
-            )
             ref = flash_attention_plain(
                 q, k, v, kv_a, off_a, causal=causal, window=window,
                 softcap=softcap,
             )
-            err = check(f"flash_attention {name} {dtype}", out, ref,
-                        ATTN_TOL[dtype])
-            if not isinstance(kv, int):
-                for i, n in enumerate(kv):
-                    if n == 0 and not (out[i] == 0).all():
-                        fail(f"flash_attention {name}: kv_len 0 row not zero")
             form = "decode" if sq == 1 else "prefill"
-            key = f"flash_attention_{form}"
-            errs[key] = max(errs[key], err)
+            for backend in attn_backends(form, bq, bk, d):
+                path = ("decode.split_kv" if form == "decode" else
+                        "prefill.tensor_core" if (backend, dtype) == (
+                            "tensor_core", torch.bfloat16) else
+                        "prefill.cuda_core")
+                # Decode twice: the split-kv tickets must be reset.
+                for _ in range(2 if form == "decode" else 1):
+                    n0 = kernels.launch_counts()
+                    out = flash_attention(
+                        q, k, v, kv_a, off_a, block_q=bq, block_k=bk,
+                        backend=backend, causal=causal, window=window,
+                        softcap=softcap,
+                    )
+                    n = kernels.launch_counts()
+                    key = f"flash_attention_{form}"
+                    if n[f"flash_attention_{path}"] - \
+                            n0[f"flash_attention_{path}"] != 1 \
+                            or n[key] - n0[key] != 1:
+                        fail(f"flash_attention {name} {backend} {dtype}: the "
+                             f"launch did not take the {path} path")
+                    err = check(f"flash_attention {name} {dtype} {backend} "
+                                f"{path}", out, ref, ATTN_TOL[dtype])
+                    if form == "decode":
+                        check(f"flash_attention {name} {dtype} {backend} "
+                              "against the split-kv plain version", out,
+                              flash_decode_split_plain(
+                                  q, k, v, kv_a, off_a, bk, causal=causal,
+                                  window=window, softcap=softcap),
+                              ATTN_TOL[dtype])
+                    for i, n_ in enumerate(lens):
+                        if n_ == 0 and not (out[i] == 0).all():
+                            fail(f"flash_attention {name}: kv_len 0 row not "
+                                 "zero")
+                    errs[key] = max(errs[key], err)
         for G, E, C, K, N, counts, bm, bn, bk in grouped_cases:
             x, w = rnd(G, C, K, dtype=dtype), rnd(E, K, N, dtype=dtype)
             for i, n in enumerate(counts):
@@ -295,13 +354,17 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
 
 
 def all_tensor_core(counts: dict, where: str) -> None:
-    """Fails unless every launch of the GEMM and the grouped GEMM in
-    ``counts`` (all bf16 on the main paths) took the tensor-core path."""
-    for name in ("vortex_gemm", "vortex_grouped_gemm"):
-        if counts[f"{name}.tensor_core"] != counts[name]:
-            fail(f"{where}: {counts[name] - counts[f'{name}.tensor_core']} of "
+    """Fails unless every launch of the GEMM, the grouped GEMM and prefill
+    attention in ``counts`` (all bf16 on the main paths) took the
+    tensor-core path, and every decode-attention launch the split-kv one."""
+    for name, path in (("vortex_gemm", "tensor_core"),
+                       ("vortex_grouped_gemm", "tensor_core"),
+                       ("flash_attention_prefill", "tensor_core"),
+                       ("flash_attention_decode", "split_kv")):
+        if counts[f"{name}.{path}"] != counts[name]:
+            fail(f"{where}: {counts[name] - counts[f'{name}.{path}']} of "
                  f"{counts[name]} bf16 {name} launches did not take the "
-                 "tensor-core path")
+                 f"{path} path")
 
 
 # ---------------------------------------------------------------------------
@@ -604,16 +667,6 @@ def phase_serve(dev, kernels, arch: str) -> dict:
 
 
 def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
-    import torch.nn.functional as F
-
-    from repro_torch.core.workloads import (
-        AttentionWorkload,
-        DecodeAttentionWorkload,
-    )
-    from repro_torch.kernels.attention import (
-        flash_attention,
-        flash_attention_plain,
-    )
     from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
 
     dt = torch.bfloat16
@@ -649,78 +702,112 @@ def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
         library_ms=lambda: torch.matmul(a, b),
     ))
 
+    rows += attention_rows(dev, serve_info, errs, g, "")
+    torch.cuda.synchronize()
+    return rows
+
+
+def attention_rows(dev, serve_info, errs, g, tag: str) -> list[dict]:
+    """Rows for prefill and decode attention at the shapes the server gave
+    the kernel, at the selected tile and backend.  The bound reads q and
+    writes the output over the query heads and reads K and V once over the
+    kv heads."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.workloads import (
+        AttentionWorkload,
+        DecodeAttentionWorkload,
+    )
+    from repro_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    dt = torch.bfloat16
+    rows = []
     cfg, server = serve_info["cfg"], serve_info["server"]
     eng = server.engine
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     bp, sp, kvb, kv_len = (serve_info[k] for k in ("bp", "sp", "kvb", "kv_len"))
     counts = serve_info["counts"]
+    gqa = hkv != H
 
     # Prefill: the engine calls the kernel at the bucket shape with
     # kv_len = sp, causal (the whole padded prompt is valid keys).
     sel = eng.kernel_for(AttentionWorkload(seq=None, head_dim=hd)).select(sp)
     m1, _, k1 = sel.strategy.l1
-    q, k, v = (torch.randn(bp, H, sp, hd, generator=g).to(dev, dt)
-               for _ in range(3))
-    err = check("flash_attention prefill at the main path's shape",
-                flash_attention(q, k, v, sp, block_q=m1, block_k=k1),
-                flash_attention_plain(q, k, v, sp), ATTN_TOL[dt])
+    be = sel.strategy.backend
+    q = torch.randn(bp, H, sp, hd, generator=g).to(dev, dt)
+    k, v = (torch.randn(bp, hkv, sp, hd, generator=g).to(dev, dt)
+            for _ in range(2))
+
+    def pre():
+        return flash_attention(q, k, v, sp, block_q=m1, block_k=k1,
+                               backend=be)
+
+    err = check(f"flash_attention prefill{tag} at the main path's shape",
+                pre(), flash_attention_plain(q, k, v, sp), ATTN_TOL[dt])
     errs["flash_attention_prefill"] = max(errs["flash_attention_prefill"], err)
     flops = 4.0 * hd * bp * H * sp * (sp + 1) / 2  # causal keys per row
-    bnd, by = bound_ms(4 * bp * H * sp * hd * 2, flops, dt)
+    nbytes = 2 * (2 * bp * H * sp * hd + 2 * bp * hkv * sp * hd)
+    bnd, by = bound_ms(nbytes, flops, dt)
     rows.append(timed(
         {
-            "name": "flash_attention (prefill)", "route": "cuda",
-            "source": "src/repro_torch/csrc/attention.cu",
+            "name": f"flash_attention (prefill{tag})", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention_tc.cu"
+            if (be, dt) == ("tensor_core", torch.bfloat16)
+            else "src/repro_torch/csrc/attention.cu",
             "replaces": "src/repro/kernels/attention.py:125",
             "launches": counts["flash_attention_prefill"],
             "max_abs_err": errs["flash_attention_prefill"],
             "bound_ms": bnd, "bound_by": by,
-            "shape": f"q=({bp},{H},{sp},{hd}) kv_len={sp} "
-                     f"blocks=({m1},{k1}) causal bf16",
+            "shape": f"{cfg.name} q=({bp},{H},{sp},{hd}) kv heads {hkv} "
+                     f"kv_len={sp} blocks=({m1},{k1}) {be} causal bf16",
         },
-        ms=lambda: flash_attention(q, k, v, sp, block_q=m1, block_k=k1),
+        ms=pre,
         plain_ms=lambda: flash_attention_plain(q, k, v, sp),
         library_ms=lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True),
+            q, k, v, is_causal=True, enable_gqa=gqa),
     ))
 
     # Decode: one query row against the kv-bucket cache, kv_len valid rows.
     sel = eng.kernel_for(DecodeAttentionWorkload(seq=None, head_dim=hd)) \
         .select(kvb)
     k1 = sel.strategy.l1[2]
+    be = sel.strategy.backend
     q = torch.randn(bp, H, 1, hd, generator=g).to(dev, dt)
-    k, v = (torch.randn(bp, H, kvb, hd, generator=g).to(dev, dt)
+    k, v = (torch.randn(bp, hkv, kvb, hd, generator=g).to(dev, dt)
             for _ in range(2))
     mask = (torch.arange(kvb, device=dev) < kv_len)[None, :]
 
     def dec():
         return flash_attention(q, k, v, kv_len, kv_len - 1, block_q=1,
-                               block_k=k1, causal=False)
+                               block_k=k1, backend=be, causal=False)
 
     def dec_plain():
         return flash_attention_plain(q, k, v, kv_len, kv_len - 1,
                                      causal=False)
 
-    err = check("flash_attention decode at the main path's shape",
+    err = check(f"flash_attention decode{tag} at the main path's shape",
                 dec(), dec_plain(), ATTN_TOL[dt])
     errs["flash_attention_decode"] = max(errs["flash_attention_decode"], err)
-    nbytes = 2 * (2 * bp * H * hd + 2 * bp * H * kv_len * hd)
+    nbytes = 2 * (2 * bp * H * hd + 2 * bp * hkv * kv_len * hd)
     bnd, by = bound_ms(nbytes, 4.0 * hd * bp * H * kv_len, dt)
     rows.append(timed(
         {
-            "name": "flash_attention (decode)", "route": "cuda",
-            "source": "src/repro_torch/csrc/attention.cu",
+            "name": f"flash_attention (decode{tag})", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention_decode.cu",
             "replaces": "src/repro/kernels/attention.py:125",
             "launches": counts["flash_attention_decode"],
             "max_abs_err": errs["flash_attention_decode"],
             "bound_ms": bnd, "bound_by": by,
-            "shape": f"q=({bp},{H},1,{hd}) cache={kvb} kv_len={kv_len} "
-                     f"block_k={k1} bf16",
+            "shape": f"{cfg.name} q=({bp},{H},1,{hd}) kv heads {hkv} "
+                     f"cache={kvb} kv_len={kv_len} block_k={k1} {be} bf16",
         },
         ms=dec,
         plain_ms=dec_plain,
         library_ms=lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask),
+            q, k, v, attn_mask=mask, enable_gqa=gqa),
     ))
     torch.cuda.synchronize()
     return rows
@@ -892,6 +979,8 @@ def main() -> int:
     moe_info = phase_serve(dev, kernels, ARCHS[1])
     print(f"phase 4b: VortexServer main path on {ARCHS[1]} ok")
     rows = phase_time(dev, gemm_info, serve_info, errs)
+    rows += attention_rows(dev, moe_info, errs, torch.Generator()
+                           .manual_seed(6), ", granite 16/8")
     rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
     for r in rows:
         print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "

@@ -678,6 +678,7 @@ class AttentionWorkload(Workload):
             self.kind, sel, (("q", pq, m1), ("kv", pkv, k1))
         )
         causal, window, softcap = self.causal, self.window, self.softcap
+        backend = sel.strategy.backend
 
         if impl == "cuda":
             from repro_torch.kernels.attention import flash_attention
@@ -685,7 +686,8 @@ class AttentionWorkload(Workload):
             def fn(q, k, v, kv_len):
                 return flash_attention(
                     q, k, v, kv_len, block_q=m1, block_k=k1,
-                    causal=causal, window=window, softcap=softcap,
+                    backend=backend, causal=causal, window=window,
+                    softcap=softcap,
                 )
 
         elif impl == "torch":
@@ -804,6 +806,7 @@ class DecodeAttentionWorkload(AttentionWorkload):
         _, _, k1 = sel.strategy.l1
         _check_bucket_tiles(self.kind, sel, (("kv", pkv, k1),))
         window, softcap = self.window, self.softcap
+        backend = sel.strategy.backend
 
         if impl == "cuda":
             from repro_torch.kernels.attention import flash_attention
@@ -813,7 +816,7 @@ class DecodeAttentionWorkload(AttentionWorkload):
                 # every key past the query's absolute position kv_len-1.
                 return flash_attention(
                     q, k, v, kv_len, q_offset=kv_len - 1,
-                    block_q=1, block_k=k1, causal=False,
+                    block_q=1, block_k=k1, backend=backend, causal=False,
                     window=window, softcap=softcap,
                 )
 

@@ -1,4 +1,8 @@
-// Masked-tail flash attention for Hopper (sm_90a), prefill and decode forms.
+// Masked-tail flash attention for Hopper (sm_90a) on the CUDA cores: the
+// prefill path of a `cuda_core` strategy, and of float32 at either backend
+// (Hopper has no exact f32 tensor-core product).  bf16 prefill at a
+// `tensor_core` strategy runs csrc/attention_tc.cu, and the decode form
+// csrc/attention_decode.cu; kernels/attention.py fixes the path.
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_attn_kernel`
 // (src/repro/kernels/attention.py).  It computes the same function:
@@ -8,7 +12,8 @@
 // window q_pos - k_pos < window.  Masked scores take the FINITE value
 // -1e30 (never -inf), value rows past kv_len read as zero, and the
 // denominator is floored at 1e-30, so a kv_len == 0 row is exactly zero.
-// Decode is the same kernel at sq == 1, block_q == 1.
+// It also computes the decode form (sq == 1, block_q == 1), which the
+// wrapper sends to csrc/attention_decode.cu instead.
 //
 // Translation, not transliteration: the TPU kernel's sequential kv grid
 // axis becomes a loop inside the block, its VMEM scratch (m, l, acc)
@@ -22,7 +27,7 @@
 // once per q sub-block through shared memory, blocks stop at the row's
 // kv_len (and at the causal frontier), so the bytes touched are what the
 // valid extent needs, not the bucket.  The FMAs run on the CUDA cores in
-// f32; tensor-core (wgmma) tiles are later work.
+// f32.
 //
 // Thread layout: 128 threads per block.  The q block is walked in
 // sub-blocks of QS = min(block_q, 16) rows; each row is owned by a group

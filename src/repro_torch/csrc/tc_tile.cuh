@@ -44,12 +44,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 namespace tc {
 
-constexpr int kWarpgroup = 128;
 constexpr int kMaxThreads = 4 * kWarpgroup;
-constexpr int kSmemMax = 232448;  // the most one block may use on the H100
 
 struct Args {
   const __nv_bfloat16* x;  // (G, rows, K) row-major
@@ -61,59 +61,6 @@ struct Args {
   int wm, wn, stages;
   int vec_x, vec_w, vec_out;  // 16-byte copies allowed (aligned rows)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most `pending` (0-3) committed copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else if (pending == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else if (pending == 2)
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
-}
-
-// Makes this thread's shared-memory writes visible to wgmma's async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns the registers.
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// No-swizzle shared-memory matrix descriptor (swizzle mode 0, base offset 0).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
-}
 
 // wgmma.mma_async m64nNk16, f32 += bf16 (A K-major, B N-major), on the
 // 64 x N accumulator fragment d (N / 2 floats a thread).
@@ -198,24 +145,6 @@ template <> struct Wgmma<128> {
         : "memory");
   }
 };
-
-// 8 bf16 values from src, the first `valid` (0-8) real and the rest zero,
-// stored as 16 bytes at dst.  Reads nothing at or past src + valid.
-__device__ __forceinline__ void load8_masked(void* dst, const __nv_bfloat16* src, int valid) {
-  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-  uint32_t v[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const uint32_t lo = 2 * e < valid ? s[2 * e] : 0u;
-    const uint32_t hi = 2 * e + 1 < valid ? s[2 * e + 1] : 0u;
-    v[e] = lo | (hi << 16);
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store_zero16(void* dst) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
 
 // Fills one ring slot with k-step k0 / block_k: the first a_rows rows of the
 // A tile (the atoms that hold a live row) and the whole B tile.  A refill

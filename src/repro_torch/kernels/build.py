@@ -24,7 +24,10 @@ __all__ = ["library", "CUDA_ERROR_NAMES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("gemm.cu", "attention.cu", "grouped_gemm.cu")
+SOURCES = (
+    "gemm.cu", "attention.cu", "attention_tc.cu", "attention_decode.cu",
+    "grouped_gemm.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -106,6 +109,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, vp,
     ]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_tc_launch.argtypes = [
+        vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, i, f, f, vp,
+    ]
+    lib.flash_attention_tc_launch.restype = i
+    lib.flash_decode_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, f, i, i, i,
+        vp,
+    ]
+    lib.flash_decode_launch.restype = i
     lib.vortex_grouped_gemm_launch.argtypes = [
         vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp,
     ]

@@ -34,7 +34,10 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.analyzer import HybridAnalyzer  # noqa: E402
 from repro_torch.core.candidates import generate_lattice  # noqa: E402
 from repro_torch.core.selector import RuntimeSelector  # noqa: E402
-from repro_torch.kernels.attention import attention_smem_bytes  # noqa: E402
+from repro_torch.kernels.attention import (  # noqa: E402
+    attention_smem_bytes,
+    tensor_core_attention_plan,
+)
 from repro_torch.kernels.gemm import (  # noqa: E402
     SMEM_PER_BLOCK,
     gemm_smem_bytes,
@@ -178,6 +181,18 @@ def test_h100_lattice_fits_the_card(wl, backend):
             d = wl.head_dim
             assert attention_smem_bytes(m1, k1, d) <= bound
             assert attention_smem_bytes(1, k1, d) <= bound  # decode form
+            if backend == "tensor_core":
+                # The wgmma prefill kernel's plan (csrc/attention_tc.cu)
+                # for every tensor_core tile: within the priced footprint
+                # and a block, 1-4 warpgroups, and O plus S within half the
+                # registers a thread gets at that block size.
+                plan = tensor_core_attention_plan(m1, k1, d)
+                assert plan.smem_bytes <= bound
+                assert plan.smem_bytes <= SMEM_PER_BLOCK == smem_cap
+                assert 1 <= plan.warpgroups <= 4
+                assert plan.warpgroups * plan.rounds * 64 == m1
+                assert plan.acc_per_thread <= min(
+                    255, 65536 // plan.threads) // 2
 
 
 def _h100_selection(wl, m, backend):
@@ -198,11 +213,13 @@ def _h100_selection(wl, m, backend):
 
 
 @pytest.mark.parametrize("backend", ["tensor_core", "cuda_core"])
-@pytest.mark.parametrize("kind", ["gemm", "grouped_gemm", "conv2d"])
+@pytest.mark.parametrize("kind", ["gemm", "grouped_gemm", "conv2d",
+                                  "attention", "decode_attention"])
 def test_cuda_executables_pass_the_selected_backend(kind, backend,
                                                     monkeypatch):
     """The impl="cuda" executables hand ``sel.strategy.backend`` to the
     kernel wrapper with the tile (recorded here on CPU tensors)."""
+    import repro_torch.kernels.attention as kattn
     import repro_torch.kernels.gemm as kgemm
     import repro_torch.kernels.grouped_gemm as kgrouped
     from repro_torch.core.workloads import (
@@ -217,8 +234,24 @@ def test_cuda_executables_pass_the_selected_backend(kind, backend,
             calls.append((name, (block_m, block_n, block_k), backend))
         return fn
 
+    def attn_recorder(*args, block_q, block_k, backend, **masks):
+        calls.append(("attention", (block_q, block_k), backend))
+
     monkeypatch.setattr(kgemm, "vortex_gemm", recorder("gemm"))
     monkeypatch.setattr(kgrouped, "vortex_grouped_gemm", recorder("grouped"))
+    monkeypatch.setattr(kattn, "flash_attention", attn_recorder)
+    if kind in ("attention", "decode_attention"):
+        decode = kind == "decode_attention"
+        wl = (DecodeAttentionWorkload if decode else AttentionWorkload)(
+            seq=None, head_dim=16)
+        sel = _h100_selection(wl, 64, backend)
+        pq, _, pkv = sel.bucket
+        m1, _, k1 = sel.strategy.l1
+        q = torch.zeros(1, 2, 1 if decode else pq, 16)
+        kv = torch.zeros(1, 2, pkv, 16)
+        wl.build_executable(sel, impl="cuda")(q, kv, kv, pkv - 1)
+        assert calls == [("attention", (1 if decode else m1, k1), backend)]
+        return
     if kind == "gemm":
         wl, args = GemmWorkload(M=None, N=64, K=32), (
             torch.zeros(64, 32), torch.zeros(32, 64), 40)

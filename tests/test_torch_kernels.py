@@ -23,8 +23,14 @@ import pytest
 import torch
 
 from repro_torch.kernels.attention import (
+    attention_form,
+    attention_path,
+    check_attention_backend,
+    decode_splits,
     flash_attention,
     flash_attention_plain,
+    flash_decode_split_plain,
+    tensor_core_attention_plan,
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.conv import conv_weight_matrix, im2col, vortex_conv2d
@@ -286,6 +292,163 @@ def test_attention_rejects_mismatched_heads():
         flash_attention(q, kv, kv)
 
 
+# (backend, sq, block_q, block_k, head_dim) that no attention kernel path can
+# honour: an unknown backend, and tensor_core prefill tiles off wgmma's (64
+# rows, 16 keys), head widths off 16 or past 256, or past a block's shared
+# memory.
+BAD_ATTN_BACKEND_TILES = {
+    "unknown_backend": ("mxu", 64, 64, 64, 64),
+    "unknown_backend_decode": ("mxu", 1, 1, 64, 64),
+    "tc_block_q_32": ("tensor_core", 64, 32, 64, 64),
+    "tc_block_k_8": ("tensor_core", 64, 64, 8, 64),
+    "tc_head_dim_24": ("tensor_core", 64, 64, 64, 24),
+    "tc_head_dim_272": ("tensor_core", 64, 64, 16, 272),
+    "tc_past_shared_memory": ("tensor_core", 64, 64, 1024, 64),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_ATTN_BACKEND_TILES))
+def test_attention_backend_and_tile_are_validated_before_the_cpu_branch(bad):
+    backend, sq, bq, bk, d = BAD_ATTN_BACKEND_TILES[bad]
+    q = torch.ones(1, 2, sq, d, dtype=torch.bfloat16)
+    kv = torch.ones(1, 2, 64, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv, block_q=bq, block_k=bk, backend=backend)
+
+
+@pytest.mark.parametrize("backend,sq,bq,bk,d", [
+    ("tensor_core", 40, 64, 16, 16), ("tensor_core", 70, 128, 64, 64),
+    ("cuda_core", 40, 16, 8, 24), ("tensor_core", 1, 1, 8, 24),
+    ("cuda_core", 1, 1, 64, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_backends_run_the_plain_version_on_cpu(backend, sq, bq, bk,
+                                                         d, dtype):
+    tdt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(sq)
+    q = torch.randn(2, 4, sq, d, generator=g).to(tdt)
+    k, v = (torch.randn(2, 2, 64, d, generator=g).to(tdt) for _ in range(2))
+    out = flash_attention(q, k, v, 50, 49 if sq == 1 else None, block_q=bq,
+                          block_k=bk, backend=backend, causal=sq > 1)
+    ref = flash_attention_plain(q, k, v, 50, 49 if sq == 1 else None,
+                                causal=sq > 1)
+    assert out.dtype == tdt
+    assert torch.equal(out, ref)
+
+
+def test_attention_path_is_fixed_by_form_backend_and_dtype():
+    assert attention_form(1, 1) == "decode"
+    assert attention_form(1, 64) == "prefill"  # one row of a prefill tile
+    assert attention_form(64, 64) == "prefill"
+    plan = check_attention_backend("prefill", "tensor_core", 64, 64, 64)
+    assert plan is not None
+    assert attention_path("prefill", plan, torch.bfloat16) == \
+        "prefill.tensor_core"
+    # Hopper has no exact f32 tensor-core product: f32 takes the FMA loop.
+    assert attention_path("prefill", plan, torch.float32) == \
+        "prefill.cuda_core"
+    cuda = check_attention_backend("prefill", "cuda_core", 64, 64, 64)
+    assert cuda is None
+    assert attention_path("prefill", cuda, torch.bfloat16) == \
+        "prefill.cuda_core"
+    # Decode takes the split-kv kernel at both backends and dtypes.
+    for backend in ("tensor_core", "cuda_core"):
+        dplan = check_attention_backend("decode", backend, 1, 8, 24)
+        assert dplan is None
+        for dt in (torch.bfloat16, torch.float32):
+            assert attention_path("decode", dplan, dt) == "decode.split_kv"
+
+
+@pytest.mark.parametrize("tile,plan", [
+    # (block_q, block_k, head_dim) -> (warpgroups, rounds, smem, acc)
+    ((64, 64, 64), (1, 1, 40960, 64)),
+    ((128, 128, 64), (2, 1, 81920, 64)),
+    ((256, 64, 64), (4, 1, 65536, 64)),
+    ((1024, 16, 16), (4, 4, 10240, 40)),
+    ((64, 512, 16), (1, 1, 67584, 40)),
+    ((128, 64, 128), (2, 1, 98304, 96)),
+    ((256, 32, 256), (1, 4, 98304, 160)),
+])
+def test_tensor_core_attention_plan_of_served_and_extreme_tiles(tile, plan):
+    assert tuple(tensor_core_attention_plan(*tile)) == plan
+
+
+@pytest.mark.parametrize("rows,kv,bk,want", [
+    (96, 71, 64, (64, 2)),      # paper-gpt2's decode: 192 CTAs
+    (64, 71, 64, (64, 2)),      # granite's 8 rows x 8 kv heads
+    (8, 32768, 64, (1984, 17)),  # a long cache: whole blocks a split
+    (4, 0, 16, (16, 1)),        # no valid key: one split
+    (200, 4096, 128, (4096, 1)),  # the rows alone fill the card
+])
+def test_decode_splits_cover_the_card_in_whole_blocks(rows, kv, bk, want):
+    keys, n = decode_splits(rows, kv, bk, 132)
+    assert (keys, n) == want
+    assert keys % bk == 0 and (n - 1) * keys < max(kv, 1) <= n * keys
+
+
+def test_attention_launch_counts_report_each_path_beside_the_totals():
+    from repro_torch import kernels
+
+    counts = kernels.launch_counts()
+    assert {"flash_attention_prefill", "flash_attention_decode",
+            "flash_attention_prefill.tensor_core",
+            "flash_attention_prefill.cuda_core",
+            "flash_attention_decode.split_kv"} <= set(counts)
+    # The plain versions on the CPU launch nothing.
+    kernels.reset_launch_counts()
+    q = torch.ones(1, 2, 64, 64, dtype=torch.bfloat16)
+    flash_attention(q, q, q, block_q=64, block_k=64, backend="tensor_core")
+    flash_attention(q[:, :, :1], q, q, 64, 63, block_q=1, block_k=64,
+                    backend="tensor_core", causal=False)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+# (b, hq, hkv, skv, d, split, window, kv_len, q_offset): one query row.
+SPLIT_CASES = {
+    # kv_len 0 (an exactly-zero row) and splits wholly past kv_len.
+    "kv0_and_splits_past_kv_len": (3, 4, 4, 64, 16, 16, None, [40, 0, 9],
+                                   [39, -1, 8]),
+    "window": (2, 4, 2, 80, 16, 16, 6, [70, 33], [69, 32]),
+    "per_row_offset_window": (2, 2, 1, 48, 16, 8, 20, [48, 48], [30, 47]),
+    "gqa_16_8": (2, 16, 8, 64, 16, 32, None, [50, 1], [49, 0]),
+    "scalar_kv_len": (2, 4, 4, 96, 16, 32, None, 30, 29),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kv_plain_matches_reference_and_pallas(name, dtype):
+    jnp, _, pallas_attention = _oracle()
+    b, hq, hkv, skv, d, split, window, kv_len, q_off = SPLIT_CASES[name]
+    case = (b, hq, hkv, 1, skv, d, 1, split, False, window, None, kv_len,
+            q_off)
+    q, k, v = _attn_inputs(case, seed=len(name))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    pallas = pallas_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(kv_len, jnp.int32), jnp.asarray(q_off, jnp.int32),
+        block_q=1, block_k=split, causal=False, window=window,
+        interpret=True,
+    )
+    tdt = getattr(torch, dtype)
+    kv_t = kv_len if isinstance(kv_len, int) else torch.tensor(kv_len)
+    off_t = q_off if isinstance(q_off, int) else torch.tensor(q_off)
+    qt, kt, vt = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    out = flash_decode_split_plain(qt, kt, vt, kv_t, off_t, split,
+                                   causal=False, window=window)
+    assert out.dtype == tdt and torch.isfinite(out.float()).all()
+    for i, n in enumerate(np.broadcast_to(np.asarray(kv_len), (b,))):
+        if n == 0:  # exactly zero on both sides
+            assert (out[i] == 0).all()
+            assert (np.asarray(pallas[i].astype(jnp.float32)) == 0).all()
+    ref = flash_attention_plain(qt, kt, vt, kv_t, off_t, causal=False,
+                                window=window)
+    tol = TOL[np.float32] if dtype == "float32" else 4 * TOL["bfloat16"]
+    _close(out, ref.float().numpy(), tol, f"{name} vs ref_attention")
+    _close(out, np.asarray(pallas.astype(jnp.float32)), tol,
+           f"{name} vs Pallas")
+
+
 # ---------------------------------------------------------------------------
 # Grouped GEMM
 # ---------------------------------------------------------------------------
@@ -507,4 +670,57 @@ def test_cuda_grouped_gemm_matches_plain_on_card():
             for g, n in enumerate(counts.tolist()):
                 assert (out[g, n:] == 0).all(), (name, g)
             _close(out.cpu(), ref.float().cpu().numpy(), tol, name)
+    torch.cuda.synchronize()
+
+
+# (b, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv_len, q_offset)
+# at tiles the wgmma prefill kernel admits, and decode forms over many splits.
+TC_ATTN_CASES = {
+    "tc_causal": (2, 4, 2, 100, 100, 64, 64, 32, True, None, None, 90, None),
+    "tc_two_warpgroups": (1, 4, 4, 130, 160, 64, 128, 128, False, None, None,
+                          [150], None),
+    "tc_rounds_d16": (1, 2, 2, 300, 300, 16, 1024, 16, True, 40, None, 290,
+                      None),
+    "tc_d128_softcap": (1, 2, 1, 70, 70, 128, 64, 64, True, None, 4.0, 70,
+                        None),
+    "decode_many_splits": (2, 8, 2, 1, 2048, 64, 1, 64, False, None, None,
+                           [1500, 0], [1499, -1]),
+}
+
+
+@pytest.mark.cuda
+def test_cuda_attention_paths_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    from repro_torch import kernels
+
+    dev = torch.device("cuda")
+    for name, case in TC_ATTN_CASES.items():
+        (b_, hq, hkv, sq, skv, d, bq, bk, causal, window, softcap, kv_len,
+         q_off) = case
+        q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16)
+                   for x in _attn_inputs(case, seed=len(name)))
+        kv_t = kv_len if isinstance(kv_len, int) else torch.tensor(kv_len)
+        off_t = q_off if q_off is None or isinstance(q_off, int) \
+            else torch.tensor(q_off)
+        path = "decode.split_kv" if sq == 1 else "prefill.tensor_core"
+        ref = flash_attention_plain(q, k, v, kv_t, off_t, causal=causal,
+                                    window=window, softcap=softcap)
+        for _ in range(2):  # the split-kv tickets are reset by each launch
+            n0 = kernels.launch_counts()[f"flash_attention_{path}"]
+            out = flash_attention(
+                q, k, v, kv_t, off_t, block_q=bq, block_k=bk,
+                backend="tensor_core", causal=causal, window=window,
+                softcap=softcap,
+            )
+            assert kernels.launch_counts()[f"flash_attention_{path}"] == n0 + 1
+            _close(out.cpu(), ref.float().cpu().numpy(), 2.0 ** -6, name)
+            for i, n in enumerate(np.broadcast_to(np.asarray(kv_len), (b_,))):
+                if n == 0:
+                    assert (out[i] == 0).all(), name
+            if sq == 1:
+                split = flash_decode_split_plain(
+                    q, k, v, kv_t, off_t, bk, causal=causal, window=window,
+                    softcap=softcap)
+                _close(out.cpu(), split.float().cpu().numpy(), 2.0 ** -6, name)
     torch.cuda.synchronize()
