@@ -12,12 +12,16 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    softcap, GQA (granite's 16/8 heads too), per-row kv_len including 0,
    NaN K/V tails past kv_len, and decode with q_offset; the wgmma prefill
    kernel at block_q 64-1024 (several warpgroups and rounds, q rows past
-   sq), block_k 16-512 and d = 16, 64 and 128, and the split-kv decode
+   sq), block_k 16-512 and d = 16, 64, 120, 128 and 256 over GQA groups of
+   1, 2, 3, 4 and 12, windows and softcap, and the split-kv decode
    kernel from 1 to many splits, each decode case called twice (its tickets
    must be reset) and also held against its split-kv plain version.  Every
    attention case runs under each backend its tile admits and must take the
    path (prefill.tensor_core, prefill.cuda_core, decode.split_kv) that its
-   form, backend and dtype name;
+   form, backend and dtype name; the model's decode attention at gemma2's
+   shape over a cache past twice the window, rows at positions whose
+   windows start apart (one clamped at 0), through the per-row window
+   slice and one split-kv launch, against its inline math;
    the grouped GEMM with NaN past each group's count, counts of 0, 1,
    partial and C, r = G/E of 1 and more, K/N tails, and rows past each
    count exactly 0.  Every GEMM and grouped case runs under each backend
@@ -48,23 +52,54 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    forward (72), 0 padded grouped calls, the mean dropped_frac, and the
    share of (token, choice) expert assignments that differ between the
    impl="cuda" and impl="torch" runs.
+4c. Main path 4: ``ContinuousScheduler(batch_rows=8)`` over a
+   ``VortexServer`` of gemma2-9b at full width and depth (42 layers,
+   seeded bf16 init on the card): 16 requests from
+   ``np.random.default_rng(0)`` of 1-4 rows, prompts of 16-512 tokens and
+   max_new 4-32, all submitted, then drained.  Fails unless every request
+   returns a token array of its shape, every batched step makes exactly 42
+   ``decode_attention`` launches on ``decode.split_kv``, every prefill
+   launch takes ``prefill.tensor_core``, padded calls are 0, the pool's
+   ``leases_active`` is 0 after ``close()``, and one mixed-progress step's
+   logits (rows at different positions) agree with the same step under
+   impl="torch" from a copy of the same cache.  Prints the wall time, the
+   steps, tokens and rows per step, and the init, warmup and serve
+   seconds (serve split into prefills, decode steps and the rest).
+4d. The same server, one request of batch 1 and a prompt of 8,300 tokens
+   (max_new 4) through a one-row scheduler: its kv bucket passes twice
+   gemma2's window of 4096, so the local layers' prefill masks by the
+   window and their decode reads the window slice; its decode logits are
+   held against impl="torch" from the same cache.
+4e. h2o-danube-3-4b (head_dim 120, ROADMAP C3), phi4-mini-3.8b (a GQA
+   group of 3) and starcoder2-15b (a group of 12), each at full width and
+   2 layers, 4 requests each through the scheduler, with 4c's checks.
+4f. gemma2-9b at full width, 2 layers, in float32: the scheduler's tokens
+   equal serial ``generate()``'s on the same server for the same
+   requests.
 5. Time each kernel at the main path's shapes and selected strategy
    beside its plain version, its bound and one PyTorch library call
    computing the same function (device time per call from torch.profiler);
    attention at both servers' shapes (paper-gpt2's 12/12 heads, granite's
-   16/8, whose K/V bytes count over the kv heads).
+   16/8, whose K/V bytes count over the kv heads), gemma2's local-layer
+   prefill (d = 256, window and softcap) and mixed-progress decode
+   (per-row kv_len), and danube's prefill at d = 120.  gemma2's library
+   time is one compiled ``flex_attention`` call (a tanh softcap
+   ``score_mod``, a causal-window or per-row kv_len block mask,
+   ``enable_gqa``), held against the plain version before it is timed.
 6. Print the kernels line, then the result line.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
 1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMMs, grouped and
 conv included (one bf16 ulp of the final cast), and 2^-6 for attention
 (one ulp plus the f32 softmax order); server logits 5e-2 (bf16
-activations through 12 or 24 layers, two attention lowerings).
+activations through 2 to 42 layers, two attention lowerings); float32
+scheduler tokens exactly equal to serial generate()'s.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -80,6 +115,10 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 LOGIT_TOL = 5e-2
 ARCHS = ("paper-gpt2-124m", "granite-moe-1b-a400m")
+GEMMA2 = "gemma2-9b"
+DENSE_2L = ("h2o-danube-3-4b", "phi4-mini-3.8b", "starcoder2-15b")
+SCHED_ROWS = 8
+LONG_PROMPT = 8300  # a kv bucket past twice gemma2's window of 4096
 # ResNet-50 (He et al. 2016, Table 1): the first 3x3 conv of conv2_x on its
 # 56x56 map and the strided 3x3 conv that opens conv3_x, as VALID convs on
 # the padded input: (name, h = w, cin, cout, stride).
@@ -100,29 +139,36 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / max(r.abs().max().item(), 1e-6)
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 50, warmup: int = 5, tries: int = 3) -> float:
     """Device time of one call of ``fn``: the summed GPU activity (kernels
     and copies) that torch.profiler records over ``iters`` calls, divided
     by ``iters``.  Host time between launches is excluded, so a small
-    kernel is not timed by its Python wrapper.  No recorded device
-    activity means nothing ran on the card, and fails the run."""
+    kernel is not timed by its Python wrapper.  A trace with no device
+    activity is taken again, up to ``tries`` traces: one such trace came
+    back for calls that had just run on the card (and did in the next
+    process).  No device activity in every trace means nothing ran on the
+    card, and fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    )
-    if not total_us > 0:
-        fail("torch.profiler recorded no device activity for a timed call")
-    return total_us / iters / 1e3
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+        )
+        if total_us > 0:
+            return total_us / iters / 1e3
+        print(f"torch.profiler recorded no device activity (trace {attempt} "
+              f"of {tries})", file=sys.stderr)
+    fail(f"torch.profiler recorded no device activity for a timed call in "
+         f"{tries} traces")
 
 
 def timed(row: dict, **fns) -> dict:
@@ -216,6 +262,30 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
                              None, 3000, 2999),
         "decode_window_d16": (2, 8, 2, 1, 300, 16, 1, 16, False, 40, 3.0,
                               [290, 17], [289, 16]),
+        # The dense family: h2o-danube3's head_dim 120 (ROADMAP C3: wgmma
+        # with Q/K padded to k16 and an n8 tail in P V) over GQA groups of
+        # 4 and 12; gemma2's 256 with its window and softcap (group 2);
+        # phi4-mini's group of 3.  Decode rows whose kv_len differ and
+        # cross the window.
+        "d120_gqa4_window": (2, 32, 8, 130, 130, 120, 128, 64, True, 64,
+                             None, [130, 77], 0),
+        "d120_gqa12": (1, 48, 4, 100, 100, 120, 64, 64, True, None, None,
+                       100, 0),
+        "d256_window_softcap": (1, 16, 8, 200, 200, 256, 64, 32, True, 50,
+                                50.0, 200, 0),
+        "gqa3_d128": (2, 24, 8, 100, 100, 128, 128, 64, True, None, None,
+                      [100, 37], 0),
+        "gqa12_d128": (1, 48, 4, 100, 100, 128, 64, 64, True, None, None,
+                       100, 0),
+        "decode_d256_window_softcap": (3, 16, 8, 1, 700, 256, 1, 32, False,
+                                       100, 50.0, [700, 5, 333],
+                                       [699, 4, 332]),
+        "decode_d120_gqa4_window": (3, 32, 8, 1, 700, 120, 1, 64, False, 100,
+                                    None, [700, 5, 333], [699, 4, 332]),
+        "decode_gqa3_d128": (2, 24, 8, 1, 300, 128, 1, 64, False, None, None,
+                             [300, 17], [299, 16]),
+        "decode_gqa12_d120": (2, 48, 4, 1, 300, 120, 1, 64, False, 100, None,
+                              [300, 17], [299, 16]),
     }
     # (G, E, C, K, N, counts, block_m, block_n, block_k): r = G/E of 1, 4
     # and 8; counts of 0, partial and C; K/N tails; the last at granite's
@@ -244,7 +314,7 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
 
     def attn_backends(form, bq, bk, d):
         tc = form == "decode" or (
-            bq % 64 == 0 and bk % 16 == 0 and d % 16 == 0 and d <= 256)
+            bq % 64 == 0 and bk % 16 == 0 and d % 8 == 0 and d <= 256)
         return ("cuda_core", "tensor_core") if tc else ("cuda_core",)
 
     def took(name, backend, dtype, n0):
@@ -351,6 +421,42 @@ def phase_kernels(dev, kernels, errs: dict) -> None:
                 errs["vortex_grouped_gemm"] = max(
                     errs["vortex_grouped_gemm"], err)
     torch.cuda.synchronize()
+
+
+def phase_window_gather(dev, kernels, errs: dict) -> None:
+    """The model's decode attention (``_decode_attend``) at gemma2's shape
+    (16 q over 8 kv heads of 256, window 4096, softcap 50) over a cache of
+    2 x 4096 + 512 rows, three rows at positions 3000, 6000 and 8703: past
+    twice the window, each row gathers its own window (starts 0, 1905 and
+    4608) and dispatches one split-kv launch with its rebased kv_len.  Held
+    against the same call's inline math (no engine installed), which masks
+    the whole cache by position."""
+    from repro_torch import vortex
+    from repro_torch.models.layers import _decode_attend
+
+    g = torch.Generator().manual_seed(11)
+    dt, H, hkv, d, W, cap = torch.bfloat16, 16, 8, 256, 4096, 50.0
+    S = 2 * W + 512
+    pos = torch.tensor([3000, 6000, S - 1], dtype=torch.int32, device=dev)
+    q = torch.randn(3, H, 1, d, generator=g).to(dev, dt) * 2
+    kc, vc = (torch.randn(3, hkv, S, d, generator=g).to(dev, dt)
+              for _ in range(2))
+    eng = vortex.Engine()  # the defaults: H100 lattice, CUDA kernels, card
+    n0 = kernels.launch_counts()
+    with eng.use():
+        out = _decode_attend(q, kc, vc, pos, W, cap, d ** -0.5)
+    n = kernels.launch_counts()
+    ran = {key: n[key] - n0[key] for key in n if n[key] != n0[key]}
+    if ran != {"flash_attention_decode": 1,
+               "flash_attention_decode.split_kv": 1}:
+        fail(f"window-slice decode: launches {ran}, not one split-kv launch")
+    err = check(f"decode attention through the per-row window slice (cache "
+                f"{S}, rows at {pos.tolist()}, window {W}, softcap {cap})",
+                out, _decode_attend(q, kc, vc, pos, W, cap, d ** -0.5),
+                ATTN_TOL[dt])
+    errs["flash_attention_decode"] = max(errs["flash_attention_decode"], err)
+    del q, kc, vc
+    free_cuda()
 
 
 def all_tensor_core(counts: dict, where: str) -> None:
@@ -662,6 +768,300 @@ def phase_serve(dev, kernels, arch: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 4c-4f: continuous batching (ContinuousScheduler) on the dense family
+# ---------------------------------------------------------------------------
+
+
+def sched_requests(rng, cfg, n, rows, prompt, max_new):
+    """``n`` requests of ``rows`` (lo, hi) rows, ``prompt`` (lo, hi) tokens
+    and ``max_new`` (lo, hi) new tokens, bounds inclusive."""
+    from repro_torch.launch.serve import Request
+
+    reqs = []
+    for _ in range(n):
+        b = int(rng.integers(rows[0], rows[1] + 1))
+        s = int(rng.integers(prompt[0], prompt[1] + 1))
+        reqs.append(Request(
+            tokens=rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
+            max_new=int(rng.integers(max_new[0], max_new[1] + 1)),
+        ))
+    return reqs
+
+
+def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
+                    compare: bool = True) -> dict:
+    """Submit ``reqs`` to a ``ContinuousScheduler`` over ``server``, drain,
+    close, and check: every request a token array of its shape, every
+    batched step n_layers decode-attention launches on decode.split_kv, one
+    prefill launch per layer per admission (each on prefill.tensor_core at
+    bf16), 0 padded calls, the lease ledger back to 0.  With ``compare``,
+    the first step whose rows sit at different positions (the first step
+    of a one-row scheduler) is copied before it runs -- cache, tokens and
+    per-row pos -- and replayed under impl="torch"; its logits must agree
+    within LOGIT_TOL.  Host seconds in prefills and decode steps are taken
+    around each (synchronized: the scheduler reads each result back right
+    after it anyway); copying the step is left out of the wall time."""
+    from repro_torch.launch.scheduler import ContinuousScheduler
+    from repro_torch.launch.serve import VortexServer
+
+    cfg = server.cfg
+    L = cfg.n_layers
+    sched = ContinuousScheduler(server, batch_rows=batch_rows)
+    real_prefill, real_decode = server.prefill, server.decode_vec
+    per_step: list[tuple[int, int]] = []
+    secs = {"prefill": 0.0, "decode": 0.0, "copy": 0.0}
+    cap: dict = {}
+
+    def prefill(tokens):
+        t = time.perf_counter()
+        out = real_prefill(tokens)
+        torch.cuda.synchronize()
+        secs["prefill"] += time.perf_counter() - t
+        return out
+
+    def decode_vec(cache, tokens, pos):
+        active = [r.pos_next for r in sched.rows if r is not None]
+        take = compare and not cap and (
+            len(set(active)) >= 2 or batch_rows == 1)
+        if take:
+            t = time.perf_counter()
+            cap.update(
+                cache={k: {n: leaf.clone() for n, leaf in e.items()}
+                       for k, e in cache.items()},
+                tokens=tokens.clone(), pos=pos.clone(),
+                slots=[i for i, r in enumerate(sched.rows) if r is not None],
+                kvb=sched.kvb,
+            )
+            torch.cuda.synchronize()
+            secs["copy"] += time.perf_counter() - t
+        n0 = kernels.launch_counts()
+        t = time.perf_counter()
+        logits = real_decode(cache, tokens, pos)
+        torch.cuda.synchronize()
+        secs["decode"] += time.perf_counter() - t
+        n = kernels.launch_counts()
+        per_step.append((
+            n["flash_attention_decode"] - n0["flash_attention_decode"],
+            n["flash_attention_decode.split_kv"]
+            - n0["flash_attention_decode.split_kv"],
+        ))
+        if take:
+            cap["logits"] = logits.clone()
+        return logits
+
+    server.prefill, server.decode_vec = prefill, decode_vec
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rids = [sched.submit(r) for r in reqs]
+        res = sched.drain()
+        torch.cuda.synchronize()
+    finally:
+        del server.prefill, server.decode_vec  # the class's methods again
+    wall = time.perf_counter() - t0 - secs["copy"]
+    counts = kernels.launch_counts()
+    sched.close()
+    st = server.engine_dispatch_stats()
+
+    tokens = 0
+    for rid, r in zip(rids, reqs):
+        out = res.get(rid)
+        if not isinstance(out, np.ndarray):
+            fail(f"{where}: request {rid} resolved to {out!r}")
+        if out.shape != (r.tokens.shape[0], r.max_new):
+            fail(f"{where}: request {rid} output shape {out.shape}")
+        if not ((out >= 0) & (out < cfg.vocab)).all():
+            fail(f"{where}: token outside the vocabulary")
+        tokens += out.size
+    steps = sched.stats["steps"]
+    if len(per_step) != steps or any(p != (L, L) for p in per_step):
+        fail(f"{where}: expected {L} decode-attention launches on "
+             f"decode.split_kv in each of {steps} steps, got "
+             f"{sorted(set(per_step))}")
+    if counts["flash_attention_prefill"] != L * sched.stats["admitted"]:
+        fail(f"{where}: {counts['flash_attention_prefill']} prefill-attention "
+             f"launches for {sched.stats['admitted']} admissions")
+    if cfg.dtype == "bfloat16":
+        all_tensor_core(counts, where)
+    padded = (st["attention"]["padded_calls"]
+              + st["decode_attention"]["padded_calls"]
+              + sched.stats["padded_calls"])
+    if padded:
+        fail(f"{where}: {padded} padded calls")
+    if st["kv_pool"]["leases_active"] != 0:
+        fail(f"{where}: kv pool leases leaked: {st['kv_pool']}")
+    rows = [len(p["pos"]) for p in sched.step_positions]
+    print(f"{where}: {cfg.name} n_layers={L} requests={len(reqs)} "
+          f"tokens={tokens} steps={steps} rows_per_step_mean="
+          f"{np.mean(rows) if rows else 0:.3f} rows_per_step={rows} "
+          f"wall_s={wall:.3f} prefill_s={secs['prefill']:.3f} "
+          f"decode_s={secs['decode']:.3f} "
+          f"other_s={wall - secs['prefill'] - secs['decode']:.3f} "
+          f"kvb={sorted({p['kvb'] for p in sched.step_positions})} "
+          f"kernel_launches={counts} kv_pool={st['kv_pool']}")
+
+    rel = None
+    if compare:
+        if "logits" not in cap:
+            fail(f"{where}: no step served rows at different positions")
+        plain = VortexServer(cfg, max_cache=server.max_cache,
+                             params=server.params, impl="torch")
+        ref = plain.decode_vec(cap["cache"], cap["tokens"], cap["pos"])
+        sl = cap["slots"]
+        err, rel = rel_err(cap["logits"][sl, :cfg.vocab],
+                           ref[sl, :cfg.vocab])
+        print(f"{where}: one step's logits vs impl=torch (rows at pos "
+              f"{cap['pos'][sl].tolist()}, cache {cap['kvb']}): "
+              f"max_abs_err={err:.4g} rel={rel:.4g} (tolerance {LOGIT_TOL})")
+        if not rel <= LOGIT_TOL:
+            fail(f"{where}: logits disagree with impl='torch': {rel}")
+        del plain, ref
+    info = {
+        "res": [res[rid] for rid in rids], "wall_s": wall, "steps": steps,
+        "tokens": tokens, "rows": rows, "secs": secs, "counts": counts,
+        "logit_rel": rel, "kvb": [p["kvb"] for p in sched.step_positions],
+    }
+    if "pos" in cap:
+        info["step_kv_len"] = (cap["pos"] + 1).tolist()
+        info["step_kvb"] = cap["kvb"]
+    cap.clear()
+    return info
+
+
+def param_bytes(tree: dict) -> int:
+    return sum(
+        param_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+        for v in tree.values()
+    )
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def free_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_gemma2(kernels) -> dict:
+    """Phases 4c and 4d: gemma2-9b at full width and depth."""
+    from repro_torch.launch.serve import Request, VortexServer
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(GEMMA2)
+    t0 = time.perf_counter()
+    server = VortexServer(cfg, max_cache=16384, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"server: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} dtype={cfg.dtype} "
+          f"windows={[sp.window for sp in cfg.pattern]} softcaps="
+          f"{cfg.attn_softcap}/{cfg.logit_softcap} "
+          f"params_gb={param_bytes(server.params) / 1e9:.2f} "
+          f"init_s={init_s:.2f}")
+    reqs = sched_requests(np.random.default_rng(0), cfg, 16, (1, 4),
+                          (16, 512), (4, 32))
+    t0 = time.perf_counter()
+    server.warmup(max_batch=SCHED_ROWS, m_max=512, max_new=32)
+    warmup_s = time.perf_counter() - t0
+    c = serve_scheduled(kernels, server, reqs, batch_rows=SCHED_ROWS,
+                        where="phase 4c")
+    print(f"phase 4c: init_s={init_s:.2f} warmup_s={warmup_s:.3f} "
+          f"serve_s={c['wall_s']:.3f} peak_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    big = max(reqs, key=lambda r: r.tokens.size)
+
+    rng = np.random.default_rng(1)
+    long_req = Request(
+        tokens=rng.integers(0, cfg.vocab, (1, LONG_PROMPT)).astype(np.int64),
+        max_new=4)
+    d = serve_scheduled(kernels, server, [long_req], batch_rows=1,
+                        where="phase 4d")
+    window = cfg.pattern[0].window
+    if not min(d["kvb"]) > 2 * window:
+        fail(f"phase 4d: kv buckets {d['kvb']} do not pass 2 x {window}")
+    sp = server.seq_bucket(LONG_PROMPT)
+    print(f"phase 4d: prompt {LONG_PROMPT} at seq bucket {sp}, kv buckets "
+          f"{sorted(set(d['kvb']))} > 2 x window {window}: the local layers' "
+          f"decode read the window slice")
+    info = {
+        "cfg": cfg, "c": c, "d": d, "long_sp": sp,
+        "big_bp": server.batch_bucket(big.tokens.shape[0]),
+        "big_sp": server.seq_bucket(big.tokens.shape[1]),
+        "prefill_launches": c["counts"]["flash_attention_prefill"]
+        + d["counts"]["flash_attention_prefill"],
+        "decode_launches": c["counts"]["flash_attention_decode"]
+        + d["counts"]["flash_attention_decode"],
+    }
+    del server
+    free_cuda()
+    return info
+
+
+def phase_dense_2l(kernels) -> dict:
+    """Phase 4e: danube, phi4-mini and starcoder2 at full width, 2 layers."""
+    import dataclasses
+
+    from repro_torch.launch.serve import VortexServer
+    from repro_torch.models.registry import get_config
+
+    out = {}
+    for i, arch in enumerate(DENSE_2L):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        server = VortexServer(cfg, max_cache=1024, seed=0)
+        reqs = sched_requests(np.random.default_rng(10 + i), cfg, 4, (1, 2),
+                              (16, 128), (4, 8))
+        print(f"server: {cfg.name} (2 of {get_config(arch).n_layers} layers) "
+              f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x"
+              f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab}")
+        r = serve_scheduled(kernels, server, reqs, batch_rows=SCHED_ROWS,
+                            where=f"phase 4e {arch}")
+        big = max(reqs, key=lambda q: q.tokens.size)
+        r.update(cfg=cfg, bp=server.batch_bucket(big.tokens.shape[0]),
+                 sp=server.seq_bucket(big.tokens.shape[1]))
+        out[arch] = r
+        del server
+        free_cuda()
+    return out
+
+
+def phase_gemma2_f32(kernels) -> dict:
+    """Phase 4f: gemma2-9b at full width, 2 layers, float32: scheduler
+    tokens equal serial generate()'s."""
+    import dataclasses
+
+    from repro_torch.launch.serve import VortexServer
+    from repro_torch.models.registry import get_config
+
+    cfg = dataclasses.replace(get_config(GEMMA2), n_layers=2,
+                              dtype="float32")
+    server = VortexServer(cfg, max_cache=1024, seed=0)
+    reqs = sched_requests(np.random.default_rng(20), cfg, 4, (1, 2),
+                          (16, 96), (4, 8))
+    serial = [server.generate(r) for r in reqs]
+    r = serve_scheduled(kernels, server, reqs, batch_rows=SCHED_ROWS,
+                        where="phase 4f", compare=False)
+    for i, (got, want) in enumerate(zip(r["res"], serial)):
+        if not np.array_equal(got, want):
+            fail(f"phase 4f: request {i}: scheduler tokens {got.tolist()} != "
+                 f"serial generate() {want.tolist()}")
+    print(f"phase 4f: {cfg.name} float32, 2 layers: scheduler tokens equal "
+          f"serial generate() for all {len(reqs)} requests "
+          f"({sum(x.size for x in serial)} tokens)")
+    del server
+    free_cuda()
+    return r
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -813,6 +1213,227 @@ def attention_rows(dev, serve_info, errs, g, tag: str) -> list[dict]:
     return rows
 
 
+def flex_library(q, k, v, cap: float, mask_mod, batch, ref, what: str):
+    """The library call for an attention with tanh softcap: one compiled
+    ``flex_attention`` with ``cap * tanh(score / cap)`` as its
+    ``score_mod``, ``mask_mod`` as its block mask (over ``batch`` rows, or
+    shared when None) and ``enable_gqa``, at the default 1/sqrt(d) scale.
+    It is held against ``ref`` (the plain version on the same inputs) at
+    the attention tolerance, so its time is of the same function; returns
+    the call."""
+    from torch.nn.attention.flex_attention import (
+        create_block_mask,
+        flex_attention,
+    )
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    block_mask = create_block_mask(mask_mod, batch, None, q.shape[2],
+                                   k.shape[2], device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return flex(q, k, v, score_mod=softcap, block_mask=block_mask,
+                    enable_gqa=True)
+
+    check(f"flex_attention (library) for {what}", call(), ref,
+          ATTN_TOL[q.dtype])
+    return call
+
+
+def dense_attention_rows(g2: dict, dense: dict, errs: dict) -> list[dict]:
+    """Rows 2e-2g: gemma2's prefill on a local layer at the long prompt's
+    shape (d = 256, window 4096, softcap 50), gemma2's mixed-progress decode
+    at the compared step of phase 4c (per-row kv_len of its 8 rows), and
+    h2o-danube3's prefill at d = 120 at its largest request's shape.  Bounds
+    count the keys each row's window and kv_len leave it.  gemma2's library
+    time is a compiled ``flex_attention`` (:func:`flex_library`)."""
+    import torch.nn.functional as F
+
+    from repro_torch import vortex
+    from repro_torch.core.workloads import (
+        AttentionWorkload,
+        DecodeAttentionWorkload,
+    )
+    from repro_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(7)
+    eng = vortex.Engine()  # the defaults: H100 lattice, CUDA kernels, card
+    rows = []
+    cfg = g2["cfg"]
+    H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    W, cap = cfg.pattern[0].window, cfg.attn_softcap
+
+    # 2e: the long prompt's prefill on a local layer.
+    sp = g2["long_sp"]
+    sel = eng.kernel_for(AttentionWorkload(
+        seq=None, head_dim=hd, window=W, softcap=cap)).select(sp)
+    m1, _, k1 = sel.strategy.l1
+    be = sel.strategy.backend
+    q = torch.randn(1, H, sp, hd, generator=g).to(dev, dt)
+    k, v = (torch.randn(1, hkv, sp, hd, generator=g).to(dev, dt)
+            for _ in range(2))
+
+    def pre():
+        return flash_attention(q, k, v, sp, block_q=m1, block_k=k1,
+                               backend=be, window=W, softcap=cap)
+
+    def pre_plain():
+        return flash_attention_plain(q, k, v, sp, window=W, softcap=cap)
+
+    ref = pre_plain()
+    err = check("flash_attention prefill, gemma2 local layer at the main "
+                "path's shape", pre(), ref, ATTN_TOL[dt])
+    lib = flex_library(
+        q, k, v, cap, lambda b, h, qi, ki: (qi >= ki) & (qi - ki < W), None,
+        ref, "gemma2 local-layer prefill")
+    del ref
+    errs["flash_attention_prefill"] = max(errs["flash_attention_prefill"], err)
+    keys = sum(min(i + 1, W) for i in range(sp))
+    bnd, by = bound_ms(2 * (2 * H * sp * hd + 2 * hkv * sp * hd),
+                       4.0 * hd * H * keys, dt)
+    row = timed(
+        {
+            "name": "flash_attention (prefill, gemma2 local d=256)",
+            "route": "cuda", "source": "src/repro_torch/csrc/attention_tc.cu",
+            "replaces": "src/repro/kernels/attention.py:125",
+            "launches": g2["prefill_launches"], "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by,
+            "shape": f"gemma2-9b q=(1,{H},{sp},{hd}) kv heads {hkv} "
+                     f"kv_len={sp} window={W} softcap={cap} "
+                     f"blocks=({m1},{k1}) {be} causal bf16; library: "
+                     "compiled flex_attention",
+        },
+        ms=pre, plain_ms=pre_plain, library_ms=lib,
+    )
+    rows.append(row)
+    del q, k, v
+    free_cuda()
+
+    # The window slice's gather copy at phase 4d's decode (one row at the
+    # long prompt's position, the cache at its kv bucket): per local layer
+    # and per decode step.
+    from repro_torch.models.layers import _window_slice
+
+    kvb4d = g2["d"]["step_kvb"]
+    kc, vc = (torch.randn(1, hkv, kvb4d, hd, generator=g).to(dev, dt)
+              for _ in range(2))
+    pos = torch.tensor([LONG_PROMPT], dtype=torch.int32, device=dev)
+    gather_ms = device_ms(lambda: _window_slice(kc, vc, pos, W))
+    local = sum(1 for sp_ in cfg.pattern if sp_.window) * cfg.n_groups
+    print(f"window slice gather at phase 4d's shape (cache (1,{hkv},{kvb4d},"
+          f"{hd}) bf16, {W} rows of K and V): {gather_ms:.4f} ms a local "
+          f"layer, {gather_ms * local:.4f} ms a decode step ({local} local "
+          f"layers; torch.profiler device time) on {card_name()}")
+    del kc, vc
+    free_cuda()
+
+    # 2f: the compared mixed-progress decode step of phase 4c.
+    kv_len = torch.tensor(g2["c"]["step_kv_len"], dtype=torch.int32,
+                          device=dev)
+    kvb, b = g2["c"]["step_kvb"], kv_len.numel()
+    sel = eng.kernel_for(DecodeAttentionWorkload(
+        seq=None, head_dim=hd, window=W, softcap=cap)).select(kvb)
+    k1 = sel.strategy.l1[2]
+    be = sel.strategy.backend
+    q = torch.randn(b, H, 1, hd, generator=g).to(dev, dt)
+    k, v = (torch.randn(b, hkv, kvb, hd, generator=g).to(dev, dt)
+            for _ in range(2))
+
+    def dec():
+        return flash_attention(q, k, v, kv_len, kv_len - 1, block_q=1,
+                               block_k=k1, backend=be, causal=False,
+                               window=W, softcap=cap)
+
+    def dec_plain():
+        return flash_attention_plain(q, k, v, kv_len, kv_len - 1,
+                                     causal=False, window=W, softcap=cap)
+
+    ref = dec_plain()
+    err = check("flash_attention decode, gemma2 mixed-progress step at the "
+                "main path's shape", dec(), ref, ATTN_TOL[dt])
+
+    def in_window(b_, h, qi, ki):  # key ki of row b_'s query at kv_len - 1
+        last = kv_len[b_] - 1
+        return (ki <= last) & (last - ki < W)
+
+    lib = flex_library(q, k, v, cap, in_window, b, ref,
+                       "gemma2 mixed-progress decode")
+    errs["flash_attention_decode"] = max(errs["flash_attention_decode"], err)
+    keys = sum(min(n, W) for n in g2["c"]["step_kv_len"])
+    bnd, by = bound_ms(2 * (2 * b * H * hd + 2 * hkv * keys * hd),
+                       4.0 * hd * H * keys, dt)
+    row = timed(
+        {
+            "name": "flash_attention (decode, gemma2 per-row kv_len)",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/attention_decode.cu",
+            "replaces": "src/repro/kernels/attention.py:125",
+            "launches": g2["decode_launches"], "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by,
+            "shape": f"gemma2-9b q=({b},{H},1,{hd}) kv heads {hkv} "
+                     f"cache={kvb} kv_len={g2['c']['step_kv_len']} "
+                     f"window={W} softcap={cap} block_k={k1} {be} bf16; "
+                     "library: compiled flex_attention",
+        },
+        ms=dec, plain_ms=dec_plain, library_ms=lib,
+    )
+    rows.append(row)
+    del q, k, v
+    free_cuda()
+
+    # 2g: h2o-danube3's prefill at head_dim 120.
+    dn = dense["h2o-danube-3-4b"]
+    cfg = dn["cfg"]
+    H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    W = cfg.pattern[0].window
+    bp, sp = dn["bp"], dn["sp"]
+    if sp > W:
+        fail(f"row 2g: seq bucket {sp} past the window {W}: SDPA would not "
+             "compute the same function")
+    sel = eng.kernel_for(AttentionWorkload(
+        seq=None, head_dim=hd, window=W)).select(sp)
+    m1, _, k1 = sel.strategy.l1
+    be = sel.strategy.backend
+    q = torch.randn(bp, H, sp, hd, generator=g).to(dev, dt)
+    k, v = (torch.randn(bp, hkv, sp, hd, generator=g).to(dev, dt)
+            for _ in range(2))
+
+    def dpre():
+        return flash_attention(q, k, v, sp, block_q=m1, block_k=k1,
+                               backend=be, window=W)
+
+    err = check("flash_attention prefill, danube d=120 at the main path's "
+                "shape", dpre(), flash_attention_plain(q, k, v, sp, window=W),
+                ATTN_TOL[dt])
+    errs["flash_attention_prefill"] = max(errs["flash_attention_prefill"], err)
+    bnd, by = bound_ms(2 * (2 * bp * H * sp * hd + 2 * bp * hkv * sp * hd),
+                       4.0 * hd * bp * H * sp * (sp + 1) / 2, dt)
+    rows.append(timed(
+        {
+            "name": "flash_attention (prefill, danube d=120)", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention_tc.cu",
+            "replaces": "src/repro/kernels/attention.py:125",
+            "launches": dn["counts"]["flash_attention_prefill"],
+            "max_abs_err": err, "bound_ms": bnd, "bound_by": by,
+            "shape": f"h2o-danube-3-4b q=({bp},{H},{sp},{hd}) kv heads {hkv} "
+                     f"kv_len={sp} window={W} (no key outside it) "
+                     f"blocks=({m1},{k1}) {be} causal bf16",
+        },
+        ms=dpre,
+        plain_ms=lambda: flash_attention_plain(q, k, v, sp, window=W),
+        library_ms=lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+    ))
+    torch.cuda.synchronize()
+    return rows
+
+
 def routed_counts(g, bp: int, s: int, E: int, k: int, C: int) -> list[int]:
     """Per-group row counts of one MoE layer's dispatch for ``bp``
     sequences of ``s`` tokens, each token choosing ``k`` distinct experts
@@ -955,20 +1576,22 @@ def main() -> int:
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
     dev = torch.device("cuda")
+    # The compiled library calls of phase 5 keep their caches in the
+    # checkout's build directory.
+    build = ROOT / "src" / "repro_torch" / "csrc" / "_build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
     t0 = time.perf_counter()
     library()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f}s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
     errs = {"vortex_gemm": 0.0, "flash_attention_prefill": 0.0,
             "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
     phase_kernels(dev, kernels, errs)
+    phase_window_gather(dev, kernels, errs)
     print("phase 2: kernels agree with their plain versions")
     gemm_info = phase_gemm(dev, kernels)
     print("phase 3: vortex.ops.gemm main path ok")
@@ -978,14 +1601,22 @@ def main() -> int:
     print(f"phase 4: VortexServer main path on {ARCHS[0]} ok")
     moe_info = phase_serve(dev, kernels, ARCHS[1])
     print(f"phase 4b: VortexServer main path on {ARCHS[1]} ok")
+    g2_info = phase_gemma2(kernels)
+    print(f"phase 4c/4d: ContinuousScheduler on {GEMMA2} ok")
+    dense_info = phase_dense_2l(kernels)
+    print(f"phase 4e: ContinuousScheduler on {', '.join(DENSE_2L)} ok")
+    phase_gemma2_f32(kernels)
+    print("phase 4f: float32 scheduler tokens equal serial generate() ok")
     rows = phase_time(dev, gemm_info, serve_info, errs)
     rows += attention_rows(dev, moe_info, errs, torch.Generator()
                            .manual_seed(6), ", granite 16/8")
+    rows += dense_attention_rows(g2_info, dense_info, errs)
     rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
     for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms={r['library_ms']:.4f} launches={r['launches']} "
+              f"library_ms={lib} launches={r['launches']} "
               f"[{r['shape']}; torch.profiler device time] on {smi}")
     print(smi)
     print(json.dumps({"kernels": rows, "card": smi}))

@@ -42,11 +42,19 @@
 //   extents are broadcast with __shfl_sync, so ptxas keeps the wgmma
 //   pipeline).
 //
-// Shared memory: W*64*d*2 + 2 * 2*block_k*d*2 bytes, at most the tile's
-// priced footprint AttentionWorkload.l1_tile_bytes (two streamed stages of
-// Q, K and V plus the f32 accumulator and scores), so every tile the lattice
-// admits launches.  kernels/attention.py `tensor_core_attention_plan`
-// mirrors this plan.
+// Head widths.  d is any multiple of 8 up to 256.  Q K^T contracts over d in
+// wgmma's k16 steps, so Q and K sit in shared tiles dp = d rounded up to 16
+// wide whose pad columns are zero (they add nothing to Q K^T); P V runs at
+// n = d, as n16 products plus one n8 product when d is an odd multiple of
+// 8 (h2o-danube3's 120).  The softmax scale is the caller's, from the true
+// d.
+//
+// Shared memory: W*64*dp*2 + 2 * block_k*(dp + d)*2 bytes (= W*64*d*2 +
+// 2 * 2*block_k*d*2 when d is a multiple of 16), at most the tile's priced
+// footprint AttentionWorkload.l1_tile_bytes (two streamed stages of Q, K and
+// V plus the f32 accumulator and scores), so every tile the lattice admits
+// launches.  kernels/attention.py `tensor_core_attention_plan` mirrors this
+// plan.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -86,32 +94,43 @@ __device__ __forceinline__ void copy16(unsigned char* dst, const __nv_bfloat16* 
     load8_masked(dst, src, 8);
 }
 
-// Q rows [r0, r0 + rows_cta) into q_s, K-major; rows at or past sq zero.
+// The shared tiles' width: D rounded up to wgmma's k16.
+__host__ __device__ constexpr int padded_d(int d) { return (d + 15) / 16 * 16; }
+
+// Q rows [r0, r0 + rows_cta) into q_s, K-major; rows at or past sq and the
+// pad columns past D zero.
 template <int D>
 __device__ __forceinline__ void load_q(const Args& p, unsigned char* q_s,
                                        const __nv_bfloat16* qh, int r0, int rows_cta) {
-  for (int c = threadIdx.x; c < rows_cta * (D / 8); c += blockDim.x) {
-    const int grp = c / D, q = c - grp * D;  // 8 rows x D/8 chunks a group
-    const int row = r0 + grp * 8 + (q & 7);
+  constexpr int DP = padded_d(D);
+  for (int c = threadIdx.x; c < rows_cta * (DP / 8); c += blockDim.x) {
+    const int grp = c / DP, q = c - grp * DP;  // 8 rows x DP/8 chunks a group
+    const int row = r0 + grp * 8 + (q & 7), dc = q >> 3;
     unsigned char* dst = q_s + c * 16;
-    if (row < p.sq)
-      copy16(dst, qh + (int64_t)row * D + (q >> 3) * 8, p.vec);
+    if (row < p.sq && dc < D / 8)
+      copy16(dst, qh + (int64_t)row * D + dc * 8, p.vec);
     else
       store_zero16(dst);
   }
 }
 
-// Keys [kb, kb + block_k) of K (K-major) and V (N-major) into one slot;
-// keys at or past kv_lim are never read and their rows are zeroed.
+// Keys [kb, kb + block_k) of K (K-major, DP wide, the pad columns zero) and
+// V (N-major, D wide) into one slot; keys at or past kv_lim are never read
+// and their rows are zeroed.
 template <int D>
 __device__ __forceinline__ void load_kv(const Args& p, unsigned char* k_s, unsigned char* v_s,
                                         const __nv_bfloat16* kh, const __nv_bfloat16* vh,
                                         int kb, int kv_lim) {
-  for (int c = threadIdx.x; c < p.block_k * (D / 8); c += blockDim.x) {
-    const int grp = c / D, q = c - grp * D;
+  constexpr int DP = padded_d(D);
+  for (int c = threadIdx.x; c < p.block_k * (DP / 8); c += blockDim.x) {
+    const int grp = c / DP, q = c - grp * DP;
     const int key = grp * 8 + (q & 7), dc = q >> 3;
     const int gk = kb + key;
     unsigned char* kd = k_s + c * 16;
+    if (dc >= D / 8) {  // K's pad column: no V chunk
+      store_zero16(kd);
+      continue;
+    }
     unsigned char* vd = v_s + (dc * p.block_k + key) * 16;
     if (gk < kv_lim) {
       const int64_t off = (int64_t)gk * D + dc * 8;
@@ -128,12 +147,15 @@ template <int D>
 __global__ void __launch_bounds__(max_warpgroups(D) * kWarpgroup)
 attn_tc_kernel(const Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int DP = padded_d(D);
   constexpr int kNV = D % 64 == 0 ? 64 : 16;  // width of one P V wgmma
+  constexpr int kNTail = D % 16;             // 8: one n8 wgmma after the n16 ones
   const unsigned full = 0xffffffffu;
   const int rows_cta = p.warpgroups * 64;
   unsigned char* q_s = smem;
-  unsigned char* ring = smem + rows_cta * D * 2;
-  const int kv_bytes = p.block_k * D * 2;  // one K or V tile
+  unsigned char* ring = smem + rows_cta * DP * 2;
+  const int k_bytes = p.block_k * DP * 2, v_bytes = p.block_k * D * 2;
+  const int slot_bytes = k_bytes + v_bytes;  // one K and V step
 
   const int bh = blockIdx.y, bi = bh / p.hq;
   const int kvh = bi * (p.hq / p.group) + (bh % p.hq) / p.group;
@@ -158,7 +180,7 @@ attn_tc_kernel(const Args p) {
   const int sub_keys = min(p.block_k, kSubKeys);
   const int subs = p.block_k / sub_keys;
   const int chunks = sub_keys / 16;  // 16-key chunks of a sub-step
-  const uint32_t sbo_k = 16u * D, sbo_v = 16u * p.block_k;
+  const uint32_t sbo_k = 16u * DP, sbo_v = 16u * p.block_k;
   const int blk_end = min(p.sq, (int)(blockIdx.x + 1) * p.block_q);
 
   for (int r0 = blockIdx.x * p.block_q; r0 < blk_end; r0 += rows_cta) {
@@ -180,10 +202,11 @@ attn_tc_kernel(const Args p) {
     float mA = kNeg, mB = kNeg, lA = 0.f, lB = 0.f;
 
     load_q<D>(p, q_s, qh, r0, rows_cta);
-    if (nblk > 0) load_kv<D>(p, ring, ring + kv_bytes, kh, vh, kv_begin, kv_lim);
+    if (nblk > 0) load_kv<D>(p, ring, ring + k_bytes, kh, vh, kv_begin, kv_lim);
     cp_async_commit();
     if (nblk > 1)
-      load_kv<D>(p, ring + 2 * kv_bytes, ring + 3 * kv_bytes, kh, vh, kv_begin + p.block_k, kv_lim);
+      load_kv<D>(p, ring + slot_bytes, ring + slot_bytes + k_bytes, kh, vh,
+                 kv_begin + p.block_k, kv_lim);
     cp_async_commit();
 
     for (int it = 0; it < nblk; ++it) {
@@ -191,10 +214,10 @@ attn_tc_kernel(const Args p) {
       fence_proxy_async();
       __syncthreads();  // everyone's did
       const int kb = kv_begin + it * p.block_k;
-      unsigned char* k_s = ring + (it & 1) * 2 * kv_bytes;
-      unsigned char* v_s = k_s + kv_bytes;
+      unsigned char* k_s = ring + (it & 1) * slot_bytes;
+      unsigned char* v_s = k_s + k_bytes;
       if (live) {
-        const uint64_t dq = make_desc(smem_u32(q_s) + wgi * 64 * D * 2, 128, sbo_k);
+        const uint64_t dq = make_desc(smem_u32(q_s) + wgi * 64 * DP * 2, 128, sbo_k);
         for (int sub = 0; sub < subs; ++sub) {
           const int k0 = kb + sub * sub_keys;
           bool skip = k0 >= kv_lim;
@@ -206,7 +229,7 @@ attn_tc_kernel(const Args p) {
           float s[32];
 #pragma unroll
           for (int i = 0; i < 32; ++i) s[i] = 0.f;
-          const uint32_t k_addr = smem_u32(k_s) + sub * sub_keys * D * 2;
+          const uint32_t k_addr = smem_u32(k_s) + sub * sub_keys * DP * 2;
 #pragma unroll
           for (int i = 0; i < 32; ++i) fence_operand(s[i]);
           wgmma_fence();
@@ -215,7 +238,7 @@ attn_tc_kernel(const Args p) {
             if (t < chunks) {
               const uint64_t dk = make_desc(k_addr + t * 2 * sbo_k, 128, sbo_k);
 #pragma unroll
-              for (int kk = 0; kk < D / 16; ++kk)
+              for (int kk = 0; kk < DP / 16; ++kk)
                 wgmma_ss16(s + 8 * t, dq + 16 * kk, dk + 16 * kk);
             }
           }
@@ -295,6 +318,10 @@ attn_tc_kernel(const Args p) {
                     v_addr + t * 256 + cc * (kNV / 8) * sbo_v, 128, sbo_v);
                 WgmmaRS<kNV>::mma(o + cc * (kNV / 2), a[t], dv);
               }
+              if (kNTail) {  // the last 8 columns
+                const uint64_t dv = make_desc(v_addr + t * 256 + (D / 8 - 1) * sbo_v, 128, sbo_v);
+                WgmmaRS<8>::mma(o + (D - 8) / 2, a[t], dv);
+              }
             }
           }
           wgmma_commit();
@@ -305,8 +332,8 @@ attn_tc_kernel(const Args p) {
       }
       __syncthreads();  // every warpgroup is done reading slot it % 2
       if (it + 2 < nblk) {
-        unsigned char* st = ring + (it & 1) * 2 * kv_bytes;
-        load_kv<D>(p, st, st + kv_bytes, kh, vh, kb + 2 * p.block_k, kv_lim);
+        unsigned char* st = ring + (it & 1) * slot_bytes;
+        load_kv<D>(p, st, st + k_bytes, kh, vh, kb + 2 * p.block_k, kv_lim);
       }
       cp_async_commit();
     }
@@ -360,11 +387,11 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k, const voi
                                          int warpgroups, int smem, int causal, int window,
                                          float softcap, float scale, void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return (int)cudaGetLastError();
-  if (hkv <= 0 || hq % hkv || d % 16 || d <= 0 || d > 256 || block_q % 64 || block_k % 16 ||
+  if (hkv <= 0 || hq % hkv || d % 8 || d <= 0 || d > 256 || block_q % 64 || block_k % 16 ||
       block_q <= 0 || block_k <= 0 || warpgroups < 1 || warpgroups > max_warpgroups(d) ||
       warpgroups > block_q / 64)
     return (int)cudaErrorInvalidValue;
-  const int64_t need = 2LL * d * (64LL * warpgroups + 4LL * block_k);
+  const int64_t need = 2LL * (64LL * warpgroups * padded_d(d) + 2LL * block_k * (padded_d(d) + d));
   if (smem != need || smem > kSmemMax) return (int)cudaErrorInvalidValue;
   if ((int64_t)b * hq > 65535) return (int)cudaErrorInvalidConfiguration;
   Args p;
@@ -391,23 +418,39 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k, const voi
   const dim3 grid((sq + block_q - 1) / block_q, b * hq);
   const int threads = warpgroups * kWarpgroup;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d / 16) {
-    case 1: return launch_d<16>(p, grid, threads, smem, s);
-    case 2: return launch_d<32>(p, grid, threads, smem, s);
-    case 3: return launch_d<48>(p, grid, threads, smem, s);
-    case 4: return launch_d<64>(p, grid, threads, smem, s);
-    case 5: return launch_d<80>(p, grid, threads, smem, s);
-    case 6: return launch_d<96>(p, grid, threads, smem, s);
-    case 7: return launch_d<112>(p, grid, threads, smem, s);
-    case 8: return launch_d<128>(p, grid, threads, smem, s);
-    case 9: return launch_d<144>(p, grid, threads, smem, s);
-    case 10: return launch_d<160>(p, grid, threads, smem, s);
-    case 11: return launch_d<176>(p, grid, threads, smem, s);
-    case 12: return launch_d<192>(p, grid, threads, smem, s);
-    case 13: return launch_d<208>(p, grid, threads, smem, s);
-    case 14: return launch_d<224>(p, grid, threads, smem, s);
-    case 15: return launch_d<240>(p, grid, threads, smem, s);
-    case 16: return launch_d<256>(p, grid, threads, smem, s);
+  switch (d / 8) {
+    case 1: return launch_d<8>(p, grid, threads, smem, s);
+    case 2: return launch_d<16>(p, grid, threads, smem, s);
+    case 3: return launch_d<24>(p, grid, threads, smem, s);
+    case 4: return launch_d<32>(p, grid, threads, smem, s);
+    case 5: return launch_d<40>(p, grid, threads, smem, s);
+    case 6: return launch_d<48>(p, grid, threads, smem, s);
+    case 7: return launch_d<56>(p, grid, threads, smem, s);
+    case 8: return launch_d<64>(p, grid, threads, smem, s);
+    case 9: return launch_d<72>(p, grid, threads, smem, s);
+    case 10: return launch_d<80>(p, grid, threads, smem, s);
+    case 11: return launch_d<88>(p, grid, threads, smem, s);
+    case 12: return launch_d<96>(p, grid, threads, smem, s);
+    case 13: return launch_d<104>(p, grid, threads, smem, s);
+    case 14: return launch_d<112>(p, grid, threads, smem, s);
+    case 15: return launch_d<120>(p, grid, threads, smem, s);
+    case 16: return launch_d<128>(p, grid, threads, smem, s);
+    case 17: return launch_d<136>(p, grid, threads, smem, s);
+    case 18: return launch_d<144>(p, grid, threads, smem, s);
+    case 19: return launch_d<152>(p, grid, threads, smem, s);
+    case 20: return launch_d<160>(p, grid, threads, smem, s);
+    case 21: return launch_d<168>(p, grid, threads, smem, s);
+    case 22: return launch_d<176>(p, grid, threads, smem, s);
+    case 23: return launch_d<184>(p, grid, threads, smem, s);
+    case 24: return launch_d<192>(p, grid, threads, smem, s);
+    case 25: return launch_d<200>(p, grid, threads, smem, s);
+    case 26: return launch_d<208>(p, grid, threads, smem, s);
+    case 27: return launch_d<216>(p, grid, threads, smem, s);
+    case 28: return launch_d<224>(p, grid, threads, smem, s);
+    case 29: return launch_d<232>(p, grid, threads, smem, s);
+    case 30: return launch_d<240>(p, grid, threads, smem, s);
+    case 31: return launch_d<248>(p, grid, threads, smem, s);
+    case 32: return launch_d<256>(p, grid, threads, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,8 +20,9 @@
 // Shared-memory layouts (no swizzle, 8 x 8 core matrices of 128 bytes):
 //
 // - K-major (Q and K tiles): the 16-byte chunk of row r, d-chunk dc sits at
-//   chunk index (r/8)*8*kc + dc*8 + r%8 (kc = d/8).  Core matrices step 128
-//   bytes along d (LBO) and 16*d bytes along the rows (SBO).
+//   chunk index (r/8)*8*kc + dc*8 + r%8 (kc = dp/8, dp the head width
+//   rounded up to wgmma's k16; the chunks past d are zero).  Core matrices
+//   step 128 bytes along d (LBO) and 16*dp bytes along the rows (SBO).
 // - N-major (V tiles of `keys` rows): the chunk of key row kr, d-chunk dc
 //   sits at chunk index dc*keys + kr.  Core matrices step 128 bytes along
 //   the keys, which are wgmma's K (LBO), and 16*keys bytes along d, which
@@ -61,6 +62,19 @@ __device__ __forceinline__ void wgmma_ss16(float* d, uint64_t da, uint64_t db) {
 // d (64 x N f32 fragment) += A (registers, bf16x2) * B (descriptor, N-major:
 // imm-trans-b = 1).
 template <int N> struct WgmmaRS;
+
+template <> struct WgmmaRS<8> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+        : "memory");
+  }
+};
 
 template <> struct WgmmaRS<16> {
   static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {

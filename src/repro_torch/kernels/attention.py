@@ -88,26 +88,30 @@ def tensor_core_attention_plan(
     cannot honour the tile (it is never clamped).
 
     ``block_q`` is a multiple of wgmma's 64 rows, ``block_k`` of its k16,
-    ``head_dim`` a multiple of 16 up to 256.  The CTA has at most 4
-    warpgroups, fewer for wide heads (2 up to d = 128, 1 above) so that the
-    O fragment (d/2 floats) and the S fragment of a 64-key sub-step (32
-    floats) stay in registers.  Shared memory holds one round's Q and a
-    2-slot K/V ring: 2*d*(64*warpgroups + 4*block_k) bytes.
+    ``head_dim`` a multiple of 8 up to 256.  Q and K sit in shared tiles
+    ``dp`` = head_dim rounded up to 16 wide, their pad columns zero (they
+    add nothing to Q K^T); P V runs at n = head_dim (ROADMAP C3: 120 is
+    h2o-danube3's head width).  The CTA has at most 4 warpgroups, fewer for
+    wide heads (2 up to d = 128, 1 above) so that the O fragment (d/2
+    floats) and the S fragment of a 64-key sub-step (32 floats) stay in
+    registers.  Shared memory holds one round's Q and a 2-slot K/V ring:
+    2*(64*warpgroups*dp + 2*block_k*(dp + d)) bytes.
     """
     if block_q % 64 or block_k % 16:
         raise ValueError(
             f"tensor_core attention tile ({block_q}, {block_k}) is not a "
             "multiple of wgmma's (64 rows, 16 keys)"
         )
-    if head_dim % 16 or not 16 <= head_dim <= 256:
+    if head_dim % 8 or not 8 <= head_dim <= 256:
         raise ValueError(
-            f"tensor_core attention needs a head_dim that is a multiple of 16 "
+            f"tensor_core attention needs a head_dim that is a multiple of 8 "
             f"up to 256, got {head_dim}"
         )
     atoms = block_q // 64
     max_wg = 4 if head_dim <= 64 else (2 if head_dim <= 128 else 1)
     wg = min(atoms, max_wg)
-    smem = 2 * head_dim * (64 * wg + 4 * block_k)
+    dp = -(-head_dim // 16) * 16
+    smem = 2 * (64 * wg * dp + 2 * block_k * (dp + head_dim))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"tensor_core attention tile ({block_q}, {block_k}) at head_dim "

@@ -26,6 +26,15 @@ Unlike the reference, the first generated token is the argmax at the last
 REAL prompt position (s - 1), not at the last padded position of the
 sequence bucket.
 
+Continuous batching (launch/scheduler.py) drives the same server through
+:meth:`VortexServer.prefill` (one request's prefill, its cache leased) and
+:meth:`VortexServer.decode_vec` (one decode step for rows at mixed
+progress: ``pos`` a (bp,) device vector), the counterparts of the
+reference's ``_prefill_exec_for`` and ``_decode_exec_vec_for``.  Its
+failure domains use the typed errors here (:class:`RequestError`,
+:class:`QueueFullError`, :class:`DeadlineExceeded`), and the pool's
+``lease`` is a fault-injection site (runtime/faults.py ``pool_lease``).
+
 ``python -m repro_torch.launch.serve --arch paper-gpt2-124m --requests 8``
 ``python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --requests 8``
 """
@@ -51,25 +60,73 @@ from repro_torch.models.layers import moe_capacity
 from repro_torch.models.model import decode_step, prefill_step
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_config, get_smoke_config
+from repro_torch.runtime import faults
 from repro_torch.vortex import CompiledOp, Engine, EngineConfig, pow2_bucket
 
 __all__ = [
     "VortexServer",
     "Request",
     "KVBucketPool",
+    "RequestError",
+    "QueueFullError",
+    "DeadlineExceeded",
     "CacheOverflowError",
 ]
 
 
 class CacheOverflowError(ValueError):
     """The request cannot fit ``max_cache`` even after growth — refused up
-    front, before any prefill work."""
+    front, before any prefill work, by both admission paths: the serial
+    ``generate()`` and the scheduler's ``submit()``."""
+
+
+class QueueFullError(RuntimeError):
+    """``submit()`` refused: the scheduler's bounded admission queue
+    (``max_queue``) is at capacity — back-pressure, not failure; retry
+    after a drain."""
+
+
+class RequestError(RuntimeError):
+    """A typed per-request failure: the scheduler's ``drain()`` returns it
+    (in place of the token array) for a request whose admission, cache
+    growth or decode raised — the step loop itself goes on.  ``stage``
+    names the failure domain (``admit`` / ``grow`` / ``decode`` /
+    ``deadline``)."""
+
+    def __init__(self, request_id: int, stage: str, message: str):
+        self.request_id = request_id
+        self.stage = stage
+        super().__init__(
+            f"request {request_id} failed during {stage}: {message}"
+        )
+
+
+class DeadlineExceeded(RequestError):
+    """A request's wall-clock ``deadline_s`` expired before completion;
+    its rows retire at once and the slots are reused next step."""
+
+    def __init__(self, request_id: int, deadline_s: float):
+        self.deadline_s = deadline_s
+        super().__init__(
+            request_id, "deadline",
+            f"deadline_s={deadline_s} expired before completion",
+        )
 
 
 @dataclasses.dataclass
 class Request:
     tokens: np.ndarray  # (batch, prompt_len)
     max_new: int = 8
+    # Early-stop token: a row that emits it retires, its remaining output
+    # positions filled with the stop token (scheduler path; the serial
+    # ``generate()`` always runs to max_new).
+    stop: int | None = None
+    # Assigned by the scheduler's admission queue so responses can be
+    # matched to submissions; ``generate()`` never reads it.
+    request_id: int | None = None
+    # Wall-clock budget from ``submit()`` (scheduler path only): once it
+    # expires the request resolves to ``DeadlineExceeded``.  None = none.
+    deadline_s: float | None = None
 
 
 class KVBucketPool:
@@ -109,6 +166,8 @@ class KVBucketPool:
     def lease(self, shape, dtype, device) -> torch.Tensor:
         """One bucket-shaped buffer: a parked one when available (stale
         contents — read it through a kv_len mask), else fresh zeros."""
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.check("pool_lease")
         key = self._key(shape, dtype, device)
         buf = None
         with self._lock:
@@ -190,8 +249,10 @@ class VortexServer:
         self.engine = engine
         self.device = torch.device(engine.device)
         if params is None:
+            # Drawn on the server's device, one leaf at a time.
             params = init_params(
-                cfg, torch.Generator().manual_seed(seed), self.device
+                cfg, torch.Generator(self.device).manual_seed(seed),
+                self.device,
             )
         self.params = params
         self.max_cache = max_cache
@@ -206,9 +267,12 @@ class VortexServer:
             DecodeAttentionWorkload(seq=None, head_dim=cfg.resolved_head_dim)
         ))
         self.kv_pool = KVBucketPool()
-        # First use of a (batch, seq) / (batch, kv) bucket vs repeat use.
+        # First use of a (batch, seq) / (batch, kv) bucket vs repeat use;
+        # the mixed-progress decode (``decode_vec``) keys its own set, as
+        # the reference caches its vector-pos programs apart.
         self._prefill_seen: set[tuple[int, int]] = set()
         self._decode_seen: set[tuple[int, int]] = set()
+        self._decode_vec_seen: set[tuple[int, int]] = set()
         self.stats = {
             "prefill_buckets": 0, "bucket_hits": 0,
             "decode_buckets": 0, "decode_bucket_hits": 0,
@@ -420,37 +484,77 @@ class VortexServer:
             self._dropped_sum += stats["dropped_frac"]
             self._moe_forwards += 1
 
-    def generate(self, req: Request) -> np.ndarray:
-        """Greedy tokens ``(batch, max_new)`` for one request."""
-        b, s = req.tokens.shape
+    def check_fits(self, req: Request, where: str = "") -> None:
+        """Raise :class:`CacheOverflowError` when ``req`` cannot fit
+        ``max_cache`` even after growth (before any prefill work)."""
+        s = req.tokens.shape[1]
         if s + req.max_new - 1 > self.max_cache:
             raise CacheOverflowError(
-                f"prompt_len {s} + max_new {req.max_new} needs "
+                f"{where}prompt_len {s} + max_new {req.max_new} needs "
                 f"{s + req.max_new - 1} cache rows > max_cache "
                 f"{self.max_cache}; raise max_cache or shorten the request"
             )
-        cfg, params, dev = self.cfg, self.params, self.device
+
+    def prefill(self, tokens: np.ndarray):
+        """One request's prefill at its (batch, seq) bucket: ``(first
+        (bp,) device tensor, cache, kvb)`` -- the greedy token at each
+        row's last REAL prompt position, the kv-bucket cache (already
+        registered as pool leases: the caller releases it), and its
+        length."""
+        b, s = tokens.shape
         bp = self.batch_bucket(b)
         sp = self.seq_bucket(s)
         toks = np.zeros((bp, sp), np.int64)
-        toks[:b, :s] = req.tokens
+        toks[:b, :s] = tokens
         kvb = self.kv_bucket(sp)  # the prefill-emitted cache length
         self._note(self._prefill_seen, (bp, sp), "prefill_buckets",
                    "bucket_hits")
         with self.engine.use():
             logits, cache, stats = prefill_step(
-                cfg, params, torch.from_numpy(toks).to(dev),
+                self.cfg, self.params, torch.from_numpy(toks).to(self.device),
                 cache_len=kvb, last=s - 1,
             )
         self._note_moe(stats)
-        tok = logits.argmax(-1)
-        out = [tok.cpu().numpy()]
+        # The prefill-emitted leaves are pool leases from here on.
+        self.adopt_cache(cache)
+        return logits.argmax(-1), cache, kvb
+
+    def decode_vec(
+        self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor
+    ) -> torch.Tensor:
+        """One mixed-progress decode step: ``tokens`` (bp, 1) and ``pos``
+        (bp,) int32 on the device, each row at its own position; the new
+        k/v rows land in ``cache`` in place, and every attention layer
+        makes one ``decode_attention`` dispatch with per-row kv_len.
+        Returns the logits (bp, vocab_padded).  Counts first and repeat
+        use of its own (bp, kvb) key (the reference's vector-pos
+        programs)."""
+        return self._decode(cache, tokens, pos, self._decode_vec_seen)
+
+    def _decode(self, cache: dict, tokens: torch.Tensor, pos, seen: set):
+        """One decode step of every row (``pos`` an int or (bp,)),
+        counted on ``seen``'s (bp, kvb) keys; returns the logits."""
+        kvb = next(self._cache_leaves(cache)).shape[3]
+        self._note(seen, (tokens.shape[0], kvb), "decode_buckets",
+                   "decode_bucket_hits")
+        with self.engine.use():
+            logits, _, stats = decode_step(
+                self.cfg, self.params, cache, tokens, pos
+            )
+        self._note_moe(stats)
+        return logits
+
+    def generate(self, req: Request) -> np.ndarray:
+        """Greedy tokens ``(batch, max_new)`` for one request."""
+        self.check_fits(req)
+        b, s = req.tokens.shape
+        tok, cache, kvb = self.prefill(req.tokens)
         pos = s - 1
         st = self.decode_stats
-        # The prefill-emitted leaves are pool leases from here on: the
-        # finally arm settles them on retirement AND on any exception.
-        self.adopt_cache(cache)
+        # The finally arm settles the cache leases on retirement AND on any
+        # exception.
         try:
+            out = [tok.cpu().numpy()]
             for _ in range(req.max_new - 1):
                 pos += 1
                 needed = pos + 1  # rows the cache must hold after this step
@@ -461,13 +565,8 @@ class VortexServer:
                     st.unaligned_calls += 1
                 else:
                     st.aligned_calls += 1
-                self._note(self._decode_seen, (bp, kvb), "decode_buckets",
-                           "decode_bucket_hits")
-                with self.engine.use():
-                    logits, cache, stats = decode_step(
-                        cfg, params, cache, tok[:, None], pos
-                    )
-                self._note_moe(stats)
+                logits = self._decode(cache, tok[:, None], pos,
+                                      self._decode_seen)
                 st.launches += 1
                 tok = logits.argmax(-1)
                 out.append(tok.cpu().numpy())

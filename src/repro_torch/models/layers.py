@@ -5,7 +5,9 @@ function ``(params, x, ...) -> y`` on tensors, in two modes:
 
   * ``prefill`` — the full (bucket-padded) sequence, emitting a decode cache
     of length ``cache_len``,
-  * ``decode``  — one new token against the cache at the scalar ``pos``.
+  * ``decode``  — one new token against the cache at ``pos``: one position
+    for the batch, or a (b,) vector of per-row positions (continuous
+    batching).
 
 With a :mod:`repro_torch.vortex` session installed, prefill attention and
 each decode token's attention are served by the engine (the lattice picks
@@ -108,11 +110,34 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
+def _window_slice(
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,
+    window: int,
+):
+    """The last ``window`` cache rows up to each row's ``pos`` (the
+    reference's static window slice, src/repro/models/layers.py:185-215,
+    per row): ``(k, v, start)``, k/v ``(b, KV, window, hd)``, ``start`` the
+    (b,) absolute position of each row's row 0.
+
+    A gather copy of ``window`` rows per (row, kv head): the kernels take
+    dense caches.
+    """
+    b, hkv, S, _ = k_cache.shape
+    start = (pos - window + 1).clamp(0, S - window)
+    idx = start[:, None] + torch.arange(window, device=pos.device)
+    idx = idx[:, None, :, None].long()
+    k = torch.gather(k_cache, 2, idx.expand(b, hkv, window, k_cache.shape[-1]))
+    v = torch.gather(v_cache, 2, idx.expand(b, hkv, window, v_cache.shape[-1]))
+    return k, v, start
+
+
 def _decode_attend(
     q: torch.Tensor,        # (b, H, 1, hd)
     k_cache: torch.Tensor,  # (b, KV, S, hd)
     v_cache: torch.Tensor,  # (b, KV, S, dv)
-    pos: int,               # index of the new token (whole batch)
+    pos: torch.Tensor,      # (b,) index of each row's new token
     window: int | None,
     softcap: float | None,
     scale: float,
@@ -121,13 +146,22 @@ def _decode_attend(
     _, hkv, S, _ = k_cache.shape
     group = hq // hkv
 
+    # A sliding-window layer reads only the last ``window`` positions: once
+    # the cache is longer than twice the window, slice them out and rebase
+    # the positions (as the reference does), so the decode dispatch sees the
+    # reference's extent and bucket.
+    base = 0
+    if window is not None and S > 2 * window:
+        k_cache, v_cache, base = _window_slice(k_cache, v_cache, pos, window)
+        S = window
+
     # Engine-served decode: the query dispatches through the kv_len-masked
     # decode workload at the (bucketed) cache length S, with the valid row
-    # count as a runtime scalar, so cache tails past the last written token
-    # may hold anything.  The inline math below serves sessionless callers
-    # and the shapes the workload does not cover (dv != hd, a non-default
-    # scale).  The reference's static window slice is an optimization of
-    # later work: the window mask alone gives the same result.
+    # count as a runtime (b,) extent -- rows may be at mixed progress, one
+    # launch for the whole batch -- so cache tails past the last written
+    # token may hold anything.  The inline math below serves sessionless
+    # callers and the shapes the workload does not cover (dv != hd, a
+    # non-default scale).
     engine = session.installed_engine()
     if (
         engine is not None
@@ -135,7 +169,7 @@ def _decode_attend(
         and abs(scale - hd ** -0.5) < 1e-12
     ):
         return engine.dispatch(
-            "decode_attention", q, k_cache, v_cache, pos + 1,
+            "decode_attention", q, k_cache, v_cache, pos - base + 1,
             window=window, softcap=softcap,
         ).to(q.dtype)
 
@@ -144,11 +178,13 @@ def _decode_attend(
     s = torch.einsum("bkgd,bksd->bkgs", qf, k_cache.float()) * scale
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
-    k_pos = torch.arange(S, device=q.device)
-    mask = k_pos <= pos
+    k_pos = torch.arange(S, device=q.device)[None] + torch.as_tensor(
+        base, device=q.device).reshape(-1, 1)          # (b or 1, S)
+    p_ = pos[:, None]
+    mask = k_pos <= p_
     if window is not None:
-        mask = mask & (k_pos > pos - window)
-    s = torch.where(mask[None, None, None, :], s, -1e30)
+        mask = mask & (k_pos > p_ - window)
+    s = torch.where(mask[:, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     return out.reshape(b, hq, 1, -1).to(q.dtype)
@@ -163,10 +199,13 @@ def attn_forward(
     mode: str,
     positions: torch.Tensor,
     cache: dict | None = None,
-    pos: int | None = None,
+    pos: torch.Tensor | None = None,
     cache_len: int = 0,
 ) -> tuple[torch.Tensor, dict]:
     """GQA attention with RoPE, sliding window and logit softcap.
+
+    ``positions`` are the RoPE positions: ``(s,)`` in prefill, ``(b, 1)``
+    in decode.  ``pos`` is the (b,) decode position of each row.
 
     Returns ``(y, cache)``: in prefill the emitted k/v are padded to
     ``cache_len``; in decode the new token's k/v row is written INTO
@@ -183,10 +222,13 @@ def attn_forward(
     v = _split_heads(x @ p["wv"], KV)
 
     if cfg.use_rope:
-        # positions: (s,) absolute positions — arange(s) in prefill, the
-        # one-element [pos] in decode.
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-        cos, sin = cos[None, None], sin[None, None]  # (1, 1, s, hd/2)
+        if positions.ndim == 2:
+            # Decode positions (b, 1): tables (b, 1, hd/2) lifted to
+            # (b, 1, 1, hd/2), so every row rotates at its own position.
+            cos, sin = cos[:, None], sin[:, None]
+        else:
+            cos, sin = cos[None, None], sin[None, None]  # (1, 1, s, hd/2)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -194,9 +236,14 @@ def attn_forward(
     if mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and a position")
-        # In place: the cache is this request's own (leased) buffer.
-        cache["k"][:, :, pos:pos + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, :, pos:pos + 1] = v.to(cache["v"].dtype)
+        # In place: the cache is this request's own (leased) buffer, or the
+        # scheduler's shared one.
+        # Each row's k/v lands at its own position: the (rows, pos) index
+        # pairs select one cache row per batch row.
+        rows = torch.arange(b, device=pos.device)
+        at = pos.long()
+        cache["k"][rows, :, at] = k[:, :, 0].to(cache["k"].dtype)
+        cache["v"][rows, :, at] = v[:, :, 0].to(cache["v"].dtype)
         out = _decode_attend(
             q, cache["k"], cache["v"], pos, spec.window, cfg.attn_softcap,
             scale,

@@ -7,14 +7,22 @@ and the forward pass is a Python loop over groups (the reference's
 ``lax.scan``; PyTorch runs eagerly).
 
 Entry points:
-  * :func:`make_cache`  — a zeroed decode cache,
+  * :func:`make_cache`  — a zeroed decode cache (:func:`abstract_cache`:
+    its shapes and dtypes as meta tensors),
   * :func:`forward`     — logits for prefill/decode,
   * :func:`prefill_step` / :func:`decode_step` — the serving steps (the
     reference's train/step.py:137-165 folded in).  ``prefill_step`` takes
     the logits of the row the caller names — the last REAL prompt token —
     where the reference reads the last padded position.
+
+Decode takes ``pos`` as an int (every batch row at one position) or a
+``(b,)`` integer tensor (each row at its own position: one step serves
+rows at mixed progress, as the continuous-batching scheduler needs).  An
+int becomes a ``(b,)`` tensor up front, so the layers have one decode path.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,7 +34,9 @@ from repro_torch.models.layers import (
     norm,
 )
 
-__all__ = ["make_cache", "forward", "prefill_step", "decode_step"]
+__all__ = [
+    "make_cache", "abstract_cache", "forward", "prefill_step", "decode_step",
+]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -48,6 +58,12 @@ def make_cache(
     }
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    """:func:`make_cache`'s tree as meta tensors: the leaves' shapes and
+    dtypes, with no storage (the reference's ``abstract_cache``)."""
+    return make_cache(cfg, batch, cache_len, device="meta")
+
+
 def _hidden(
     cfg: ModelConfig,
     params: dict,
@@ -55,24 +71,31 @@ def _hidden(
     *,
     mode: str,
     cache: dict | None,
-    pos: int | None,
+    pos: int | torch.Tensor | None,
     cache_len: int,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Embedding through the final norm: (hidden (b, s, d), cache,
     moe_stats).  ``moe_stats`` holds the mean ``dropped_frac`` over the
     MoE layers (a device scalar; 0 without MoE layers) and ``topi``, each
     MoE layer's (b, s, k) expert choices in layer order."""
-    if not cfg.use_rope or cfg.embed_scale:
+    if not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: absolute positions / embedding scale not ported yet"
+            f"{cfg.name}: absolute positions are not ported yet"
         )
     b, s = tokens.shape
     x = params["embed"][tokens]
+    if cfg.embed_scale:
+        # Gemma's sqrt(d) scale, in f32 then cast (model.py:269-270).
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     dev = x.device
-    positions = (
-        torch.tensor([pos], device=dev) if mode == "decode"
-        else torch.arange(s, device=dev)
-    )
+    # RoPE positions: (s,) in prefill, (b, 1) in decode.  Decode has one
+    # path: an int ``pos`` is every row at that position.
+    if mode != "decode":
+        positions = torch.arange(s, device=dev)
+    else:
+        if not torch.is_tensor(pos):
+            pos = torch.full((b,), pos, dtype=torch.int32, device=dev)
+        positions = pos.reshape(b, 1)
     n_pos = len(cfg.pattern)
     new_layers: list[list[dict]] = [[] for _ in range(n_pos)]
     dropped: list[torch.Tensor] = []
@@ -145,12 +168,13 @@ def forward(
     *,
     mode: str = "prefill",
     cache: dict | None = None,
-    pos: int | None = None,
+    pos: int | torch.Tensor | None = None,
     cache_len: int = 0,
     return_moe_stats: bool = False,
 ) -> tuple:
     """Run the model: ``tokens`` (b, s) int — s == 1 in decode mode with
-    ``pos`` the scalar position of the new token.  Returns
+    ``pos`` the position of the new token, an int or a (b,) tensor of
+    per-row positions.  Returns
     ``(logits (b, s, vocab_padded), cache[, moe_stats])``; in prefill the
     cache leaves are ``cache_len`` long, in decode ``cache`` is updated in
     place.  ``return_moe_stats`` appends ``{"dropped_frac": mean fraction
@@ -181,9 +205,10 @@ def prefill_step(
 
 def decode_step(
     cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
-    pos: int,
+    pos: int | torch.Tensor,
 ) -> tuple[torch.Tensor, dict, dict]:
-    """One decode token: ``(logits (b, vocab), cache, moe_stats)``."""
+    """One decode token: ``(logits (b, vocab), cache, moe_stats)``; ``pos``
+    is one position for the batch or a (b,) tensor of per-row ones."""
     x, cache, stats = _hidden(
         cfg, params, tokens, mode="decode", cache=cache, pos=pos,
         cache_len=0,

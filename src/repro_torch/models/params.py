@@ -6,9 +6,9 @@ leaves are stacked over ``n_groups`` (the reference's scan layout), so a
 parameter tree of one package maps onto the other's leaf for leaf.
 
 * :func:`init_params` draws the weights from an explicit
-  :class:`torch.Generator` (normal, std = fan_in^-1/2, as the reference,
-  save that an expert stack's fan-in is its input width, not the expert
-  count).
+  :class:`torch.Generator`, one leaf at a time on the generator's device
+  (normal, std = fan_in^-1/2, as the reference, save that an expert
+  stack's fan-in is its input width, not the expert count).
   The draws differ from ``jax.random``'s; cross-package tests carry the
   reference's own weights over with :func:`params_from_numpy` instead.
 * :func:`params_from_numpy` takes the reference ``init_params`` tree as
@@ -178,21 +178,27 @@ def _map_schema(
 def init_params(
     cfg: ModelConfig, generator: torch.Generator, device="cuda"
 ) -> dict:
-    """Seeded weights: every normal leaf is drawn in f32 on the CPU from
-    ``generator`` (in sorted path order, so the draw is independent of
-    dict order and device), scaled by fan_in^-1/2, cast, then moved."""
+    """Seeded weights, one leaf at a time: each normal leaf is drawn in f32
+    on ``generator``'s device (in sorted path order, so the draw is
+    independent of dict order), scaled by fan_in^-1/2, cast, and moved to
+    ``device`` before the next leaf is drawn.  The transient f32 draw is
+    the only extra memory, so a 9B-parameter model never sits whole in f32
+    anywhere.  A CPU generator gives the same weights on every device; a
+    CUDA generator draws on the card (other numbers from the same seed)."""
     schema = model_schema(cfg)
     drawn: dict[str, torch.Tensor] = {}
     for path, d in _leaves(schema):
         dtype = _DTYPES[d.dtype]
         if d.init == "ones":
-            t = torch.ones(d.shape, dtype=dtype)
+            t = torch.ones(d.shape, dtype=dtype, device=device)
         else:
             fan_in = d.shape[d.scale_axis]
             std = 1.0 / math.sqrt(max(fan_in, 1))
-            t = (torch.randn(d.shape, generator=generator) * std).to(dtype)
+            t = torch.randn(d.shape, generator=generator,
+                            device=generator.device)
+            t = t.mul_(std).to(dtype=dtype, device=device)
         drawn[path] = t
-    return _map_schema(schema, lambda p, d: drawn[p].to(device))
+    return _map_schema(schema, lambda p, d: drawn[p])
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:

@@ -15,6 +15,10 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
 _MODULES = {
     "paper-gpt2-124m": "repro_torch.configs.paper_gpt2",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)

@@ -1,6 +1,7 @@
 """The port's package boundary and its device contract.
 
-``src/repro_torch/`` and ``chip_smoke.py`` import neither jax nor any
+``src/repro_torch/``, ``chip_smoke.py``, ``benchmarks_torch/`` and
+``examples_torch/`` import neither jax nor any
 module of the JAX package ``repro`` (numpy-only ones included: importing
 ``repro.core`` pulls jax in).  The entry points run on the card and raise,
 rather than carry on on the CPU, when no GPU is present and the caller did
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
-]
+PORT_FILES = sorted(
+    p for d in ("src/repro_torch", "benchmarks_torch", "examples_torch")
+    for p in (ROOT / d).rglob("*.py")
+) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -52,7 +54,7 @@ def test_port_import_loads_no_jax(tmp_path):
 
     code = (
         "import sys, repro_torch.launch.serve, repro_torch.vortex, "
-        "repro_torch.kernels; "
+        "repro_torch.kernels, repro_torch.launch.scheduler; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))"
     )

@@ -294,14 +294,14 @@ def test_attention_rejects_mismatched_heads():
 
 # (backend, sq, block_q, block_k, head_dim) that no attention kernel path can
 # honour: an unknown backend, and tensor_core prefill tiles off wgmma's (64
-# rows, 16 keys), head widths off 16 or past 256, or past a block's shared
+# rows, 16 keys), head widths off 8 or past 256, or past a block's shared
 # memory.
 BAD_ATTN_BACKEND_TILES = {
     "unknown_backend": ("mxu", 64, 64, 64, 64),
     "unknown_backend_decode": ("mxu", 1, 1, 64, 64),
     "tc_block_q_32": ("tensor_core", 64, 32, 64, 64),
     "tc_block_k_8": ("tensor_core", 64, 64, 8, 64),
-    "tc_head_dim_24": ("tensor_core", 64, 64, 64, 24),
+    "tc_head_dim_20": ("tensor_core", 64, 64, 64, 20),
     "tc_head_dim_272": ("tensor_core", 64, 64, 16, 272),
     "tc_past_shared_memory": ("tensor_core", 64, 64, 1024, 64),
 }
@@ -368,6 +368,10 @@ def test_attention_path_is_fixed_by_form_backend_and_dtype():
     ((64, 512, 16), (1, 1, 67584, 40)),
     ((128, 64, 128), (2, 1, 98304, 96)),
     ((256, 32, 256), (1, 4, 98304, 160)),
+    # Head widths off k16 (ROADMAP C3): Q and K tiles padded to 16, V not.
+    ((64, 64, 120), (1, 1, 79872, 92)),    # h2o-danube3
+    ((128, 64, 120), (2, 1, 96256, 92)),
+    ((64, 16, 24), (1, 1, 7680, 44)),
 ])
 def test_tensor_core_attention_plan_of_served_and_extreme_tiles(tile, plan):
     assert tuple(tensor_core_attention_plan(*tile)) == plan
@@ -685,6 +689,16 @@ TC_ATTN_CASES = {
                         None),
     "decode_many_splits": (2, 8, 2, 1, 2048, 64, 1, 64, False, None, None,
                            [1500, 0], [1499, -1]),
+    # The dense family's heads: h2o-danube3's 120 (ROADMAP C3) and gemma2's
+    # 256 with its window and softcap; GQA groups 3 and 12 in decode.
+    "tc_d120_c3": (1, 8, 2, 130, 130, 120, 128, 64, True, 64, None, 130,
+                   None),
+    "tc_d256_window_softcap": (1, 4, 2, 100, 100, 256, 64, 32, True, 40,
+                               50.0, 100, None),
+    "decode_group3": (2, 6, 2, 1, 300, 128, 1, 64, False, None, None,
+                      [300, 17], [299, 16]),
+    "decode_group12_d120": (2, 24, 2, 1, 300, 120, 1, 64, False, 100, None,
+                            [300, 17], [299, 16]),
 }
 
 
