@@ -86,7 +86,26 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    time is one compiled ``flex_attention`` call (a tanh softcap
    ``score_mod``, a causal-window or per-row kv_len block mask,
    ``enable_gqa``), held against the plain version before it is timed.
-6. Print the kernels line, then the result line.
+6. The benchmark suite's serving snapshot at full width on the card
+   (``benchmarks_torch.bench_workloads.serving_payload(smoke=False)``, the
+   payload ``benchmarks_torch/run.py --json`` writes): the hot path's
+   aligned and unaligned dispatch of a bf16 GEMM (2304 wide), prefill
+   attention (8/4 heads of 64) and a 1x1 conv2d (1536 wide); decode and
+   continuous batching (serial, then concurrency 1, 4, 16) on
+   paper-gpt2-124m at 12 layers; one granite-moe-1b-a400m expert-FFN
+   layer at its real widths (1024/512, 32 experts, top-8).  Fails unless
+   every engine call is one engine launch and one kernel launch with 0
+   padded calls, every token and every batched step is one decode step of
+   12 ``decode_attention`` launches with 0 padded calls, every MoE
+   projection is one grouped launch for all experts, the kv pool's leases
+   are back to 0, the MoE layer agrees with the dense einsums within the
+   grouped GEMM's bf16 tolerance, and each of the four kernels launched at
+   least once in the phase.  Prints each section's timings (the
+   hot-path ratios, tokens/s and ``speedup_at_16``, select µs) beside the
+   card's name and power limit; the reference's wall-clock gates are
+   ``benchmarks_torch/run.py --gate``'s, not this script's.
+7. Print the kernels line (with phase 6's launch counts), then the result
+   line.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
 1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMMs, grouped and
@@ -1566,6 +1585,110 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the benchmark suite's serving snapshot (benchmarks_torch)
+# ---------------------------------------------------------------------------
+
+PHASE6_KERNELS = ("vortex_gemm", "flash_attention_prefill",
+                  "flash_attention_decode", "vortex_grouped_gemm")
+
+
+def check_serving_payload(p: dict) -> None:
+    """Fails unless the snapshot keeps the deterministic contracts: one
+    engine launch and one kernel launch per engine call, 0 padded calls,
+    one decode step (of n_layers decode-attention launches) per token and
+    per batched step, one grouped launch per MoE projection, the kv pool's
+    leases back to 0, and MoE within the grouped GEMM's tolerance."""
+    for kind, h in p["hot_path"].items():
+        if h["launches_per_call"] != 1.0 or h["kernel_launches_per_call"] != 1.0:
+            fail(f"phase 6 hot_path/{kind}: {h['launches_per_call']} engine and "
+                 f"{h['kernel_launches_per_call']} kernel launches per call")
+        if h["padded_calls"] != 0:
+            fail(f"phase 6 hot_path/{kind}: {h['padded_calls']} padded calls")
+    dec, cb, moe = p["decode"], p["continuous_batching"], p["moe"]
+    layers = dec["n_layers"]
+    if (dec["launches_per_token"] != 1.0 or dec["padded_calls"] != 0
+            or dec["engine_padded_calls"] != 0):
+        fail(f"phase 6 decode: {dec['launches_per_token']} steps per token, "
+             f"{dec['padded_calls']} padded calls")
+    per_tok = dec["kernel_launches_per_token"].get("flash_attention_decode")
+    if per_tok != layers:
+        fail(f"phase 6 decode: {per_tok} decode-attention launches per token, "
+             f"expected {layers}")
+    if cb["launches_per_batched_step"] != 1.0 or cb["padded_calls"] != 0:
+        fail(f"phase 6 continuous_batching: {cb['launches_per_batched_step']} "
+             f"steps per batched step, {cb['padded_calls']} padded calls")
+    for c, r in cb["concurrency"].items():
+        if r["kernel_launches_per_batched_step"] != layers:
+            fail(f"phase 6 continuous_batching@{c}: "
+                 f"{r['kernel_launches_per_batched_step']} decode-attention "
+                 f"launches per batched step, expected {layers}")
+    if cb["kv_pool"]["leases_active"] != 0:
+        fail(f"phase 6: kv pool leases left active: {cb['kv_pool']}")
+    if (moe["launches_per_moe_layer"] != 1.0
+            or moe["kernel_launches_per_moe_layer"] != 1.0
+            or moe["padded_calls"] != 0):
+        fail(f"phase 6 moe: {moe['launches_per_moe_layer']} engine and "
+             f"{moe['kernel_launches_per_moe_layer']} grouped launches per "
+             f"projection, {moe['padded_calls']} padded calls")
+    if not moe["within_tolerance"]:
+        fail(f"phase 6 moe: engine vs dense relative diff "
+             f"{moe['max_rel_diff_vs_dense']:.3g} > {moe['tolerance']:.3g}")
+
+
+def phase_bench(kernels, smi: str) -> dict:
+    """Phase 6: ``serving_payload(smoke=False)`` on the card."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmarks_torch.bench_workloads import serving_payload
+    except ImportError as e:
+        fail(f"benchmarks_torch is not beside this script: {e}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    p = serving_payload(False)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check_serving_payload(p)
+    missing = [k for k in PHASE6_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"phase 6 launched no {', '.join(missing)}")
+    for kind, d in p["dispatch"].items():
+        print(f"phase 6 dispatch/{kind}: table {d['table_us']:.3f} us vs "
+              f"argmin {d['argmin_us']:.3f} us per select "
+              f"({d['speedup']:.1f}x) on {smi}")
+    for kind, h in p["hot_path"].items():
+        print(f"phase 6 hot_path/{kind}: aligned {h['aligned_us']:.3f} us "
+              f"(extent {h['aligned_extent']}) unaligned "
+              f"{h['unaligned_us']:.3f} us (extent {h['unaligned_extent']}) "
+              f"ratio {h['unaligned_over_aligned']:.4f} after "
+              f"{h['gate_attempts']} attempts, {h['kernel_launches']} "
+              f"[host wall-clock, synchronized, bf16] on {smi}")
+    dec, cb, moe = p["decode"], p["continuous_batching"], p["moe"]
+    print(f"phase 6 decode: {dec['arch']} {dec['n_layers']} layers, "
+          f"{dec['tokens']} tokens, {dec['decode_us_per_token']:.1f} us/token, "
+          f"kernel launches/token {dec['kernel_launches_per_token']}, "
+          f"growth copies {dec['growth_copies']} over "
+          f"{dec['bucket_transitions']} bucket transitions on {smi}")
+    conc = ", ".join(
+        f"@{c} {r['tokens_per_s']:.1f} tok/s over {r['batched_steps']} steps"
+        for c, r in cb["concurrency"].items())
+    print(f"phase 6 continuous_batching: serial "
+          f"{cb['serial_tokens_per_s']:.1f} tok/s, {conc}, speedup_at_16 "
+          f"{cb['speedup_at_16']:.3f} on {smi}")
+    print(f"phase 6 moe: {moe['experts']} experts top-{moe['top_k']} "
+          f"d_model {moe['d_model']} d_ff_expert {moe['d_ff_expert']}, "
+          f"{moe['tokens']} tokens: engine {moe['engine_us_per_layer']:.1f} "
+          f"us/layer vs dense {moe['dense_us_per_layer']:.1f} us/layer, "
+          f"max rel diff {moe['max_rel_diff_vs_dense']:.3g} (tolerance "
+          f"{moe['tolerance']:.3g}), bit_identical "
+          f"{moe['bit_identical_to_dense']}, dropped_frac "
+          f"{moe['dropped_frac']:.4f} on {smi}")
+    totals = {k: counts[k] for k in PHASE6_KERNELS}
+    print(f"phase 6: serving_payload(smoke=False) in {wall:.1f}s, kernel "
+          f"launches {totals}")
+    return {"launches": totals, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script runs on an NVIDIA GPU")
@@ -1612,6 +1735,8 @@ def main() -> int:
                            .manual_seed(6), ", granite 16/8")
     rows += dense_attention_rows(g2_info, dense_info, errs)
     rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
+    bench_info = phase_bench(kernels, smi)
+    print("phase 6: the serving snapshot keeps its contracts on the card")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -1619,7 +1744,8 @@ def main() -> int:
               f"library_ms={lib} launches={r['launches']} "
               f"[{r['shape']}; torch.profiler device time] on {smi}")
     print(smi)
-    print(json.dumps({"kernels": rows, "card": smi}))
+    print(json.dumps({"kernels": rows, "card": smi,
+                      "phase6_launches": bench_info["launches"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -119,7 +119,10 @@ class _StagingPool:
     One set (call-arg index -> bucket-shaped buffer) serves one in-flight
     unaligned dispatch: concurrent same-bucket calls each check out their
     own set.  Buffers are never re-zeroed; correctness is the kernel's
-    kv_len/m_true masking.  Retention is an LRU bounded at ``cap`` sets.
+    kv_len/m_true masking.  Retention is an LRU bounded at ``cap`` sets
+    (``EngineConfig.staging_pool_cap``): a release lands at the MRU end
+    and evicts from the LRU end when over cap; a checked-out set is not in
+    the free list, so eviction never touches an in-flight dispatch.
 
     A set is handed back right after its launch is ENQUEUED, tagged with
     the stream that launch runs on, and is reused only by a caller on that
@@ -178,8 +181,8 @@ class _CacheEntry:
 
     fn: Callable
     compile_seconds: float
+    pool: _StagingPool
     hits: int = 0
-    pool: _StagingPool = dataclasses.field(default_factory=_StagingPool)
 
     def run(self, *args):
         return self.fn(*args)
@@ -193,6 +196,12 @@ class VortexKernel:
     owns the offline build (lattice + scoring, optionally shared through
     ``scored_cache``), the runtime selector and the bucketed executable
     cache.
+
+    ``table_m_max``/``table_extend_limit`` size the selector's offline
+    selection table; ``staging=False`` sends every call to the zero-pad
+    reference path; ``staging_pool_cap`` bounds each entry's retained
+    staging-buffer sets.  :class:`repro_torch.vortex.EngineConfig` threads
+    all four through.
     """
 
     def __init__(
@@ -206,12 +215,18 @@ class VortexKernel:
         backends: tuple[str, ...] | None = None,
         num_cores: int = 1,
         scored_cache: dict | None = None,
+        table_m_max: int = 4096,
+        table_extend_limit: int = 1 << 17,
+        staging: bool = True,
+        staging_pool_cap: int = 4,
     ):
         if impl not in ("cuda", "torch"):
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
         self._hw = hw
         self._wl = wl
         self._impl = impl
+        self._staging = staging
+        self._pool_cap = staging_pool_cap
         self.dispatch_stats = DispatchStats()
         t0 = time.perf_counter()
         backends = backends or tuple(hw.backends)
@@ -235,7 +250,10 @@ class VortexKernel:
             scored[backend] = sl
             if scored_cache is not None:
                 scored_cache[cache_key] = sl
-        self.selector = RuntimeSelector(hw, wl, scored, num_cores=num_cores)
+        self.selector = RuntimeSelector(
+            hw, wl, scored, num_cores=num_cores,
+            table_m_max=table_m_max, table_extend_limit=table_extend_limit,
+        )
         self.offline_stats = OfflineStats(
             num_candidates=n_cands,
             num_measured=n_meas,
@@ -264,7 +282,8 @@ class VortexKernel:
             from repro_torch.kernels.build import library
 
             library()  # nvcc at first use; later entries find it built
-        return _CacheEntry(fn=fn, compile_seconds=time.perf_counter() - t0)
+        return _CacheEntry(fn=fn, compile_seconds=time.perf_counter() - t0,
+                           pool=_StagingPool(self._pool_cap))
 
     def _exec_cache_key(self, sel: Selection, args: tuple) -> tuple:
         return (
@@ -329,6 +348,10 @@ class VortexKernel:
         entry = self._entry_for(sel, args)
         st = self.dispatch_stats
         view = wl.stage_view(*args)
+        if not self._staging:
+            with self._stats_lock:
+                st.calls += 1
+            return self._call_padded(sel, entry, args, view)
         scalars = wl.runtime_scalars(sel, *view)
         shapes = wl.staged_shapes(sel, *view)
         unaligned = [

@@ -122,7 +122,8 @@ class RuntimeSelector:
             raise ValueError("need at least one scored lattice")
         self._hw = hw
         self._wl = wl
-        self._stacked = StackedLattices.stack(dict(scored))
+        self._scored = dict(scored)
+        self._stacked = StackedLattices.stack(self._scored)
         self._num_cores = num_cores
         self._cache: collections.OrderedDict[int, Selection] = (
             collections.OrderedDict()
@@ -134,6 +135,11 @@ class RuntimeSelector:
         # Built lazily on first use: throwaway selectors (benchmarks,
         # analysis scripts) shouldn't pay the breakpoint sweep up front.
         self._table: SelectionTable | None = None
+
+    @property
+    def scored(self) -> dict[str, ScoredLattice]:
+        """The per-backend scored lattices this selector serves from."""
+        return dict(self._scored)
 
     @property
     def table(self) -> SelectionTable | None:

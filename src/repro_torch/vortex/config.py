@@ -1,12 +1,11 @@
 """EngineConfig: the one frozen value that fully describes an Engine.
 
 Everything an :class:`~repro_torch.vortex.Engine` session needs — target
-hardware, compute backends, device and executable implementation — lives
-here, so engines are reproducible from a single hashable value.  The
-analyzer's empirical levels, Eq. 3's level-2 unit count and the
-selection-table sizing follow from the hardware, as the reference's
-defaults do.  The profiler is the one
-deliberate exception (a live object; pass it to ``Engine`` directly).
+hardware, compute backends, device, executable implementation,
+selection-table sizing, precompile and staging policy — lives here, so
+engines are reproducible from a single hashable value.  Eq. 3's level-2
+unit count follows from the hardware.  The profiler is the one deliberate
+exception (a live object; pass it to ``Engine`` directly).
 """
 from __future__ import annotations
 
@@ -33,12 +32,37 @@ class EngineConfig:
       (their plain versions); None resolves to ``"cuda"`` on the card and
       ``"torch"`` on the CPU.  Counterparts of the reference's ``"pallas"``
       and ``"xla"``.
+    * ``empirical_levels`` — hierarchy levels the hybrid analyzer measures
+      empirically (None = paper defaults, Table 7: level 0 on the host
+      CPU, levels 0-1 on accelerator-class hardware; ``()`` = fully
+      analytical).
+    * ``table_m_max`` / ``table_extend_limit`` — initial coverage and
+      doubling ceiling of the offline-materialized selection table
+      (selection_table.py); 0 disables the table (argmin + LRU only).
+    * ``precompile_m_max`` — when > 0, compiling an op through this engine
+      eagerly warms every executable bucket reachable for extents up to
+      this value (only for workloads whose executables are not specialized
+      on outer dims — those need representative args, see
+      ``CompiledOp.precompile``).
+    * ``staging`` — serve unaligned extents through the masked-tail staging
+      hot path (engine-owned bucket buffers + one launch).  False sends
+      every call to the zero-pad reference path — a parity/debugging knob,
+      not a serving configuration.
+    * ``staging_pool_cap`` — LRU bound on the staging-buffer sets each
+      executable entry retains (``_StagingPool``); 0 retains nothing
+      (every unaligned call allocates transient buffers).
     """
 
     hardware: str = "h100_sxm"
     backends: tuple[str, ...] | None = None
     device: str = "cuda"
     impl: str | None = None
+    empirical_levels: tuple[int, ...] | None = None
+    table_m_max: int = 4096
+    table_extend_limit: int = 1 << 17
+    precompile_m_max: int = 0
+    staging: bool = True
+    staging_pool_cap: int = 4
 
     def __post_init__(self) -> None:
         dev = resolve_device(self.device)
@@ -46,3 +70,13 @@ class EngineConfig:
         object.__setattr__(self, "impl", resolve_impl(dev, self.impl))
         if self.backends is not None:
             object.__setattr__(self, "backends", tuple(self.backends))
+        if self.empirical_levels is not None:
+            object.__setattr__(
+                self, "empirical_levels", tuple(self.empirical_levels)
+            )
+        for name in ("table_m_max", "table_extend_limit",
+                     "precompile_m_max", "staging_pool_cap"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}"
+                )

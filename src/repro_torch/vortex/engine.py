@@ -77,7 +77,9 @@ class Engine:
         self._profiler = profiler
         # Paper defaults (Table 7): E:L0 on CPU; E:L0,L1 on GPU-class HW.
         self._empirical_levels = (
-            (0,) if config.hardware == "host_cpu" else (0, 1)
+            config.empirical_levels
+            if config.empirical_levels is not None
+            else (0,) if config.hardware == "host_cpu" else (0, 1)
         )
         # Eq. 3's |HardwareUnit| at the grid level: 132 SMs on the H100,
         # 1 on the reference's TPU v5e and host CPU specs.
@@ -127,6 +129,10 @@ class Engine:
                         num_cores=self._num_cores,
                         impl=cfg.impl,
                         scored_cache=self._scored_cache,
+                        table_m_max=cfg.table_m_max,
+                        table_extend_limit=cfg.table_extend_limit,
+                        staging=cfg.staging,
+                        staging_pool_cap=cfg.staging_pool_cap,
                     )
                     self._kernels[key] = kern
         return kern
@@ -135,7 +141,12 @@ class Engine:
         self, workload: Workload | str, **params: Any
     ) -> CompiledOp:
         """The CompiledOp handle for a workload signature (a Workload
-        instance, or a registered kind name with its parameters)."""
+        instance, or a registered kind name with its parameters).
+
+        With ``config.precompile_m_max > 0`` a newly built op's executable
+        buckets are warmed eagerly (workloads without outer-dim
+        specialization only; the rest need representative args, see
+        CompiledOp.precompile)."""
         if isinstance(workload, str):
             workload = make_workload(workload, **params)
         elif params:
@@ -143,7 +154,19 @@ class Engine:
                 "workload parameters are only accepted with a kind name, "
                 f"not alongside a Workload instance: {sorted(params)}"
             )
-        return CompiledOp(self, self.kernel_for(workload))
+        known = workload.signature in self._kernels
+        op = CompiledOp(self, self.kernel_for(workload))
+        pm = self.config.precompile_m_max
+        if pm > 0 and not known and not self._exec_specialized(workload):
+            op.precompile(pm)
+        return op
+
+    @staticmethod
+    def _exec_specialized(wl: Workload) -> bool:
+        """True when ``wl``'s executables key on outer dims of the call
+        args (overridden ``exec_key``): eager precompile without
+        representative args would warm keys real calls never hit."""
+        return type(wl).exec_key is not Workload.exec_key
 
     # -- registry-driven dispatch -------------------------------------------
 

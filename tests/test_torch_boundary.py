@@ -1,6 +1,7 @@
 """The port's package boundary and its device contract.
 
-``src/repro_torch/``, ``chip_smoke.py``, ``benchmarks_torch/`` and
+``src/repro_torch/`` (``core/timing.py`` and ``core/baselines.py``
+included), ``chip_smoke.py``, ``benchmarks_torch/`` and
 ``examples_torch/`` import neither jax nor any
 module of the JAX package ``repro`` (numpy-only ones included: importing
 ``repro.core`` pulls jax in).  The entry points run on the card and raise,
@@ -49,21 +50,47 @@ def test_port_imports_neither_jax_nor_repro(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+BENCH_MODULES = sorted(
+    f"benchmarks_torch.{p.stem}" for p in (ROOT / "benchmarks_torch").glob(
+        "*.py")
+)
+
+
 def test_port_import_loads_no_jax(tmp_path):
+    """Importing the port's packages, its timing and baselines, and every
+    module of ``benchmarks_torch`` loads neither jax nor ``repro``."""
     import subprocess
 
+    mods = [
+        "repro_torch.launch.serve", "repro_torch.vortex",
+        "repro_torch.kernels", "repro_torch.launch.scheduler",
+        "repro_torch.core.timing", "repro_torch.core.baselines",
+    ] + BENCH_MODULES
     code = (
-        "import sys, repro_torch.launch.serve, repro_torch.vortex, "
-        "repro_torch.kernels, repro_torch.launch.scheduler; "
+        f"import sys, importlib; [importlib.import_module(m) for m in "
+        f"{mods!r}]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
-        text=True, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        text=True, env={
+            "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
+        },
         timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr
+    assert "benchmarks_torch.run" in BENCH_MODULES
+    assert "benchmarks_torch.bench_workloads" in BENCH_MODULES
+
+
+def test_bench_runner_raises_without_gpu(no_gpu):
+    """The benches run on the card by default: with no GPU they raise
+    before measuring anything, rather than carry on on the CPU."""
+    from benchmarks_torch.bench_workloads import serving_payload
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving_payload(True)
 
 
 @pytest.fixture

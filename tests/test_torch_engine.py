@@ -218,3 +218,139 @@ def test_grouped_gemm_prices_on_the_gemm_lattice_like_the_reference():
 def test_engine_on_cpu_refuses_the_cuda_impl():
     with pytest.raises(ValueError):
         Engine(hardware="tpu_v5e", device="cpu", impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# EngineConfig knobs, each held against the same config through repro.vortex
+# ---------------------------------------------------------------------------
+
+
+def _knob_engines(**knobs):
+    """The port's and the reference's engine at the same knobs (host_cpu,
+    fully analytical, as the reference's knob tests run)."""
+    port = Engine(vortex.EngineConfig(
+        hardware="host_cpu", device="cpu", empirical_levels=(), **knobs))
+    ref = ref_vortex.Engine(ref_vortex.EngineConfig(
+        hardware="host_cpu", empirical_levels=(), **knobs))
+    return port, ref
+
+
+def test_config_table_limits_reach_the_selector():
+    port, ref = _knob_engines(table_m_max=32, table_extend_limit=64)
+    kern = port.compile("gemm", M=None, N=16, K=16).kernel
+    rkern = ref.compile("gemm", M=None, N=16, K=16).kernel
+    assert kern.selector.table.m_max == rkern.selector.table.m_max == 32
+    # Beyond the extension limit: neither table grows, and both serve the
+    # extent from the argmin path with the same selection.
+    sel, rsel = kern.select(1000), rkern.select(1000)
+    assert kern.selector.table.m_max == rkern.selector.table.m_max == 32
+    assert (sel.padded_m, sel.strategy.l1) == (rsel.padded_m, rsel.strategy.l1)
+    assert kern.selector.stats.argmin_misses == \
+        rkern.selector.stats.argmin_misses == 1
+
+
+def test_config_knob_defaults_and_validation_match_the_reference():
+    port = vortex.EngineConfig(device="cpu")
+    ref = ref_vortex.EngineConfig()
+    for name in ("empirical_levels", "table_m_max", "table_extend_limit",
+                 "precompile_m_max", "staging", "staging_pool_cap"):
+        assert getattr(port, name) == getattr(ref, name), name
+    cfg = vortex.EngineConfig(device="cpu", empirical_levels=[0, 1])
+    assert cfg.empirical_levels == (0, 1)
+    with pytest.raises(ValueError, match="staging_pool_cap"):
+        vortex.EngineConfig(device="cpu", staging_pool_cap=-1)
+    # The levels reach the analyzer: level 1 measured or not, as in the
+    # reference's kernel at the same levels.
+    for levels in ((), (0, 1)):
+        eng = Engine(hardware="tpu_v5e", device="cpu",
+                     empirical_levels=levels)
+        rng = ref_vortex.Engine(ref_vortex.EngineConfig(
+            hardware="tpu_v5e", empirical_levels=levels))
+        got = eng.compile("gemm", M=None, N=16, K=16).kernel.offline_stats
+        want = rng.compile("gemm", M=None, N=16, K=16).kernel.offline_stats
+        assert got.num_measured == want.num_measured, levels
+
+
+def test_precompile_policy_warms_unspecialized_ops_only():
+    port, ref = _knob_engines(precompile_m_max=64)
+    gemm = port.compile("gemm", M=None, N=16, K=16)
+    rgemm = ref.compile("gemm", M=None, N=16, K=16)
+    expect = len(gemm.kernel.selector.selections_upto(64))
+    assert gemm.stats()["exec"]["entries"] == expect > 0
+    assert rgemm.stats()["exec"]["entries"] == expect
+    # Attention executables specialize on batch/head dims: eager precompile
+    # without representative args would warm keys real calls never hit.
+    attn = port.compile("attention", seq=None, head_dim=32)
+    rattn = ref.compile("attention", seq=None, head_dim=32)
+    assert attn.stats()["exec"]["entries"] == 0
+    assert rattn.stats()["exec"]["entries"] == 0
+    # A second compile of a known signature warms nothing more.
+    port.compile("gemm", M=None, N=16, K=16)
+    assert gemm.stats()["exec"]["entries"] == expect
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_staging_disabled_knob_matches_staged_outputs(kind):
+    """``staging=False`` sends every call to the zero-pad reference path:
+    outputs bit-identical to staged dispatch, no launch or copy counted,
+    and the same counters as the reference's staging-disabled engine."""
+    make, params = KINDS[kind]
+    staged = _engine()
+    padded = Engine(hardware="tpu_v5e", device="cpu", staging=False)
+    ref = ref_vortex.Engine(ref_vortex.EngineConfig(
+        hardware="tpu_v5e", staging=False))
+    rng = np.random.default_rng(7)
+    for m in (1, 21, 32):
+        args = make(rng, m)
+        a = _to_torch(args)
+        assert torch.equal(staged.dispatch(kind, *a, **params),
+                           padded.dispatch(kind, *a, **params)), (kind, m)
+        with ref_vortex.use(ref):
+            ref.dispatch(kind, *(jnp.asarray(x) if isinstance(x, np.ndarray)
+                                 else x for x in args), **params)
+    d, rd = padded.stats()[kind], ref.stats()[kind]
+    assert d["launches"] == 0 and d["stage_copies"] == 0
+    for key in ("calls", "launches", "stage_copies", "unstage_copies",
+                "padded_calls"):
+        assert d[key] == rd[key], key
+
+
+def test_staging_buffers_are_reused_and_capped_by_the_pool_cap():
+    """Sequential unaligned calls in one bucket reuse ONE pooled buffer
+    set, as the reference's do; ``staging_pool_cap`` bounds what each
+    entry retains (0 retains nothing)."""
+    rng = np.random.default_rng(8)
+    b = rng.standard_normal((96, 80)).astype(np.float32)
+
+    def a(m):
+        return rng.standard_normal((m, 96)).astype(np.float32)
+
+    for cap in (0, 2, 4):
+        port, ref = _knob_engines(staging_pool_cap=cap)
+        kern = port.op_kernel("gemm", _to_torch((a(8), b)), {})
+        rkern = ref.op_kernel("gemm", (jnp.asarray(a(8)), jnp.asarray(b)), {})
+        bucket = kern.select(257).padded_m
+        assert bucket == rkern.select(257).padded_m
+
+        def sets(k):
+            return sum(len(e.pool.retained) for e in k._exec_cache.values())
+
+        for m in (bucket - 1, bucket - 2):
+            x = a(m)
+            kern(*_to_torch((x, b)))
+            rkern(jnp.asarray(x), jnp.asarray(b))
+            assert sets(kern) == sets(rkern) == min(cap, 1)
+        assert len(kern._exec_cache) == len(rkern._exec_cache)
+        assert kern.dispatch_stats.stage_copies == \
+            rkern.dispatch_stats.stage_copies == 2
+        entry = next(iter(kern._exec_cache.values()))
+        assert entry.pool.cap == cap
+        # A burst of cap + 2 buffer sets in flight: the releases keep at
+        # most ``cap`` of them, evicting the least recently used.
+        need = {0: ((bucket, 96), torch.float32)}
+        burst = [entry.pool.acquire(need, torch.device("cpu"))
+                 for _ in range(cap + 2)]
+        for bufs in burst:
+            entry.pool.release(bufs, torch.device("cpu"))
+        assert len(entry.pool.retained) == cap
+        assert all(r is s for r, s in zip(entry.pool.retained, burst[2:]))
