@@ -24,14 +24,18 @@ card operands are bf16 and the executables are the hand-written kernels.
 
     python benchmarks_torch/bench_workloads.py --json BENCH_dispatch_torch.json
 
-What the serving counters mean in the port: PyTorch runs the decode step
-eagerly (no compiled step yet), so ``launches_per_token`` and
-``launches_per_batched_step`` count DECODE STEPS (one per token, one per
-batched step) where the reference counts launches of one AOT decode
-program; the hand-written kernels' own launches per token and per step
-stand beside them (``kernel_launches_per_token``,
-``kernel_launches_per_batched_step``: n_layers ``decode_attention``
-launches a step).
+What the serving counters mean in the port: on the card a decode step is
+one replay of the CUDA graph captured for its (form, batch bucket, kv
+bucket, cache), the counterpart of one launch of the reference's AOT
+decode program, so ``launches_per_token`` and
+``launches_per_batched_step`` count graph replays (one per token, one per
+batched step); with graphs off (the CPU) they count eager steps.  The
+hand-written kernels' own launches per token and per step stand beside
+them (``kernel_launches_per_token``, ``kernel_launches_per_batched_step``:
+n_layers ``decode_attention`` launches a step, inside the graph), and
+``decode_graph_captures`` / ``decode_graph_replays`` count what happened
+inside the timed windows (``timed_steps`` decode steps): 0 captures and
+one replay a step with graphs on.
 """
 from __future__ import annotations
 
@@ -84,8 +88,10 @@ HOT_PATH_ACCEPT = 1.08
 
 
 def _kernel_totals() -> dict[str, int]:
-    """The kernels' launch totals (the per-path counters left out)."""
-    return {k: v for k, v in launch_counts().items() if "." not in k}
+    """The executable kernels' launch totals (the per-path counters and
+    the engine's staging copy left out)."""
+    return {k: v for k, v in launch_counts().items()
+            if "." not in k and k != "stage_copy"}
 
 
 def _delta(before: dict, after: dict) -> dict[str, int]:
@@ -261,6 +267,7 @@ def _bench_hot_path(smoke: bool, *, device="cuda",
     for kind, (aligned_call, unaligned_call) in cases.items():
         before = dict(eng.stats()[kind])
         k_before = _kernel_totals()
+        s_before = launch_counts()["stage_copy"]
         # Up to 4 measurement attempts, keeping the best ratio: throttling
         # noise is one-sided, so the min across attempts estimates the
         # true boundary cost while a real regression fails every attempt.
@@ -274,6 +281,7 @@ def _bench_hot_path(smoke: bool, *, device="cuda",
         )
         after = eng.stats()[kind]
         k_launched = _delta(k_before, _kernel_totals())
+        staged = launch_counts()["stage_copy"] - s_before
         calls = after["calls"] - before["calls"]
         unaligned = after["unaligned_calls"] - before["unaligned_calls"]
         results[kind] = {
@@ -301,6 +309,9 @@ def _bench_hot_path(smoke: bool, *, device="cuda",
                 sum(k_launched.values()) / max(calls, 1)
             ),
             "kernel_launches": k_launched,
+            # The staging kernel's launches per unaligned call: one for
+            # every staged operand of the call on the card, 0 on the CPU.
+            "stage_launches_per_unaligned_call": staged / max(unaligned, 1),
             "copies_per_unaligned_call": (
                 (
                     after["stage_copies"] + after["unstage_copies"]
@@ -344,17 +355,19 @@ def _bench_decode(smoke: bool, *, device="cuda",
         )
         for b in (1, 2)
     ]
-    # Warm every (batch, seq) shape once (and the kernel library): the
-    # timed window below holds served requests only.
+    # Warm every (batch, seq) shape once (and the kernel library, and the
+    # decode graphs): the timed window below holds served requests only.
     for req in reqs:
         server.generate(req)
     tokens_before = server.decode_stats.calls
+    g_before = _graph_counts(server)
     k_before = _kernel_totals()
     t0 = time.perf_counter()
     for req in reqs:
         server.generate(req)
     wall = time.perf_counter() - t0
     k_launched = _delta(k_before, _kernel_totals())
+    g_timed = _delta(g_before, _graph_counts(server))
     d = server.decode_stats
     tokens = d.calls
     timed = max(tokens - tokens_before, 1)
@@ -365,11 +378,16 @@ def _bench_decode(smoke: bool, *, device="cuda",
         "d_model": cfg.d_model,
         "tokens": tokens,
         "counter_meaning": (
-            "launches_per_token counts decode steps per token (one eager "
-            "forward; the reference counts launches of one AOT decode "
-            "program); kernel_launches_per_token counts the hand-written "
-            "kernels' launches per token"
+            "launches_per_token counts decode steps per token, each one "
+            "replay of a captured CUDA graph (one eager step with graphs "
+            "off), as the reference counts launches of one AOT decode "
+            "program; kernel_launches_per_token counts the hand-written "
+            "kernels' launches per token, inside the graph"
         ),
+        "graphs": server.graphs is not None,
+        "timed_steps": timed,
+        "decode_graph_captures": g_timed.get("decode_graph_captures", 0),
+        "decode_graph_replays": g_timed.get("decode_graph_replays", 0),
         "launches_per_token": d.launches / max(tokens, 1),
         "kernel_launches_per_token": {
             k: n / timed for k, n in k_launched.items()
@@ -384,6 +402,11 @@ def _bench_decode(smoke: bool, *, device="cuda",
         "engine_padded_calls": eng_decode["padded_calls"],
         "decode_us_per_token": wall / timed * 1e6,
     }
+
+
+def _graph_counts(server) -> dict[str, int]:
+    return {k: server.stats[k]
+            for k in ("decode_graph_captures", "decode_graph_replays")}
 
 
 def _bench_continuous_batching(smoke: bool, *, device="cuda",
@@ -411,27 +434,32 @@ def _bench_continuous_batching(smoke: bool, *, device="cuda",
     ]
     total_tokens = len(reqs) * max_new
 
-    def timed_serial() -> float:
+    def timed_serial() -> tuple[float, dict]:
+        g_before = _graph_counts(server)
         t0 = time.perf_counter()
         for req in reqs:
             server.generate(req)
-        return time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        return wall, _delta(g_before, _graph_counts(server))
 
-    def timed_sched(batch_rows: int) -> tuple[float, dict, dict]:
+    def timed_sched(batch_rows: int) -> tuple[float, dict, dict, dict]:
         sched = ContinuousScheduler(server, batch_rows=batch_rows)
         k_before = _kernel_totals()
+        g_before = _graph_counts(server)
         t0 = time.perf_counter()
         for req in reqs:
             sched.submit(req)
         res = sched.drain()
         wall = time.perf_counter() - t0
         k_launched = _delta(k_before, _kernel_totals())
+        g_timed = _delta(g_before, _graph_counts(server))
         assert len(res) == len(reqs)
         sched.close()
-        return wall, sched.stats, k_launched
+        return wall, sched.stats, k_launched, g_timed
 
-    timed_serial()  # warm every prefill/decode bucket
-    serial_wall = timed_serial()
+    timed_serial()  # warm every prefill/decode bucket (and graph)
+    serial_wall, g_serial = timed_serial()
+    serial_steps = sum(r.max_new - 1 for r in reqs)
     out: dict = {
         "arch": cfg.name,
         "n_layers": cfg.n_layers,
@@ -439,17 +467,26 @@ def _bench_continuous_batching(smoke: bool, *, device="cuda",
         "max_new": max_new,
         "counter_meaning": (
             "launches_per_batched_step counts decode steps per batched "
-            "step (one eager forward; the reference counts launches of one "
-            "AOT decode program); kernel_launches_per_batched_step counts "
-            "the hand-written decode-attention launches per step"
+            "step, each one replay of a captured CUDA graph (one eager "
+            "step with graphs off), as the reference counts launches of "
+            "one AOT decode program; kernel_launches_per_batched_step "
+            "counts the hand-written decode-attention launches per step, "
+            "inside the graph"
         ),
+        "graphs": server.graphs is not None,
         "serial_tokens_per_s": total_tokens / serial_wall,
         "concurrency": {},
     }
+    timed_steps = serial_steps
+    captures = g_serial.get("decode_graph_captures", 0)
+    replays = g_serial.get("decode_graph_replays", 0)
     worst_lps, padded = 0.0, 0
     for c in (1, 4, 16):
-        timed_sched(c)  # warm the (c, kvb) mixed-progress shapes
-        wall, stats, k_launched = timed_sched(c)
+        timed_sched(c)  # warm the (c, kvb) mixed-progress shapes and graphs
+        wall, stats, k_launched, g_timed = timed_sched(c)
+        timed_steps += stats["steps"]
+        captures += g_timed.get("decode_graph_captures", 0)
+        replays += g_timed.get("decode_graph_replays", 0)
         steps = max(stats["steps"], 1)
         lps = stats["launches"] / steps
         worst_lps = max(worst_lps, lps)
@@ -463,7 +500,13 @@ def _bench_continuous_batching(smoke: bool, *, device="cuda",
             ),
             "kernel_launches": k_launched,
             "padded_calls": stats["padded_calls"],
+            "decode_graph_captures": g_timed.get("decode_graph_captures", 0),
+            "decode_graph_replays": g_timed.get("decode_graph_replays", 0),
         }
+    # Every timed window: the serial pass and each concurrency's.
+    out["timed_steps"] = timed_steps
+    out["decode_graph_captures"] = captures
+    out["decode_graph_replays"] = replays
     out["launches_per_batched_step"] = worst_lps
     out["padded_calls"] = padded
     out["speedup_at_16"] = (

@@ -99,6 +99,15 @@ def gate_failures(payload: dict) -> list[str]:
          f"steps per batched step")
     need(cb["padded_calls"] == 0,
          f"continuous_batching: padded_calls {cb['padded_calls']}")
+    for name, r in (("decode", dec), ("continuous_batching", cb)):
+        # With graphs on, every decode step of a timed window replays a
+        # graph captured before it.
+        need(not r["graphs"] or (
+            r["decode_graph_captures"] == 0
+            and r["decode_graph_replays"] == r["timed_steps"]),
+             f"{name}: {r['decode_graph_captures']} graph captures and "
+             f"{r['decode_graph_replays']} replays for {r['timed_steps']} "
+             f"decode steps in the timed windows")
     need(cb["speedup_at_16"] >= SPEEDUP_AT_16,
          f"continuous_batching: speedup_at_16 {cb['speedup_at_16']:.3f} < "
          f"{SPEEDUP_AT_16}")

@@ -31,9 +31,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    name.  The tensor-core cases include a NaN tail inside a 64-row atom
    (m_true 77; counts 1, 5, 17, 33), ragged K/N (K = 70, N = 50 at
    (64, 8, 16)), the largest accumulator (64, 512, 16), (512, 32, 64) at
-   conv2_x, and (64, 8, 64) at granite's expert widths.
+   conv2_x, and (64, 8, 64) at granite's expert widths.  The dispatch
+   engine's staging copy (csrc/stage.cu) stages one, two and three
+   operands in one launch into NaN-poisoned buffers, bf16 and float32
+   (16-byte words and the byte path), bit-identical to one ``copy_`` per
+   operand with the pad tails untouched.
 3. Main path 1: ``vortex.ops.gemm`` at dynamic M in {1, bucket-1, bucket,
-   bucket+1, a prime} — exactly one kernel launch per call, 0 padded calls.
+   bucket+1, a prime} — exactly one kernel launch per call, 0 padded calls,
+   one staging launch (csrc/stage.cu) per unaligned call.
    Phases 3, 3b, 4 and 4b also check that every bf16 launch of the GEMM,
    the grouped GEMM and prefill attention took the tensor-core path, and
    every decode-attention launch the split-kv kernel (the launch counters).
@@ -43,7 +48,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    0 padded calls, agreement with the plain version.
 4. Main path 2: ``VortexServer`` serving paper-gpt2-124m at full width
    (seeded torch init), 8 requests of batch 1-8 and prompt 4-64,
-   max_new 8, max_cache 256 — one decode step per token, n_layers
+   max_new 8, max_cache 256, after ``warmup`` captured the decode graph
+   of every reachable (batch, kv) bucket — one decode step per token, each
+   one replay of a warmed CUDA graph (0 captures in the run), n_layers
    decode-attention launches per token, 0 padded calls, 0 stage copies at
    aligned kv buckets; one request's prefill and decode logits against
    the same server with impl="torch".
@@ -57,7 +64,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    seeded bf16 init on the card): 16 requests from
    ``np.random.default_rng(0)`` of 1-4 rows, prompts of 16-512 tokens and
    max_new 4-32, all submitted, then drained.  Fails unless every request
-   returns a token array of its shape, every batched step makes exactly 42
+   returns a token array of its shape, every batched step is one replay of
+   a vector-form decode graph and makes exactly 42
    ``decode_attention`` launches on ``decode.split_kv``, every prefill
    launch takes ``prefill.tensor_core``, padded calls are 0, the pool's
    ``leases_active`` is 0 after ``close()``, and one mixed-progress step's
@@ -76,6 +84,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 4f. gemma2-9b at full width, 2 layers, in float32: the scheduler's tokens
    equal serial ``generate()``'s on the same server for the same
    requests.
+4g. Graphed against eager (``VortexServer(graphs=False)`` on the same
+   weights), from copies of the same cache: phase 4's paper-gpt2-124m and
+   4b's granite-moe-1b-a400m (grouped GEMM and ``dropped_frac`` inside the
+   graph) step by step with a scalar ``pos``, 3 rows, through a growth
+   into the next kv bucket, then ``generate()``; and (in phase 4c)
+   gemma2-9b's compared mixed-progress step with a vector ``pos``.  Every
+   step's logits must be bit-identical and the tokens identical.
 5. Time each kernel at the main path's shapes and selected strategy
    beside its plain version, its bound and one PyTorch library call
    computing the same function (device time per call from torch.profiler);
@@ -86,6 +101,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    time is one compiled ``flex_attention`` call (a tanh softcap
    ``score_mod``, a causal-window or per-row kv_len block mask,
    ``enable_gqa``), held against the plain version before it is timed.
+   The staging copy at the hot path's unaligned attention call (three
+   operands), its library call one ``torch._foreach_copy_``.
 6. The benchmark suite's serving snapshot at full width on the card
    (``benchmarks_torch.bench_workloads.serving_payload(smoke=False)``, the
    payload ``benchmarks_torch/run.py --json`` writes): the hot path's
@@ -95,8 +112,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    paper-gpt2-124m at 12 layers; one granite-moe-1b-a400m expert-FFN
    layer at its real widths (1024/512, 32 experts, top-8).  Fails unless
    every engine call is one engine launch and one kernel launch with 0
-   padded calls, every token and every batched step is one decode step of
-   12 ``decode_attention`` launches with 0 padded calls, every MoE
+   padded calls and every unaligned call one staging launch, every token
+   and every batched step is one decode step of
+   12 ``decode_attention`` launches with 0 padded calls, every decode
+   step inside the timed windows one graph replay with 0 captures, every MoE
    projection is one grouped launch for all experts, the kv pool's leases
    are back to 0, the MoE layer agrees with the dense einsums within the
    grouped GEMM's bf16 tolerance, and each of the four kernels launched at
@@ -519,15 +538,21 @@ def phase_gemm(dev, kernels) -> dict:
             if kernels.launch_counts()["vortex_gemm"] - n0 != 1:
                 fail("vortex.ops.gemm did not make exactly one kernel launch")
     launches = kernels.launch_counts()["vortex_gemm"]
+    staged = kernels.launch_counts()["stage_copy"]
     torch.cuda.synchronize()
     after = op.stats()["dispatch"]
     padded = after["padded_calls"] - before["padded_calls"]
+    unaligned = after["unaligned_calls"] - before["unaligned_calls"]
     print(f"main path gemm: M={ms} bucket={bucket} kernel_launches={launches} "
           f"engine_launches={after['launches'] - before['launches']} "
           f"padded_calls={padded} "
-          f"stage_copies={after['stage_copies'] - before['stage_copies']}")
+          f"stage_copies={after['stage_copies'] - before['stage_copies']} "
+          f"stage_launches={staged} for {unaligned} unaligned calls")
     if launches != len(ms) or padded != 0:
         fail("gemm main path: expected one launch per call and 0 padded calls")
+    if staged != unaligned or not unaligned:
+        fail(f"gemm main path: {staged} staging launches for {unaligned} "
+             f"unaligned calls")
     all_tensor_core(kernels.launch_counts(), "gemm main path")
     worst = 0.0
     for a, out in zip(inputs, outs):
@@ -539,7 +564,8 @@ def phase_gemm(dev, kernels) -> dict:
         fail(f"gemm main path disagrees with the plain version: {worst}")
     sel = op.select(bucket)
     return {"launches": launches, "M": bucket, "N": d, "K": d,
-            "blocks": sel.strategy.l1, "backend": sel.strategy.backend}
+            "blocks": sel.strategy.l1, "backend": sel.strategy.backend,
+            "stage_launches": staged}
 
 
 # ---------------------------------------------------------------------------
@@ -607,12 +633,12 @@ def phase_conv(dev, kernels) -> dict:
 
 
 @contextlib.contextmanager
-def grouped_launches_by_form(kernels, per_form: dict):
-    """Count the grouped-GEMM launches of every prefill and decode forward
-    the server makes (``per_form``) and check each forward's count."""
-    from repro_torch.launch import serve
-
-    real = {"prefill": serve.prefill_step, "decode": serve.decode_step}
+def grouped_launches_by_form(kernels, server, per_form: dict):
+    """Count the grouped-GEMM launches of every prefill and decode step
+    the server makes (``per_form``) and check each step's count.  A
+    graphed decode step counts the launches its replay adds (the ones its
+    capture recorded)."""
+    real = {"prefill": server.prefill, "decode": server._decode}
 
     def counted(form):
         def step(*args, **kwargs):
@@ -625,13 +651,11 @@ def grouped_launches_by_form(kernels, per_form: dict):
             return out
         return step
 
-    serve.prefill_step, serve.decode_step = counted("prefill"), \
-        counted("decode")
+    server.prefill, server._decode = counted("prefill"), counted("decode")
     try:
         yield
     finally:
-        serve.prefill_step, serve.decode_step = real["prefill"], \
-            real["decode"]
+        del server.prefill, server._decode  # the class's methods again
 
 
 def routing_flips(topi_a: list, topi_b: list, b: int, s: int) -> float:
@@ -669,16 +693,21 @@ def phase_serve(dev, kernels, arch: str) -> dict:
         toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
         reqs.append(Request(tokens=toks, max_new=8))
     server.warmup(max_batch=8, m_max=64, max_new=8)
+    if server.graphs is None:
+        fail("serve: the server runs the eager decode step on the card")
+    captured = dict(server.stats)
 
     per_form = {"prefill": 0, "decode": 0, "prefill_forwards": 0,
                 "decode_forwards": 0, "per_forward": set()}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with grouped_launches_by_form(kernels, per_form):
+    with grouped_launches_by_form(kernels, server, per_form):
         outs = [server.generate(r) for r in reqs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    graphs = {k: server.stats[k] - captured[k]
+              for k in ("decode_graph_captures", "decode_graph_replays")}
 
     tokens = sum(o.size for o in outs)
     steps = sum(r.max_new - 1 for r in reqs)
@@ -697,6 +726,13 @@ def phase_serve(dev, kernels, arch: str) -> dict:
             fail("serve: token outside the vocabulary")
     if ds["launches"] != steps or ds["padded_calls"] != 0:
         fail(f"serve: {ds['launches']} decode steps for {steps} tokens")
+    print(f"serve {cfg.name}: warmup captured "
+          f"{captured['decode_graph_captures']} decode graphs; the requests "
+          f"made {graphs['decode_graph_replays']} replays and "
+          f"{graphs['decode_graph_captures']} captures for {steps} steps")
+    if graphs != {"decode_graph_captures": 0, "decode_graph_replays": steps}:
+        fail(f"serve: expected one replay of a warmed graph per decode step, "
+             f"got {graphs} for {steps} steps")
     if counts["flash_attention_decode"] != cfg.n_layers * steps:
         fail("serve: expected n_layers decode-attention launches per token")
     if counts["flash_attention_prefill"] != cfg.n_layers * len(reqs):
@@ -786,6 +822,78 @@ def phase_serve(dev, kernels, arch: str) -> dict:
     }
 
 
+def phase_graphs(info: dict) -> dict:
+    """Phase 4g, serial form: phase 4's (or 4b's) server replays its
+    captured decode graphs, step by step, beside an eager server
+    (``graphs=False``) on the same weights, from copies of the same
+    prefill cache: scalar ``pos``, 3 rows, through a growth into the next
+    kv bucket.  Every step's logits (and an MoE model's ``dropped_frac``)
+    must be bit-identical and the tokens identical; then ``generate()``
+    gives the same tokens on both servers."""
+    from repro_torch.launch.serve import Request, VortexServer
+
+    srv, cfg = info["server"], info["cfg"]
+    eager = VortexServer(cfg, max_cache=srv.max_cache, params=srv.params,
+                         graphs=False)
+    dropped: dict[str, list] = {"graphed": [], "eager": []}
+    for name, x in (("graphed", srv), ("eager", eager)):
+        def note(d, name=name, real=x._note_moe):
+            dropped[name].append(d.clone())
+            real(d)
+        x._note_moe = note
+    rng = np.random.default_rng(7)
+    b, s = 3, 60
+    kvb = srv.kv_bucket(srv.seq_bucket(s))
+    n = kvb - s + 4  # the cache grows into the next kv bucket
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
+    g0 = dict(srv.stats)
+    tok, cache, kvb = srv.prefill(toks)
+    copy = {k: {m: leaf.clone() for m, leaf in e.items()}
+            for k, e in cache.items()}
+    eager.adopt_cache(copy)
+    dropped = {"graphed": [], "eager": []}  # the decode steps only
+    t, pos, kvbs = tok[:, None], s - 1, [kvb]
+    try:
+        for _ in range(n - 1):
+            pos += 1
+            if pos + 1 > kvb:
+                kvb = srv._grown_kv_bucket(kvb, pos + 1)
+                cache = srv._grow_cache(cache, kvb)
+                copy = eager._grow_cache(copy, kvb)
+                kvbs.append(kvb)
+            got = srv._decode(cache, t, pos, srv._decode_seen)
+            want = eager._decode(copy, t, pos, eager._decode_seen)
+            if not torch.equal(got, want):
+                fail(f"phase 4g: {cfg.name} step at pos {pos}: graphed "
+                     f"logits differ from the eager step's (max |diff| "
+                     f"{(got.float() - want.float()).abs().max().item()})")
+            t = got.argmax(-1)[:, None]
+        if not all(torch.equal(a, e) for a, e in
+                   zip(dropped["graphed"], dropped["eager"])):
+            fail(f"phase 4g: {cfg.name} dropped_frac differs")
+    finally:
+        srv.release_cache(cache)
+        eager.release_cache(copy)
+        del srv._note_moe  # the class's method again
+    req = Request(tokens=toks, max_new=n)
+    same_tokens = np.array_equal(srv.generate(req), eager.generate(req))
+    graphs = {k: srv.stats[k] - g0[k]
+              for k in ("decode_graph_captures", "decode_graph_replays")}
+    print(f"phase 4g: {cfg.name} {n - 1} decode steps (b={b}, prompt {s}, "
+          f"kv buckets {kvbs}): graph replay vs eager step logits "
+          f"bit-identical, tokens identical; generate() tokens identical="
+          f"{same_tokens}; {graphs}"
+          + (f"; dropped_frac bit-identical over {len(dropped['graphed'])} "
+             f"steps" if cfg.moe is not None else ""))
+    if not same_tokens:
+        fail(f"phase 4g: {cfg.name} generate() tokens differ, graphed vs "
+             f"eager")
+    if len(kvbs) < 2:
+        fail(f"phase 4g: {cfg.name} never grew past kv bucket {kvbs}")
+    del eager
+    return {"steps": n - 1, "kvbs": kvbs, **graphs}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4c-4f: continuous batching (ContinuousScheduler) on the dense family
 # ---------------------------------------------------------------------------
@@ -808,7 +916,7 @@ def sched_requests(rng, cfg, n, rows, prompt, max_new):
 
 
 def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
-                    compare: bool = True) -> dict:
+                    compare: bool = True, eager_check: bool = False) -> dict:
     """Submit ``reqs`` to a ``ContinuousScheduler`` over ``server``, drain,
     close, and check: every request a token array of its shape, every
     batched step n_layers decode-attention launches on decode.split_kv, one
@@ -817,7 +925,10 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
     the first step whose rows sit at different positions (the first step
     of a one-row scheduler) is copied before it runs -- cache, tokens and
     per-row pos -- and replayed under impl="torch"; its logits must agree
-    within LOGIT_TOL.  Host seconds in prefills and decode steps are taken
+    within LOGIT_TOL.  With ``eager_check`` (phase 4g) the same copied step
+    also runs eagerly (``graphs=False``) on the card, and its logits must be
+    bit-identical to the graph's.  Every step must be one graph replay.
+    Host seconds in prefills and decode steps are taken
     around each (synchronized: the scheduler reads each result back right
     after it anyway); copying the step is left out of the wall time."""
     from repro_torch.launch.scheduler import ContinuousScheduler
@@ -870,6 +981,7 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
 
     server.prefill, server.decode_vec = prefill, decode_vec
     kernels.reset_launch_counts()
+    g0 = dict(server.stats)
     t0 = time.perf_counter()
     try:
         rids = [sched.submit(r) for r in reqs]
@@ -893,6 +1005,11 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
             fail(f"{where}: token outside the vocabulary")
         tokens += out.size
     steps = sched.stats["steps"]
+    graphs = {k: server.stats[k] - g0[k]
+              for k in ("decode_graph_captures", "decode_graph_replays")}
+    if server.graphs is None or graphs["decode_graph_replays"] != steps:
+        fail(f"{where}: expected one graph replay per batched step, got "
+             f"{graphs} for {steps} steps")
     if len(per_step) != steps or any(p != (L, L) for p in per_step):
         fail(f"{where}: expected {L} decode-attention launches on "
              f"decode.split_kv in each of {steps} steps, got "
@@ -917,14 +1034,33 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
           f"decode_s={secs['decode']:.3f} "
           f"other_s={wall - secs['prefill'] - secs['decode']:.3f} "
           f"kvb={sorted({p['kvb'] for p in sched.step_positions})} "
+          f"graph_captures={graphs['decode_graph_captures']} "
+          f"graph_replays={graphs['decode_graph_replays']} "
           f"kernel_launches={counts} kv_pool={st['kv_pool']}")
 
     rel = None
     if compare:
         if "logits" not in cap:
             fail(f"{where}: no step served rows at different positions")
+        if eager_check:
+            eager = VortexServer(cfg, max_cache=server.max_cache,
+                                 params=server.params, graphs=False)
+            copy = {k: {n: leaf.clone() for n, leaf in e.items()}
+                    for k, e in cap["cache"].items()}
+            want = eager.decode_vec(copy, cap["tokens"], cap["pos"])
+            same = torch.equal(want, cap["logits"])
+            toks = (want.argmax(-1) == cap["logits"].argmax(-1)).all()
+            print(f"phase 4g: {cfg.name} one mixed-progress step (rows at "
+                  f"pos {cap['pos'][cap['slots']].tolist()}, cache "
+                  f"{cap['kvb']}): graph replay vs eager step logits "
+                  f"bit-identical={same}, tokens identical={bool(toks)}")
+            if not same:
+                fail(f"phase 4g: {cfg.name} graphed logits differ from the "
+                     f"eager step's")
+            del eager, copy, want
         plain = VortexServer(cfg, max_cache=server.max_cache,
-                             params=server.params, impl="torch")
+                             params=server.params, impl="torch",
+                             graphs=False)
         ref = plain.decode_vec(cap["cache"], cap["tokens"], cap["pos"])
         sl = cap["slots"]
         err, rel = rel_err(cap["logits"][sl, :cfg.vocab],
@@ -989,10 +1125,12 @@ def phase_gemma2(kernels) -> dict:
     reqs = sched_requests(np.random.default_rng(0), cfg, 16, (1, 4),
                           (16, 512), (4, 32))
     t0 = time.perf_counter()
-    server.warmup(max_batch=SCHED_ROWS, m_max=512, max_new=32)
+    # The scheduler replays vector-form graphs captured at first use; the
+    # scalar-form warmup captures would park a cache per bucket (GBs).
+    server.warmup(max_batch=SCHED_ROWS, m_max=512, max_new=32, capture=False)
     warmup_s = time.perf_counter() - t0
     c = serve_scheduled(kernels, server, reqs, batch_rows=SCHED_ROWS,
-                        where="phase 4c")
+                        where="phase 4c", eager_check=True)
     print(f"phase 4c: init_s={init_s:.2f} warmup_s={warmup_s:.3f} "
           f"serve_s={c['wall_s']:.3f} peak_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
@@ -1585,12 +1723,89 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
     return rows
 
 
+# The staging copy's cases: (source shapes, buffer shapes, dtype).  The hot
+# path's attention (three operands, bf16), its GEMM (one), and float32
+# planes of 84 bytes (the byte path: not 16-byte aligned).
+STAGE_CASES = (
+    (((2, 8, 255, 64), (2, 4, 255, 64), (2, 4, 255, 64)),
+     ((2, 8, 256, 64), (2, 4, 256, 64), (2, 4, 256, 64)), torch.bfloat16),
+    (((383, 2304),), ((384, 2304),), torch.bfloat16),
+    (((5, 3, 7), (1, 2, 2)), ((5, 8, 7), (4, 2, 2)), torch.float32),
+)
+
+
+def stage_operands(dev, case, g):
+    """NaN-poisoned buffers and seeded sources of one staging case."""
+    shapes, buf_shapes, dt = case
+    bufs = [torch.full(s, float("nan"), dtype=dt, device=dev)
+            for s in buf_shapes]
+    srcs = [torch.randn(s, generator=g).to(dev, dt) for s in shapes]
+    return bufs, srcs
+
+
+def phase_stage(dev, kernels, errs: dict) -> None:
+    """Phase 2, the engine's staging copy: one launch stages every operand
+    into its buffer's leading corner, bit-identical to one ``copy_`` per
+    operand, and the pad tails keep their NaN."""
+    from repro_torch.kernels.stage import stage_copy, stage_copy_plain
+
+    g = torch.Generator().manual_seed(11)
+    for case in STAGE_CASES:
+        bufs, srcs = stage_operands(dev, case, g)
+        want = [b.clone() for b in bufs]
+        stage_copy_plain(want, srcs)
+        n0 = kernels.launch_counts()["stage_copy"]
+        stage_copy(bufs, srcs)
+        torch.cuda.synchronize()
+        if kernels.launch_counts()["stage_copy"] - n0 != 1:
+            fail("stage_copy: expected one launch for all operands")
+        for b, w in zip(bufs, want):
+            if not torch.equal(b.nan_to_num(7.0), w.nan_to_num(7.0)):
+                fail(f"stage_copy {case[0]}: differs from one copy_ per "
+                     f"operand (or wrote a pad tail)")
+        print(f"stage_copy {[tuple(x) for x in case[0]]} {case[2]}: "
+              f"bit-identical to copy_, pad tails untouched")
+    errs["stage_copy"] = 0.0
+
+
+def stage_row(dev, launches: int, errs: dict) -> dict:
+    """Row 5: the staging copy at the hot path's unaligned attention call
+    (phase 6): q, k, v into their 256-row buckets in one launch.  Its
+    launches are phase 3's (one per unaligned ``vortex.ops.gemm`` call);
+    phase 6 prints its own."""
+    from repro_torch.kernels.stage import StagePlan, stage_copy_plain
+
+    g = torch.Generator().manual_seed(12)
+    case = STAGE_CASES[0]
+    bufs, srcs = stage_operands(dev, case, g)
+    plan = StagePlan(bufs, case[0])
+    views = [b[tuple(slice(0, n) for n in s)] for b, s in zip(bufs, case[0])]
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in srcs)
+    bnd, by = bound_ms(nbytes, 0.0, case[2])
+    return timed(
+        {
+            "name": "stage_copy", "route": "cuda",
+            "source": "src/repro_torch/csrc/stage.cu",
+            "replaces": "src/repro/core/engine.py:137 (_stage_into, not a "
+                        "Pallas kernel)",
+            "launches": launches, "max_abs_err": errs["stage_copy"],
+            "bound_ms": bnd, "bound_by": by,
+            "shape": "q (2,8,255,64), k and v (2,4,255,64) into 256-row "
+                     "buckets, bf16, one launch",
+        },
+        ms=lambda: plan.run(srcs),
+        plain_ms=lambda: stage_copy_plain(bufs, srcs),
+        library_ms=lambda: torch._foreach_copy_(views, srcs),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the benchmark suite's serving snapshot (benchmarks_torch)
 # ---------------------------------------------------------------------------
 
 PHASE6_KERNELS = ("vortex_gemm", "flash_attention_prefill",
-                  "flash_attention_decode", "vortex_grouped_gemm")
+                  "flash_attention_decode", "vortex_grouped_gemm",
+                  "stage_copy")
 
 
 def check_serving_payload(p: dict) -> None:
@@ -1605,6 +1820,10 @@ def check_serving_payload(p: dict) -> None:
                  f"{h['kernel_launches_per_call']} kernel launches per call")
         if h["padded_calls"] != 0:
             fail(f"phase 6 hot_path/{kind}: {h['padded_calls']} padded calls")
+        if h["stage_launches_per_unaligned_call"] != 1.0:
+            fail(f"phase 6 hot_path/{kind}: "
+                 f"{h['stage_launches_per_unaligned_call']} staging launches "
+                 f"per unaligned call")
     dec, cb, moe = p["decode"], p["continuous_batching"], p["moe"]
     layers = dec["n_layers"]
     if (dec["launches_per_token"] != 1.0 or dec["padded_calls"] != 0
@@ -1625,6 +1844,13 @@ def check_serving_payload(p: dict) -> None:
                  f"launches per batched step, expected {layers}")
     if cb["kv_pool"]["leases_active"] != 0:
         fail(f"phase 6: kv pool leases left active: {cb['kv_pool']}")
+    for name, r in (("decode", dec), ("continuous_batching", cb)):
+        if not (r["graphs"] and r["decode_graph_captures"] == 0
+                and r["decode_graph_replays"] == r["timed_steps"]):
+            fail(f"phase 6 {name}: {r['decode_graph_captures']} captures and "
+                 f"{r['decode_graph_replays']} graph replays for "
+                 f"{r['timed_steps']} decode steps in the timed windows "
+                 f"(graphs {r['graphs']})")
     if (moe["launches_per_moe_layer"] != 1.0
             or moe["kernel_launches_per_moe_layer"] != 1.0
             or moe["padded_calls"] != 0):
@@ -1665,7 +1891,9 @@ def phase_bench(kernels, smi: str) -> dict:
               f"[host wall-clock, synchronized, bf16] on {smi}")
     dec, cb, moe = p["decode"], p["continuous_batching"], p["moe"]
     print(f"phase 6 decode: {dec['arch']} {dec['n_layers']} layers, "
-          f"{dec['tokens']} tokens, {dec['decode_us_per_token']:.1f} us/token, "
+          f"{dec['tokens']} tokens, {dec['decode_us_per_token']:.1f} us/token "
+          f"({dec['decode_graph_replays']} graph replays, "
+          f"{dec['decode_graph_captures']} captures in the timed window), "
           f"kernel launches/token {dec['kernel_launches_per_token']}, "
           f"growth copies {dec['growth_copies']} over "
           f"{dec['bucket_transitions']} bucket transitions on {smi}")
@@ -1674,7 +1902,9 @@ def phase_bench(kernels, smi: str) -> dict:
         for c, r in cb["concurrency"].items())
     print(f"phase 6 continuous_batching: serial "
           f"{cb['serial_tokens_per_s']:.1f} tok/s, {conc}, speedup_at_16 "
-          f"{cb['speedup_at_16']:.3f} on {smi}")
+          f"{cb['speedup_at_16']:.3f} ({cb['decode_graph_replays']} graph "
+          f"replays, {cb['decode_graph_captures']} captures for "
+          f"{cb['timed_steps']} timed decode steps) on {smi}")
     print(f"phase 6 moe: {moe['experts']} experts top-{moe['top_k']} "
           f"d_model {moe['d_model']} d_ff_expert {moe['d_ff_expert']}, "
           f"{moe['tokens']} tokens: engine {moe['engine_us_per_layer']:.1f} "
@@ -1715,6 +1945,7 @@ def main() -> int:
             "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
     phase_kernels(dev, kernels, errs)
     phase_window_gather(dev, kernels, errs)
+    phase_stage(dev, kernels, errs)
     print("phase 2: kernels agree with their plain versions")
     gemm_info = phase_gemm(dev, kernels)
     print("phase 3: vortex.ops.gemm main path ok")
@@ -1724,6 +1955,10 @@ def main() -> int:
     print(f"phase 4: VortexServer main path on {ARCHS[0]} ok")
     moe_info = phase_serve(dev, kernels, ARCHS[1])
     print(f"phase 4b: VortexServer main path on {ARCHS[1]} ok")
+    for info in (serve_info, moe_info):
+        phase_graphs(info)
+    print("phase 4g: graphed decode steps bit-identical to eager ones "
+          f"({', '.join(ARCHS)}; {GEMMA2} in phase 4c)")
     g2_info = phase_gemma2(kernels)
     print(f"phase 4c/4d: ContinuousScheduler on {GEMMA2} ok")
     dense_info = phase_dense_2l(kernels)
@@ -1735,6 +1970,7 @@ def main() -> int:
                            .manual_seed(6), ", granite 16/8")
     rows += dense_attention_rows(g2_info, dense_info, errs)
     rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
+    rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
     bench_info = phase_bench(kernels, smi)
     print("phase 6: the serving snapshot keeps its contracts on the card")
     for r in rows:

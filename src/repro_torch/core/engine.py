@@ -17,8 +17,10 @@ Executables: ``impl="cuda"`` launches the hand-written Hopper kernels
 (kernels/, csrc/); ``impl="torch"`` runs their plain PyTorch versions (the
 CPU lowering, counterpart of the reference's ``impl="xla"``).  PyTorch runs
 eagerly, so the reference's one AOT program per bucket becomes one kernel
-launch per call.  A kernel that fails raises: there is no degradation rung
-in this package yet.
+launch per call (and, inside a served decode step, one node of the step's
+CUDA graph: launch/graphs.py).  An unaligned call stages every operand in
+one launch of the staging kernel (kernels/stage.py).  A kernel that fails
+raises: there is no degradation rung in this package yet.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.core.candidates import generate_lattice
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.selector import RuntimeSelector, Selection
 from repro_torch.core.workloads import Workload
+from repro_torch.kernels.stage import StagePlan
 
 __all__ = [
     "DispatchStats",
@@ -100,17 +103,38 @@ class DispatchStats:
 
 
 def _stream_key(device: torch.device):
-    """The stream that orders work on ``device`` for this caller."""
+    """The stream that orders work on ``device`` for this caller: its raw
+    handle (the one query ``torch.cuda.current_stream(device).cuda_stream``
+    makes, without building a Stream object); None on the CPU."""
     if device.type == "cuda":
-        return torch.cuda.current_stream(device).cuda_stream
+        return torch._C._cuda_getCurrentRawStream(device.index)
     return None
 
 
-def _stage_into(buf: torch.Tensor, x: torch.Tensor) -> None:
-    """Copy ``x`` into the leading corner of the bucket buffer IN PLACE:
-    only the true extent is written; the pad tail keeps whatever stale
-    bytes it held (the masked-tail kernels never read them)."""
-    buf[tuple(slice(0, n) for n in x.shape)].copy_(x)
+class _BufferSet(dict):
+    """One staging-buffer set (call-arg index -> bucket-shaped buffer),
+    the ``need`` it was made for, and its staging plans, one per (operands,
+    true extents): a repeat call builds no slices and no launch table."""
+
+    __slots__ = ("need", "_plans")
+
+    def __init__(self, bufs: dict, need: tuple):
+        super().__init__(bufs)
+        self.need = need
+        self._plans: dict[tuple, StagePlan] = {}
+
+    def stage(self, idx: list[int], xs: list[torch.Tensor], stream) -> None:
+        """Copy each ``xs[j]`` into the leading corner of buffer
+        ``idx[j]`` IN PLACE, every operand in one launch on ``stream`` on
+        the card (:class:`~repro_torch.kernels.stage.StagePlan`): only
+        the true extent is written; the pad tail keeps whatever stale
+        bytes it held (the masked-tail kernels never read them)."""
+        key = (tuple(idx), tuple(x.shape for x in xs))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = StagePlan([self[i] for i in idx], key[1])
+            self._plans[key] = plan
+        plan.run(xs, stream)
 
 
 class _StagingPool:
@@ -125,52 +149,48 @@ class _StagingPool:
     the free list, so eviction never touches an in-flight dispatch.
 
     A set is handed back right after its launch is ENQUEUED, tagged with
-    the stream that launch runs on, and is reused only by a caller on that
-    same stream: the stream orders the pending launch (the reader) before
-    the next staging copy (the writer).  A caller on another stream gets a
-    fresh set instead.
+    the stream that launch runs on (``stream``: the caller's
+    :func:`_stream_key`, queried once per call), and is reused only by a
+    caller on that same stream: the stream orders the pending launch (the
+    reader) before the next staging copy (the writer).  A caller on another
+    stream gets a fresh set instead.  ``allocs`` counts the fresh sets.
     """
 
-    __slots__ = ("cap", "_lock", "_free")
+    __slots__ = ("cap", "allocs", "_lock", "_free")
 
     def __init__(self, cap: int = 4):
         self.cap = cap
+        self.allocs = 0
         self._lock = threading.Lock()
-        self._free: list[tuple[object, dict]] = []
+        self._free: list[tuple[object, _BufferSet]] = []
 
-    def acquire(self, need: dict, device: torch.device) -> dict:
-        """A buffer set satisfying ``need`` (index -> (shape, dtype)):
-        a pooled one from this caller's stream when every slot matches,
-        else fresh zero-initialized buffers (zeros only so a fresh buffer
-        never leaks earlier bytes through the never-read pad)."""
-        stream = _stream_key(device)
+    def acquire(self, need: tuple, device: torch.device, stream) -> _BufferSet:
+        """A buffer set satisfying ``need`` (``((index, shape tuple,
+        dtype), ...)`` on ``device``): a pooled one made for the same need
+        from ``stream``, else fresh zero-initialized buffers (zeros only so
+        a fresh buffer never leaks earlier bytes through the never-read
+        pad)."""
+        key = (device, stream)
         with self._lock:
             for i in range(len(self._free) - 1, -1, -1):  # MRU first
-                key, bufs = self._free[i]
-                if key != stream:
-                    continue
-                for idx, (shape, dtype) in need.items():
-                    b = bufs.get(idx)
-                    if (
-                        b is None or tuple(b.shape) != tuple(shape)
-                        or b.dtype != dtype or b.device != device
-                    ):
-                        break
-                else:
+                k, bufs = self._free[i]
+                if k == key and bufs.need == need:
                     return self._free.pop(i)[1]
-        return {
+            self.allocs += 1
+        return _BufferSet({
             idx: torch.zeros(shape, dtype=dtype, device=device)
-            for idx, (shape, dtype) in need.items()
-        }
+            for idx, shape, dtype in need
+        }, need)
 
-    def release(self, bufs: dict, device: torch.device) -> None:
+    def release(self, bufs: _BufferSet, device: torch.device,
+                stream) -> None:
         with self._lock:
-            self._free.append((_stream_key(device), bufs))  # MRU end
+            self._free.append(((device, stream), bufs))  # MRU end
             while len(self._free) > self.cap:
                 self._free.pop(0)  # evict LRU
 
     @property
-    def retained(self) -> list[dict]:
+    def retained(self) -> list[_BufferSet]:
         """The currently pooled buffer sets (tests poison these)."""
         return [bufs for _, bufs in self._free]
 
@@ -366,11 +386,12 @@ class VortexKernel:
             out = entry.run(*view, *scalars)
             return wl.finalize(sel, out, *args)
         device = view[unaligned[0]].device
-        need = {i: (shapes[i], view[i].dtype) for i in unaligned}
-        bufs = entry.pool.acquire(need, device)
+        stream = _stream_key(device)
+        need = tuple((i, shapes[i], view[i].dtype) for i in unaligned)
+        bufs = entry.pool.acquire(need, device, stream)
+        bufs.stage(unaligned, [view[i] for i in unaligned], stream)
         staged = list(view)
         for i in unaligned:
-            _stage_into(bufs[i], view[i])
             staged[i] = bufs[i]
         with self._stats_lock:
             st.calls += 1
@@ -384,8 +405,22 @@ class VortexKernel:
         finally:
             # The launch that reads the set is enqueued on this stream; the
             # pool hands the set only to callers on the same stream.
-            entry.pool.release(bufs, device)
+            entry.pool.release(bufs, device, stream)
         return wl.finalize(sel, out, *args)
+
+    def add_dispatch_stats(self, delta: dict[str, int]) -> None:
+        """Add ``delta`` (field -> count, as two ``dispatch_stats.as_dict()``
+        readings differ) to the DispatchStats: a CUDA graph's replay runs
+        the launches its capture counted without this dispatch running."""
+        st = self.dispatch_stats
+        with self._stats_lock:
+            for name, n in delta.items():
+                setattr(st, name, getattr(st, name) + n)
+
+    def staging_sets(self) -> list[_BufferSet]:
+        """Every pooled staging-buffer set of every executable entry."""
+        return [s for e in list(self._exec_cache.values())
+                for s in e.pool.retained]
 
     def _call_padded(self, sel, entry, args, view) -> torch.Tensor:
         """The zero-pad reference path: the same executable and extent

@@ -375,7 +375,7 @@ class GemmWorkload(Workload):
 
     def finalize(self, sel, out, a, b):
         m = a.shape[0]
-        return out[:m] if sel.padded_m != m else out
+        return out.narrow(0, 0, m) if sel.padded_m != m else out
 
     def build_executable(self, sel, *, impl: str):
         m1, n1, k1 = sel.strategy.l1
@@ -511,7 +511,7 @@ class GroupedGemmWorkload(Workload):
 
     def finalize(self, sel, out, x, w, counts):
         c = x.shape[1]
-        return out[:, :c] if sel.padded_m != c else out
+        return out.narrow(1, 0, c) if sel.padded_m != c else out
 
     def build_executable(self, sel, *, impl: str):
         m1, n1, k1 = sel.strategy.l1
@@ -669,7 +669,7 @@ class AttentionWorkload(Workload):
 
     def finalize(self, sel, out, q, k, v):
         sq = q.shape[-2]
-        return out[..., :sq, :] if sel.bucket[0] != sq else out
+        return out.narrow(2, 0, sq) if sel.bucket[0] != sq else out
 
     def build_executable(self, sel, *, impl: str):
         pq, _, pkv = sel.bucket
@@ -934,7 +934,7 @@ class Conv2dWorkload(Workload):
         m = x.shape[0] * ho * wo
         # out[:m] of the launch's fresh (padded_m, cout) output is
         # contiguous, so the reshape is a view of it.
-        return out[:m].reshape(x.shape[0], ho, wo, self.cout)
+        return out.narrow(0, 0, m).view(x.shape[0], ho, wo, self.cout)
 
     def build_executable(self, sel, *, impl: str):
         # The executable is the GEMM kernel on the im2col matrix; the

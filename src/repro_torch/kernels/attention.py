@@ -243,14 +243,29 @@ def _sm_count(index: int) -> int:
 
 
 # Split-kv tickets, one int32 per (batch row, kv head), by (device, stream):
-# zero before a launch, and the launch leaves them zero.
+# zero before a launch, and the launch leaves them zero.  A CUDA graph
+# binds the buffer its capture found, so a buffer is allocated only outside
+# a capture (the graph's eager warm-up step on the capture stream takes
+# it), and one that a larger launch outgrows is retired, never freed: a
+# graph captured against it may still replay.  Graphs replay in sequence
+# on one stream, so they may share a buffer; they never replay
+# concurrently on two streams.
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+_RETIRED: list[torch.Tensor] = []
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_attention: the split-kv tickets of this stream are "
+                "allocated outside a CUDA graph capture; run the step once "
+                "eagerly on the capture stream first"
+            )
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _TICKETS[key] = buf
     return buf

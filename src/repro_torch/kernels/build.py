@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = (
     "gemm.cu", "attention.cu", "attention_tc.cu", "attention_decode.cu",
-    "grouped_gemm.cu",
+    "grouped_gemm.cu", "stage.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -126,6 +126,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, i, vp,
     ]
     lib.vortex_grouped_gemm_tc_launch.restype = i
+    lib.vortex_stage_launch.argtypes = [vp, vp]
+    lib.vortex_stage_launch.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -61,7 +61,6 @@ from repro_torch.launch.serve import (
     RequestError,
     VortexServer,
 )
-from repro_torch.models.model import abstract_cache
 from repro_torch.runtime import faults
 from repro_torch.vortex import pow2_bucket
 
@@ -181,35 +180,19 @@ class ContinuousScheduler:
     def _ensure_cache(self, kvb: int) -> None:
         """Lease the shared kv-bucket leaves (stale pool contents are fine:
         a slot row is only read after its prefill copy or decode write, and
-        always through the kv_len mask)."""
+        always through the kv_len mask).  The leaves keep their addresses
+        until the cache grows or closes, so the server's decode graphs for
+        (batch_rows, kvb) replay step after step."""
         if self.cache is not None:
             return
-        srv = self.server
-        spec = abstract_cache(srv.cfg, self.batch_rows, kvb)
-        cache: dict = {}
-        leased: list[torch.Tensor] = []
-        # Lease one leaf at a time and settle on failure: a fault partway
-        # (pool_lease injection, out of memory) must not strand the leaves
-        # already checked out.
-        try:
-            for key, entry in spec.items():
-                got = {}
-                for name, leaf in entry.items():
-                    buf = srv.kv_pool.lease(leaf.shape, leaf.dtype,
-                                            srv.device)
-                    leased.append(buf)
-                    got[name] = buf
-                cache[key] = got
-        except BaseException:
-            for buf in leased:
-                srv.kv_pool.release(buf)
-            raise
-        self.cache = cache
+        self.cache = self.server.lease_cache(self.batch_rows, kvb,
+                                             shared=True)
         self.kvb = kvb
 
     def _grow(self, new_kvb: int) -> None:
         assert self.cache is not None
-        self.cache = self.server._grow_cache(self.cache, new_kvb)
+        self.cache = self.server._grow_cache(self.cache, new_kvb,
+                                             shared=True)
         self.kvb = new_kvb
 
     def close(self) -> None:
@@ -217,7 +200,7 @@ class ContinuousScheduler:
         submit/step leases again."""
         if self.cache is None:
             return
-        self.server.release_cache(self.cache)
+        self.server.release_cache(self.cache, shared=True)
         self.cache = None
         self.kvb = 0
 

@@ -8,17 +8,23 @@ quantizes both through the vortex engine session it owns:
     breakpoints the runtime selector bisects;
   * the request batch dim is pow2-bucketed (``vortex.pow2_bucket``).
 
-PyTorch runs eagerly: each request is one prefill forward at its
-(batch-bucket, seq-bucket) shape, then one decode forward per token, all
-under ``engine.use()`` so prefill attention and every decode token's
-attention dispatch through the engine — on the card, through the
-hand-written kernels.  The KV cache lives in kv-BUCKET-shaped buffers (the
-decode-attention workload's own bucket set), each token's K/V row is
+Each request is one eager prefill forward at its (batch-bucket,
+seq-bucket) shape, then one decode step per token, all under
+``engine.use()`` so prefill attention and every decode token's attention
+dispatch through the engine — on the card, through the hand-written
+kernels.  On the card a decode step is ONE replay of a CUDA graph captured
+per (form, batch bucket, kv bucket, cache) (launch/graphs.py), the
+counterpart of the reference's AOT decode programs; ``graphs=False``, or
+the CPU, runs the same step eagerly, op by op.  The KV cache lives in
+kv-BUCKET-shaped buffers (the decode-attention workload's own bucket
+set), each token's K/V row is
 written into it in place, and rows past ``pos`` are dead weight the kv_len
 mask never reads.  When ``pos`` outgrows the bucket the cache is copied
-once into the next bucket's buffers (amortized doubling).  ``decode_stats``
-(a DispatchStats) counts one step per token, growth copies and pad
-fallbacks (always 0).  An MoE model's expert FFNs dispatch through the
+once into the next bucket's buffers (amortized doubling).  With graphs on,
+the prefill writes its cache into leaves leased from the kv pool, so a
+request of a shape served before decodes against the same buffers and
+replays the graphs captured for them.  ``decode_stats`` (a DispatchStats)
+counts one step per token, growth copies and pad fallbacks (always 0).  An MoE model's expert FFNs dispatch through the
 grouped-GEMM workload, with the capacity (set by the PADDED prompt length)
 as its dynamic extent; ``mean_dropped_frac`` reports the capacity drops.
 
@@ -56,8 +62,9 @@ from repro_torch.core.workloads import (
     GroupedGemmWorkload,
 )
 from repro_torch.core.hardware import get_hardware
+from repro_torch.launch.graphs import DecodeGraphs
 from repro_torch.models.layers import moe_capacity
-from repro_torch.models.model import decode_step, prefill_step
+from repro_torch.models.model import abstract_cache, decode_step, prefill_step
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_config, get_smoke_config
 from repro_torch.runtime import faults
@@ -145,6 +152,13 @@ class KVBucketPool:
     (``leases_active``; high-water mark ``leases_peak``) whether it came
     from the free list or a fresh allocation — a non-zero
     ``leases_active`` at idle is a leak.
+
+    A lease pops the most recently parked buffer of its key, so a set of
+    leaves leased in order and released in REVERSE order comes back leaf
+    for leaf on the next lease of the same shapes: the stable addresses a
+    captured decode graph binds.  ``tag`` parts the parked buffers of one
+    shape by owner (the scheduler's shared cache parks apart from
+    per-request caches, whose lifetimes interleave with it).
     """
 
     # Parked buffers per key; beyond this the oldest are dropped.
@@ -160,15 +174,15 @@ class KVBucketPool:
         self.released = 0
 
     @staticmethod
-    def _key(shape, dtype, device) -> tuple:
-        return (tuple(shape), dtype, str(device))
+    def _key(shape, dtype, device, tag: str = "") -> tuple:
+        return (tuple(shape), dtype, str(device), tag)
 
-    def lease(self, shape, dtype, device) -> torch.Tensor:
+    def lease(self, shape, dtype, device, tag: str = "") -> torch.Tensor:
         """One bucket-shaped buffer: a parked one when available (stale
         contents — read it through a kv_len mask), else fresh zeros."""
         if faults.ACTIVE is not None:
             faults.ACTIVE.check("pool_lease")
-        key = self._key(shape, dtype, device)
+        key = self._key(shape, dtype, device, tag)
         buf = None
         with self._lock:
             free = self._free.get(key)
@@ -185,16 +199,18 @@ class KVBucketPool:
 
     def adopt(self, n: int) -> None:
         """Register ``n`` buffers that entered circulation outside
-        ``lease`` (the prefill step emits the initial cache leaves)."""
+        ``lease`` (with graphs off, the prefill step emits the initial
+        cache leaves)."""
         with self._lock:
             self.leases_active += n
             self.leases_peak = max(self.leases_peak, self.leases_active)
 
-    def release(self, leaf: torch.Tensor) -> None:
-        """Return a leased buffer to the pool."""
+    def release(self, leaf: torch.Tensor, tag: str = "") -> None:
+        """Return a leased buffer to the pool (under the tag it was leased
+        with)."""
         with self._lock:
             free = self._free.setdefault(
-                self._key(leaf.shape, leaf.dtype, leaf.device), []
+                self._key(leaf.shape, leaf.dtype, leaf.device, tag), []
             )
             free.append(leaf)
             if len(free) > self._MAX_PARKED:
@@ -225,6 +241,13 @@ class VortexServer:
     reference server does.  ``params`` (a tree from
     :func:`~repro_torch.models.params.params_from_numpy`) replaces the
     seeded init.
+
+    ``graphs``: None (the default) replays one captured CUDA graph per
+    decode step on the card and runs the step eagerly on the CPU;
+    ``False`` runs the eager step on the card too, for comparison.  A
+    capture or replay that fails raises: the eager step is never a
+    fallback.  ``stats`` counts ``decode_graph_captures`` and
+    ``decode_graph_replays`` beside the reference's bucket counters.
     """
 
     def __init__(
@@ -238,6 +261,7 @@ class VortexServer:
         device="cuda",
         hardware: str = "h100_sxm",
         impl: str | None = None,
+        graphs: bool | None = None,
     ):
         self.cfg = cfg
         if engine is None:
@@ -247,7 +271,12 @@ class VortexServer:
                 device=device, impl=impl,
             ))
         self.engine = engine
-        self.device = torch.device(engine.device)
+        dev = torch.device(engine.device)
+        if dev.type == "cuda" and dev.index is None:
+            # One spelling of the card for the kv pool's keys: leaves
+            # report cuda:<index>.
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
         if params is None:
             # Drawn on the server's device, one leaf at a time.
             params = init_params(
@@ -276,7 +305,11 @@ class VortexServer:
         self.stats = {
             "prefill_buckets": 0, "bucket_hits": 0,
             "decode_buckets": 0, "decode_bucket_hits": 0,
+            "decode_graph_captures": 0, "decode_graph_replays": 0,
         }
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.graphs = DecodeGraphs(engine, self.device) if graphs else None
         # Per-token decode accounting: one step per token, zero pad
         # fallbacks, a stage copy only when the cache grows.
         self.decode_stats = DispatchStats()
@@ -343,21 +376,57 @@ class VortexServer:
         for entry in cache.values():
             yield from entry.values()
 
+    def _tag(self, shared: bool) -> str:
+        # With graphs on, the scheduler's shared cache parks apart (see
+        # KVBucketPool); with graphs off the pool keys as the reference's.
+        return "shared" if shared and self.graphs is not None else ""
+
     def adopt_cache(self, cache: dict) -> None:
         """Register a prefill-emitted cache's leaves as active leases."""
         self.kv_pool.adopt(sum(1 for _ in self._cache_leaves(cache)))
 
-    def release_cache(self, cache: dict) -> None:
-        """Return every cache leaf to the pool."""
-        for leaf in self._cache_leaves(cache):
-            self.kv_pool.release(leaf)
+    def lease_cache(self, batch: int, cache_len: int, *,
+                    shared: bool = False) -> dict:
+        """A decode cache of kv-bucket leaves leased from the pool, one
+        leaf at a time and settled on failure: a fault partway
+        (``pool_lease`` injection, out of memory) must not strand the
+        leaves already checked out.  Stale contents: every read goes
+        through the kv_len mask."""
+        spec = abstract_cache(self.cfg, batch, cache_len)
+        tag = self._tag(shared)
+        cache: dict = {}
+        leased: list[torch.Tensor] = []
+        try:
+            for key, entry in spec.items():
+                got = {}
+                for name, leaf in entry.items():
+                    buf = self.kv_pool.lease(leaf.shape, leaf.dtype,
+                                             self.device, tag)
+                    leased.append(buf)
+                    got[name] = buf
+                cache[key] = got
+        except BaseException:
+            for buf in reversed(leased):
+                self.kv_pool.release(buf, tag)
+            raise
+        return cache
 
-    def _grow_cache(self, cache: dict, new_len: int) -> dict:
+    def release_cache(self, cache: dict, *, shared: bool = False) -> None:
+        """Return every cache leaf to the pool, in the reverse of the lease
+        order, so the next lease of the same shapes gets the same leaves
+        back in the same places."""
+        tag = self._tag(shared)
+        for leaf in reversed(list(self._cache_leaves(cache))):
+            self.kv_pool.release(leaf, tag)
+
+    def _grow_cache(self, cache: dict, new_len: int, *,
+                    shared: bool = False) -> dict:
         """Copy the cache into ``new_len``-long leased bucket buffers (one
         in-place copy of the valid extent per leaf, only at bucket
         transitions), then release the outgrown leaves.  Two-phase: a
         failure mid-grow releases the partial new set and leaves ``cache``
         untouched for the caller's settling ``finally``."""
+        tag = self._tag(shared)
         new_leases: list[torch.Tensor] = []
         out: dict = {}
         try:
@@ -366,19 +435,18 @@ class VortexServer:
                 for name, leaf in entry.items():
                     shape = list(leaf.shape)
                     shape[3] = new_len
-                    buf = self.kv_pool.lease(shape, leaf.dtype, leaf.device)
+                    buf = self.kv_pool.lease(shape, leaf.dtype, leaf.device,
+                                             tag)
                     new_leases.append(buf)
                     buf[:, :, :, :leaf.shape[3]].copy_(leaf)
                     grown[name] = buf
                 out[key] = grown
         except BaseException:
-            for buf in new_leases:
-                self.kv_pool.release(buf)
+            for buf in reversed(new_leases):
+                self.kv_pool.release(buf, tag)
             raise
-        n_old = 0
-        for leaf in self._cache_leaves(cache):
-            self.kv_pool.release(leaf)
-            n_old += 1
+        n_old = sum(1 for _ in self._cache_leaves(cache))
+        self.release_cache(cache, shared=shared)
         self.decode_stats.stage_copies += n_old
         return out
 
@@ -386,15 +454,20 @@ class VortexServer:
 
     def warmup(
         self, *, max_batch: int = 1, m_max: int | None = None,
-        max_new: int = 8,
+        max_new: int = 8, capture: bool = True,
     ) -> int:
         """Build, before traffic, every executable the requests up to
         ``max_batch``/``m_max``/``max_new`` can reach (and, on the card,
         the kernel library itself): prefill attention over the seq
         buckets, decode attention over the kv buckets and, for an MoE
         model, the grouped-GEMM capacity buckets that the seq buckets and
-        decode (s = 1) imply, per batch bucket.  Returns the number of
-        executables built."""
+        decode (s = 1) imply, per batch bucket.  With graphs on and
+        ``capture``, also capture the scalar-form decode graph of every
+        reachable (batch bucket, kv bucket) (``generate()``'s), each
+        against a cache leased from the pool and parked again, so that a
+        later request of that shape leases the same leaves and replays it
+        (a large model passes ``capture=False``: every parked cache stays
+        allocated).  Returns the number of executables built."""
         cfg, eng = self.cfg, self.engine
         m_max = self.max_cache if m_max is None else min(m_max, self.max_cache)
         hd = cfg.resolved_head_dim
@@ -447,6 +520,18 @@ class VortexServer:
                              meta(bp, KV, 1, hd), 1)
         for k in grouped:
             k.precompile(c_max)
+        if capture and self.graphs is not None:
+            for bp in bps:
+                tokens = torch.zeros((bp, 1), dtype=torch.int64,
+                                     device=self.device)
+                for kvb in self.decode_buckets(m_max=m_max, max_new=max_new):
+                    cache = self.lease_cache(bp, kvb)
+                    try:
+                        if self.graphs.get(self._graph_key(cache, bp, 0)) \
+                                is None:
+                            self._capture(cache, tokens, 0)
+                    finally:
+                        self.release_cache(cache)
         return built() - before
 
     def mean_dropped_frac(self) -> float:
@@ -479,9 +564,9 @@ class VortexServer:
 
     # -- serving ------------------------------------------------------------
 
-    def _note_moe(self, stats: dict) -> None:
+    def _note_moe(self, dropped_frac: torch.Tensor) -> None:
         if self.cfg.moe is not None:
-            self._dropped_sum += stats["dropped_frac"]
+            self._dropped_sum += dropped_frac
             self._moe_forwards += 1
 
     def check_fits(self, req: Request, where: str = "") -> None:
@@ -509,14 +594,24 @@ class VortexServer:
         kvb = self.kv_bucket(sp)  # the prefill-emitted cache length
         self._note(self._prefill_seen, (bp, sp), "prefill_buckets",
                    "bucket_hits")
-        with self.engine.use():
-            logits, cache, stats = prefill_step(
-                self.cfg, self.params, torch.from_numpy(toks).to(self.device),
-                cache_len=kvb, last=s - 1,
-            )
-        self._note_moe(stats)
-        # The prefill-emitted leaves are pool leases from here on.
-        self.adopt_cache(cache)
+        # With graphs on the prefill writes into leased leaves, so the
+        # decode graphs find the addresses they captured; with graphs off
+        # it emits fresh leaves, adopted as leases (the reference's way).
+        out = None if self.graphs is None else self.lease_cache(bp, kvb)
+        try:
+            with self.engine.use():
+                logits, cache, stats = prefill_step(
+                    self.cfg, self.params,
+                    torch.from_numpy(toks).to(self.device),
+                    cache_len=kvb, last=s - 1, out_cache=out,
+                )
+        except BaseException:
+            if out is not None:
+                self.release_cache(out)
+            raise
+        self._note_moe(stats["dropped_frac"])
+        if out is None:
+            self.adopt_cache(cache)
         return logits.argmax(-1), cache, kvb
 
     def decode_vec(
@@ -528,24 +623,59 @@ class VortexServer:
         makes one ``decode_attention`` dispatch with per-row kv_len.
         Returns the logits (bp, vocab_padded).  Counts first and repeat
         use of its own (bp, kvb) key (the reference's vector-pos
-        programs)."""
+        programs); with graphs on, it replays the vector-form graph of
+        (bp, kvb, this cache)."""
         return self._decode(cache, tokens, pos, self._decode_vec_seen)
 
     def _decode(self, cache: dict, tokens: torch.Tensor, pos, seen: set):
         """One decode step of every row (``pos`` an int or (bp,)),
-        counted on ``seen``'s (bp, kvb) keys; returns the logits."""
+        counted on ``seen``'s (bp, kvb) keys; returns the logits, a tensor
+        the caller owns.  With graphs on the step is one replay of the
+        key's graph, captured at the key's first step."""
+        bp = tokens.shape[0]
         kvb = next(self._cache_leaves(cache)).shape[3]
-        self._note(seen, (tokens.shape[0], kvb), "decode_buckets",
-                   "decode_bucket_hits")
+        self._note(seen, (bp, kvb), "decode_buckets", "decode_bucket_hits")
+        if self.graphs is None:
+            logits, dropped = self._step(cache, tokens, pos)
+        else:
+            key = self._graph_key(cache, bp, pos)
+            g = self.graphs.get(key)
+            if g is None:
+                g = self._capture(cache, tokens, pos)
+            logits, dropped = self.graphs.replay(g, tokens, pos)
+            self.stats["decode_graph_replays"] += 1
+            logits = logits.clone()  # never hand out the static output
+        self._note_moe(dropped)
+        return logits
+
+    def _step(self, cache: dict, tokens: torch.Tensor, pos):
+        """The eager decode step: ``(logits, MoE dropped_frac)``."""
         with self.engine.use():
             logits, _, stats = decode_step(
                 self.cfg, self.params, cache, tokens, pos
             )
-        self._note_moe(stats)
-        return logits
+        return logits, stats["dropped_frac"]
+
+    def _graph_key(self, cache: dict, bp: int, pos) -> tuple:
+        """(form, bp, kvb, every cache leaf's address): a graph replays
+        only against the cache it captured."""
+        leaves = list(self._cache_leaves(cache))
+        form = "vector" if torch.is_tensor(pos) else "scalar"
+        return (form, bp, leaves[0].shape[3],
+                tuple(leaf.data_ptr() for leaf in leaves))
+
+    def _capture(self, cache: dict, tokens: torch.Tensor, pos):
+        g = self.graphs.capture(
+            self._graph_key(cache, tokens.shape[0], pos),
+            lambda t, p: self._step(cache, t, p), tokens, pos,
+        )
+        self.stats["decode_graph_captures"] += 1
+        return g
 
     def generate(self, req: Request) -> np.ndarray:
-        """Greedy tokens ``(batch, max_new)`` for one request."""
+        """Greedy tokens ``(batch, max_new)`` for one request.
+        ``decode_stats`` counts each token's decode step as one launch:
+        one graph replay on the card, one eager step with graphs off."""
         self.check_fits(req)
         b, s = req.tokens.shape
         tok, cache, kvb = self.prefill(req.tokens)
@@ -585,7 +715,8 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument(
         "--warmup", action="store_true",
-        help="build every attention and grouped-GEMM executable first",
+        help="build every attention and grouped-GEMM executable (and, on "
+             "the card, capture every decode graph) first",
     )
     args = ap.parse_args()
 
@@ -619,7 +750,9 @@ def main() -> None:
     ds = server.decode_stats
     print(
         f"decode: tokens={ds.calls} steps={ds.launches} "
-        f"growth_copies={ds.stage_copies} padded={ds.padded_calls}"
+        f"growth_copies={ds.stage_copies} padded={ds.padded_calls} "
+        f"graph_captures={server.stats['decode_graph_captures']} "
+        f"graph_replays={server.stats['decode_graph_replays']}"
     )
     if cfg.moe is not None:
         print(f"moe: mean dropped_frac={server.mean_dropped_frac():.6f} "

@@ -265,8 +265,8 @@ def attn_forward(
             )
         pad = cache_len - s
         new_cache = {
-            "k": F.pad(k, (0, 0, 0, pad)),
-            "v": F.pad(v, (0, 0, 0, pad)),
+            "k": F.pad(k, (0, 0, 0, pad)) if pad else k,
+            "v": F.pad(v, (0, 0, 0, pad)) if pad else v,
         }
     y = _merge_heads(out) @ p["wo"]
     return y, new_cache

@@ -73,11 +73,15 @@ def _hidden(
     cache: dict | None,
     pos: int | torch.Tensor | None,
     cache_len: int,
+    out_cache: dict | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Embedding through the final norm: (hidden (b, s, d), cache,
     moe_stats).  ``moe_stats`` holds the mean ``dropped_frac`` over the
     MoE layers (a device scalar; 0 without MoE layers) and ``topi``, each
-    MoE layer's (b, s, k) expert choices in layer order."""
+    MoE layer's (b, s, k) expert choices in layer order.  A prefill with
+    ``out_cache`` (a :func:`make_cache`-shaped tree) writes each layer's
+    k/v into its first s rows in place and returns it; the rows past s
+    keep what they held (every decode read is kv_len-masked)."""
     if not cfg.use_rope:
         raise NotImplementedError(
             f"{cfg.name}: absolute positions are not ported yet"
@@ -107,9 +111,14 @@ def _hidden(
             h = norm(x, p["norm_mixer"], cfg)
             y, nc = attn_forward(
                 p["attn"], h, cfg, spec, mode=mode, positions=positions,
-                cache=c, pos=pos, cache_len=cache_len,
+                cache=c, pos=pos,
+                cache_len=s if out_cache is not None else cache_len,
             )
-            new_layers[i].append(nc)
+            if out_cache is not None:
+                for name in ("k", "v"):
+                    out_cache[f"pos{i}"][name][g, :, :, :s].copy_(nc[name])
+            else:
+                new_layers[i].append(nc)
             x = x + y
             if spec.mlp == "dense":
                 x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
@@ -122,6 +131,8 @@ def _hidden(
                 topis.append(topi)
     if mode == "decode":
         new_cache = cache  # written in place, layer by layer
+    elif out_cache is not None:
+        new_cache = out_cache
     else:
         new_cache = {
             f"pos{i}": {
@@ -190,15 +201,17 @@ def forward(
 
 def prefill_step(
     cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-    cache_len: int, last: int,
+    cache_len: int, last: int, out_cache: dict | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Prefill a bucket-padded batch: ``(logits at row last (b, vocab),
     cache, moe_stats)`` (``moe_stats`` as :func:`forward` returns it).
     ``last`` is the index of the last real prompt token (s - 1), so the
-    bucket's pad positions never pick the first token."""
+    bucket's pad positions never pick the first token.  ``out_cache``
+    (``cache_len`` long) receives the cache in place instead of fresh
+    zero-padded leaves."""
     x, cache, stats = _hidden(
         cfg, params, tokens, mode="prefill", cache=None, pos=None,
-        cache_len=cache_len,
+        cache_len=cache_len, out_cache=out_cache,
     )
     return _head(cfg, params, x[:, last]), cache, stats
 

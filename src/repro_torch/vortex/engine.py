@@ -109,6 +109,10 @@ class Engine:
 
         return use(self)
 
+    def kernels(self) -> dict[tuple, VortexKernel]:
+        """A snapshot of the compiled kernels, by workload signature."""
+        return dict(self._kernels)
+
     # -- workload plumbing --------------------------------------------------
 
     def kernel_for(self, wl: Workload) -> VortexKernel:

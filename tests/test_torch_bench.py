@@ -53,6 +53,7 @@ def test_hot_path_counters_keep_the_reference_meanings(payload):
         assert h["copies_per_unaligned_call"] == copies[kind], kind
         assert h["unaligned_extent"] < h["aligned_extent"], kind
         assert h["kernel_launches_per_call"] == 0.0  # plain versions here
+        assert h["stage_launches_per_unaligned_call"] == 0.0
         assert len(h["samples"]["aligned_us"]) >= 20
 
 
@@ -66,6 +67,23 @@ def test_decode_counters_match_the_reference(payload):
     assert got["decode_buckets"] == ref["decode_compiles"]
     assert got["engine_padded_calls"] == ref["engine_padded_calls"] == 0
     assert got["engine_launches_per_token"] == got["n_layers"]
+
+
+def test_graph_counters_cover_the_timed_windows(payload):
+    """The CPU runs the eager step: no capture and no replay anywhere; the
+    timed windows hold every decode step the reference's would."""
+    dec, cb = payload["decode"], payload["continuous_batching"]
+    for r in (dec, cb):
+        assert r["graphs"] is False
+        assert r["decode_graph_captures"] == r["decode_graph_replays"] == 0
+    assert dec["timed_steps"] == dec["tokens"] - dec["tokens"] // 2
+    serial = cb["requests"] * (cb["max_new"] - 1)
+    assert cb["timed_steps"] == serial + sum(
+        c["batched_steps"] for c in cb["concurrency"].values())
+    p = _passing(payload)
+    for r in (p["decode"], p["continuous_batching"]):
+        r.update(graphs=True, decode_graph_replays=r["timed_steps"])
+    assert run.gate_failures(p) == []
 
 
 def test_continuous_batching_steps_match_the_reference(payload):
@@ -114,6 +132,16 @@ def _set(path, value):
     return doctor
 
 
+def _graphed(section, captures, missing=0):
+    """The section as the card writes it (graphs on, one replay a timed
+    step), with ``captures`` captures and ``missing`` replays short."""
+    def doctor(p):
+        r = p[section]
+        r.update(graphs=True, decode_graph_captures=captures,
+                 decode_graph_replays=r["timed_steps"] + missing)
+    return doctor
+
+
 DOCTORS = {
     "dispatch_speedup": _set(("dispatch", "gemm", "speedup"), 4.0),
     "hot_launches": _set(("hot_path", "attention", "launches_per_call"), 2.0),
@@ -130,6 +158,8 @@ DOCTORS = {
     "moe_launches": _set(("moe", "launches_per_moe_layer"), 3.0),
     "moe_padded": _set(("moe", "padded_calls"), 1),
     "moe_bits_cpu": _set(("moe", "bit_identical_to_dense"), False),
+    "decode_graph_captured_in_window": _graphed("decode", 1),
+    "cb_graph_step_not_replayed": _graphed("continuous_batching", 0, -1),
 }
 
 

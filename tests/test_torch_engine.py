@@ -347,10 +347,94 @@ def test_staging_buffers_are_reused_and_capped_by_the_pool_cap():
         assert entry.pool.cap == cap
         # A burst of cap + 2 buffer sets in flight: the releases keep at
         # most ``cap`` of them, evicting the least recently used.
-        need = {0: ((bucket, 96), torch.float32)}
-        burst = [entry.pool.acquire(need, torch.device("cpu"))
-                 for _ in range(cap + 2)]
+        need = ((0, (bucket, 96), torch.float32),)
+        cpu = torch.device("cpu")
+        burst = [entry.pool.acquire(need, cpu, None) for _ in range(cap + 2)]
         for bufs in burst:
-            entry.pool.release(bufs, torch.device("cpu"))
+            entry.pool.release(bufs, cpu, None)
         assert len(entry.pool.retained) == cap
         assert all(r is s for r, s in zip(entry.pool.retained, burst[2:]))
+
+
+@pytest.mark.parametrize("kind", ["gemm", "attention", "conv2d"])
+def test_steady_state_unaligned_call_takes_a_pooled_set(kind):
+    """A repeat unaligned call in one bucket takes the pooled buffer set
+    (and its staging plan) and allocates none; it stays bit-identical to
+    the zero-pad reference path."""
+    make, params = KINDS[kind]
+    eng = _engine()
+    rng = np.random.default_rng(9)
+    op = _bucket(eng, kind, _to_torch(make(rng, 5)), params)
+    m = op.bucket(40) - 1
+    args = _to_torch(make(rng, m))
+    eng.dispatch(kind, *args, **params)
+    entries = list(op.kernel._exec_cache.values())
+    allocs = sum(e.pool.allocs for e in entries)
+    st0 = op.kernel.dispatch_stats.as_dict()
+    for _ in range(3):
+        args = _to_torch(make(rng, m))
+        out = eng.dispatch(kind, *args, **params)
+        assert torch.equal(out, op.kernel.call_padded(*args))
+    st = op.kernel.dispatch_stats.as_dict()
+    assert sum(e.pool.allocs for e in entries) == allocs == 1
+    assert sum(len(e.pool.retained) for e in entries) == 1
+    assert st["unaligned_calls"] - st0["unaligned_calls"] == 3
+    sets = [s for e in entries for s in e.pool.retained]
+    assert len(sets[0]._plans) == 1  # one plan per (operands, extents)
+
+
+def test_stage_copy_writes_only_the_leading_corner():
+    from repro_torch.kernels.stage import (
+        StagePlan,
+        stage_copy,
+        stage_geometry,
+    )
+
+    buf = torch.zeros(2, 4, 6, 8)
+    assert stage_geometry(buf, (2, 4, 5, 8)) == (8, 5 * 8 * 4, 6 * 8 * 4)
+    assert stage_geometry(buf, (1, 4, 6, 8)) == (1, 4 * 6 * 8 * 4,
+                                                  2 * 4 * 6 * 8 * 4)
+    assert stage_geometry(buf, (2, 4, 6, 8))[0] == 1
+    with pytest.raises(ValueError, match="at most one dim"):
+        stage_geometry(buf, (1, 4, 5, 8))
+    with pytest.raises(ValueError, match="at most one dim"):
+        stage_geometry(buf, (2, 4, 7, 8))
+    rng = np.random.default_rng(10)
+    bufs = [torch.full((3, 8, 4), float("nan")), torch.full((5, 2), 7.0)]
+    srcs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((3, 5, 4), (4, 2))]
+    stage_copy(bufs, srcs)
+    assert torch.equal(bufs[0][:, :5], srcs[0])
+    assert torch.isnan(bufs[0][:, 5:]).all()
+    assert torch.equal(bufs[1][:4], srcs[1])
+    assert (bufs[1][4:] == 7.0).all()
+    with pytest.raises(ValueError, match="1 to 4"):
+        StagePlan([buf] * 5, [(2, 4, 5, 8)] * 5)
+    with pytest.raises(TypeError):
+        stage_copy([bufs[1]], [srcs[1].double()])
+
+
+@pytest.mark.cuda
+def test_stage_copy_kernel_matches_copy_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (csrc/stage.cu)")
+    from repro_torch.kernels import stage
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    for shapes, buf_shapes, dt in (
+        (((2, 8, 255, 64), (2, 4, 255, 64)),
+         ((2, 8, 256, 64), (2, 4, 256, 64)), torch.bfloat16),
+        (((5, 3, 7),), ((5, 8, 7),), torch.float32),
+    ):
+        bufs = [torch.full(s, float("nan"), dtype=dt, device=dev)
+                for s in buf_shapes]
+        srcs = [torch.randn(s, generator=g).to(dev, dt) for s in shapes]
+        want = [b.clone() for b in bufs]
+        stage.stage_copy_plain(want, srcs)
+        n0 = stage.LAUNCHES["stage_copy"]
+        stage.stage_copy(bufs, srcs)
+        torch.cuda.synchronize()
+        assert stage.LAUNCHES["stage_copy"] == n0 + 1
+        for b, w in zip(bufs, want):
+            assert torch.equal(b.nan_to_num(3.0), w.nan_to_num(3.0))
