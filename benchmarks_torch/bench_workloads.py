@@ -21,6 +21,7 @@ session and reports, per workload kind:
 ``BENCH_dispatch_torch.json``.  Everything runs on the card unless the
 caller passes ``device="cpu"`` (the tests do, with ``smoke=True``); on the
 card operands are bf16 and the executables are the hand-written kernels.
+Both JSON files carry the ``calibration`` section (:func:`_bench_calibration`).
 
     python benchmarks_torch/bench_workloads.py --json BENCH_dispatch_torch.json
 
@@ -609,6 +610,68 @@ def _bench_moe(smoke: bool, *, device="cuda",
     }
 
 
+def _bench_calibration(smoke: bool, *, device="cuda",
+                       hardware: str = "h100_sxm") -> dict:
+    """The background-calibration section (the reference's
+    ``_bench_calibration``): a gemm engine runs one full calibration pass
+    (top-K candidates timed per bucket, fit or re-rank, table swap), then
+    reports measured-vs-analytical agreement and the calibrated pick's
+    regret per bucket; a FRESH engine on the same cache directory then
+    loads the persisted tables.  ``run.py --gate`` checks
+    ``never_worse_on_measured`` and ``measured_buckets >= 1`` per kind,
+    and the roundtrip: at least one table loaded, zero re-measurements,
+    nothing pending.  The tables persist in a temporary directory that is
+    removed afterwards.  On the card the gemm is bf16 through the
+    hand-written kernel."""
+    import dataclasses
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vortex-bench-calib-") as cache:
+
+        def fresh_engine() -> Engine:
+            eng = Engine(
+                hardware, device=device, empirical_levels=(),
+                calibration="on-idle",
+                calibration_top_k=2 if smoke else 3,
+                calibration_cache_dir=cache,
+            )
+            rng = np.random.default_rng(11)
+            eng.dispatch("gemm", randn(rng, (33, 256), device),
+                         randn(rng, (256, 128), device))
+            cal = eng.calibrator
+            # Bench-sized plan; the policy steers kernel states planned
+            # from here on, so it is set before the first slice.
+            cal.policy = dataclasses.replace(
+                cal.policy,
+                m_max=192 if smoke else 512,
+                max_buckets=3 if smoke else 6,
+                min_rounds=3 if smoke else 8,
+                max_rounds=8 if smoke else 24,
+                patience=2 if smoke else 4,
+            )
+            return eng
+
+        cal = fresh_engine().calibrator
+        t0 = time.perf_counter()
+        cal.run()
+        calibrate_s = time.perf_counter() - t0
+        report = cal.report()
+        cal2 = fresh_engine().calibrator
+        loaded = cal2.load()
+        roundtrip = {
+            "loaded": loaded,
+            "re_measurements": cal2.counters["measurements"],
+            "pending_after_load": cal2.pending(),
+            "table_swaps": cal2.counters["table_swaps"],
+        }
+    return {
+        "kinds": report,
+        "roundtrip": roundtrip,
+        "calibrate_s": calibrate_s,
+        "stats": cal.stats(),
+    }
+
+
 def _touch_kinds(eng, device) -> None:
     """One signature per kind, so the dispatch section sees all three."""
     rng = np.random.default_rng(0)
@@ -629,8 +692,9 @@ def serving_payload(smoke: bool, *, device="cuda",
     copies/launches per call (with raw per-round samples), the serving
     decode contract, the continuous-batching contract and the MoE
     grouped-GEMM contract, with the card's name and power limit.  The
-    reference's ``prefill_chain`` (lazy handles) and ``calibration``
-    sections wait for those modules of the port."""
+    reference's ``prefill_chain`` section (lazy handles) waits for that
+    module of the port; ``run.py --json`` adds the ``calibration``
+    section (:func:`_bench_calibration`) beside these."""
     eng = Engine(hardware, device=device,
                  empirical_levels=(() if smoke else None))
     _touch_kinds(eng, device)
@@ -699,6 +763,7 @@ def main() -> None:
         wall[kind] = _bench(calls) * 1e6
 
     stats = eng.stats()
+    stats.pop("calibration", None)  # engine-level section, not a kind
     for kind, s in stats.items():
         selects = max(s["selects"], 1)
         misses = s["select_argmin_misses"]
@@ -744,6 +809,23 @@ def main() -> None:
             f"padded_calls={h['padded_calls']}",
         )
 
+    calibration = _bench_calibration(args.smoke, device=device,
+                                     hardware=args.hardware)
+    for kind, c in calibration["kinds"].items():
+        emit(
+            f"calibration/{kind}", c["mean_regret_vs_best"] * 1e2,
+            f"mode={c['mode']};agreement={c['agreement_rate']:.2f};"
+            f"pinned={c['pinned_buckets']}/{c['measured_buckets']};"
+            f"never_worse={c['never_worse_on_measured']};"
+            f"residual={c['residual']:.3f}",
+        )
+    rt = calibration["roundtrip"]
+    emit(
+        "calibration/roundtrip", calibration["calibrate_s"] * 1e6,
+        f"loaded={rt['loaded']};re_measurements={rt['re_measurements']};"
+        f"pending_after_load={rt['pending_after_load']}",
+    )
+
     if args.json:
         payload = {
             "card": card_line(device),
@@ -751,6 +833,7 @@ def main() -> None:
             "hardware": args.hardware,
             "dispatch": dispatch,
             "hot_path": hot,
+            "calibration": calibration,
             "serving": {
                 kind: {
                     "selects": s["selects"],

@@ -19,7 +19,8 @@ forwarded to the modules and runs the plain versions.
 ``--json PATH`` writes the serving snapshot
 (``bench_workloads.serving_payload``; the port's file is
 ``BENCH_serving_torch.json`` at the repo root — the reference's
-``BENCH_serving.json`` is never written from here).  With ``--json`` the
+``BENCH_serving.json`` is never written from here), with the calibration
+section (``bench_workloads._bench_calibration``) beside it.  With ``--json`` the
 module loop is skipped unless a module filter is also given.  ``--gate``
 checks the reference's CI gates on the payload (``--json``'s, or the file
 named by ``--check``) and exits nonzero when one fails:
@@ -65,13 +66,39 @@ def gate_failures(payload: dict) -> list[str]:
     measured with ``retry_best``.  On the card the MoE output is held
     against the dense einsums within the grouped GEMM's bf16 tolerance
     (``within_tolerance``); on the CPU, where both sides are plain
-    PyTorch, it must be bit-identical as the reference's gate asks."""
+    PyTorch, it must be bit-identical as the reference's gate asks.  The
+    calibration gates are the reference's: per kind, the calibrated pick
+    never slower than the analytical one on a measured bucket and at least
+    one bucket measured; a fresh engine loads the persisted tables with
+    zero re-measurements and nothing left pending."""
     out: list[str] = []
 
     def need(ok: bool, what: str) -> None:
         if not ok:
             out.append(what)
 
+    cal = payload.get("calibration")
+    if cal is None:
+        out.append("calibration: the snapshot has no calibration section")
+    else:
+        need(bool(cal["kinds"]), "calibration: no kind was calibrated")
+        for kind, r in cal["kinds"].items():
+            # On every measured bucket the calibrated table's pick is at
+            # least as fast (by the measurements) as the analytical pick.
+            need(r["never_worse_on_measured"],
+                 f"calibration/{kind}: the calibrated pick is slower than "
+                 f"the analytical pick on a measured bucket")
+            need(r["measured_buckets"] >= 1,
+                 f"calibration/{kind}: {r['measured_buckets']} measured "
+                 f"buckets")
+        rt = cal["roundtrip"]
+        # A fresh engine with the same hardware fingerprint loads the
+        # calibrated tables with zero re-measurements.
+        need(rt["loaded"] >= 1 and rt["re_measurements"] == 0
+             and not rt["pending_after_load"],
+             f"calibration/roundtrip: loaded {rt['loaded']}, "
+             f"{rt['re_measurements']} re-measurements, pending after load "
+             f"{rt['pending_after_load']}")
     for kind, r in payload["dispatch"].items():
         need(r["speedup"] >= DISPATCH_SPEEDUP,
              f"dispatch/{kind}: table select {r['speedup']:.2f}x faster than "
@@ -140,6 +167,13 @@ def print_gates(payload: dict) -> list[str]:
           f"steps/token, {dec['decode_us_per_token']:.0f}us/token")
     print(f"continuous_batching: serial {cb['serial_tokens_per_s']:.0f} tok/s, "
           f"speedup@16 {cb['speedup_at_16']:.2f}x")
+    cal = payload.get("calibration") or {"kinds": {}}
+    for kind, r in cal["kinds"].items():
+        print(f"calibration/{kind}: mode={r['mode']} "
+              f"agreement={r['agreement_rate']:.2f} "
+              f"pinned={r['pinned_buckets']}/{r['measured_buckets']} "
+              f"regret={r['mean_regret_vs_best']:.4f} "
+              f"never_worse={r['never_worse_on_measured']}")
     failures = gate_failures(payload)
     for f in failures:
         print(f"GATE FAILED: {f}")
@@ -198,9 +232,14 @@ def main(argv=None) -> int:
 
     payload = None
     if args.json:
-        from benchmarks_torch.bench_workloads import serving_payload
+        from benchmarks_torch.bench_workloads import (
+            _bench_calibration,
+            serving_payload,
+        )
 
         payload = serving_payload(args.smoke, device=args.device)
+        payload["calibration"] = _bench_calibration(args.smoke,
+                                                    device=args.device)
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2, sort_keys=True)
         print(f"wrote {args.json}")

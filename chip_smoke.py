@@ -123,6 +123,33 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    hot-path ratios, tokens/s and ``speedup_at_16``, select µs) beside the
    card's name and power limit; the reference's wall-clock gates are
    ``benchmarks_torch/run.py --gate``'s, not this script's.
+6b. Background calibration (core/calibrate.py) on the card, bf16.  An
+   engine with ``calibration="on-idle"`` and a fresh cache directory
+   serves the main path's shapes once (the gemm at N = K = 768, the conv
+   at ResNet-50's conv2_x, the grouped GEMM at granite's expert widths,
+   paper-gpt2's prefill attention), then ``run_calibration``.  Fails
+   unless gemm, conv2d and the grouped GEMM each measured a bucket and
+   never pick slower than the analytical pick there, attention is skipped
+   as exec-specialized, every measurement launch took the path its
+   candidate's backend names (the launch counters equal the measured
+   candidates' launches per path exactly), each kind's output after the
+   swap agrees with its plain version, and a second engine on the same
+   cache loads every table with no measurement and nothing pending.
+   Prints per kind the fit's mode, residual and coefficients, the
+   agreement rate, pinned/measured buckets and regret, and per bucket the
+   host µs (``interleaved_minima``) of the analytical, best and
+   calibrated picks beside the device µs of the analytical and calibrated
+   picks.  Then granite-moe-1b-a400m at full width and depth behind
+   ``ContinuousScheduler(batch_rows=8)`` on a calibrating engine: 8
+   requests (prompts 16-128, max_new 8), idle ticks until nothing is
+   pending (at most 200), 8 more requests (prompts 160-384).  Fails
+   unless idle ticks donated slices and none ran while a row was active
+   or a request queued, every grouped-GEMM signature swapped its table,
+   every decode step is one graph replay, one step's logits after the
+   swap agree with impl="torch" within LOGIT_TOL, and the kv pool's
+   leases are back to 0.  Prints each slice's wall time against the
+   budget, the grouped GEMM's analytical and calibrated tile at each
+   served capacity bucket, and rows 3a/3b's device time under both.
 7. Print the kernels line (with phase 6's launch counts), then the result
    line.
 
@@ -916,7 +943,8 @@ def sched_requests(rng, cfg, n, rows, prompt, max_new):
 
 
 def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
-                    compare: bool = True, eager_check: bool = False) -> dict:
+                    compare: bool = True, eager_check: bool = False,
+                    on_sched=None) -> dict:
     """Submit ``reqs`` to a ``ContinuousScheduler`` over ``server``, drain,
     close, and check: every request a token array of its shape, every
     batched step n_layers decode-attention launches on decode.split_kv, one
@@ -930,13 +958,16 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
     bit-identical to the graph's.  Every step must be one graph replay.
     Host seconds in prefills and decode steps are taken
     around each (synchronized: the scheduler reads each result back right
-    after it anyway); copying the step is left out of the wall time."""
+    after it anyway); copying the step is left out of the wall time.
+    ``on_sched`` is called with the scheduler before the first submit."""
     from repro_torch.launch.scheduler import ContinuousScheduler
     from repro_torch.launch.serve import VortexServer
 
     cfg = server.cfg
     L = cfg.n_layers
     sched = ContinuousScheduler(server, batch_rows=batch_rows)
+    if on_sched is not None:
+        on_sched(sched)
     real_prefill, real_decode = server.prefill, server.decode_vec
     per_step: list[tuple[int, int]] = []
     secs = {"prefill": 0.0, "decode": 0.0, "copy": 0.0}
@@ -1919,6 +1950,358 @@ def phase_bench(kernels, smi: str) -> dict:
     return {"launches": totals, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6b: background calibration (core/calibrate.py) on the card
+# ---------------------------------------------------------------------------
+
+CALIB_KINDS = ("gemm", "conv2d", "grouped_gemm")
+# The kernel each calibrated kind's executables launch.
+CALIB_FAMILY = {"gemm": "vortex_gemm", "conv2d": "vortex_gemm",
+                "grouped_gemm": "vortex_grouped_gemm"}
+ATTN_SKIP = "exec-specialized (needs representative args)"
+GRANITE_E, GRANITE_K, GRANITE_FE, GRANITE_D = 32, 8, 512, 1024
+
+
+def calib_engine(dev, cache: str, seed: int):
+    """An engine calibrating on idle into ``cache`` that has served the
+    main path's shapes once, bf16: the gemm at N = K = 768 (phase 3), the
+    conv at ResNet-50's conv2_x (phase 3b), the grouped GEMM at granite's
+    expert widths (8 sequences of 64 tokens routed top-8 over 32 experts,
+    capacity 20: row 3a's call) and prefill attention at paper-gpt2's shape
+    (phase 4)."""
+    from repro_torch import vortex
+
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dt)
+
+    eng = vortex.Engine(calibration="on-idle", calibration_cache_dir=cache)
+    _, hw, cin, cout, stride = RESNET_CONVS[0]
+    E, k, fe, d = GRANITE_E, GRANITE_K, GRANITE_FE, GRANITE_D
+    counts = routed_counts(g, 8, 64, E, k, 20)
+    eng.dispatch("gemm", rnd(97, 768), rnd(768, 768))
+    eng.dispatch("conv2d", rnd(1, hw, hw, cin),
+                 rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5), stride=stride)
+    eng.dispatch("grouped_gemm", rnd(E * 8, 20, d),
+                 rnd(E, d, fe, scale=E ** -0.5),
+                 torch.tensor(counts, dtype=torch.int32, device=dev))
+    eng.dispatch("attention", rnd(8, 12, 64, 64), rnd(8, 12, 64, 64),
+                 rnd(8, 12, 64, 64))
+    return eng
+
+
+def calib_after_swap(dev, eng, kind: str, m: int, g) -> tuple:
+    """One engine call of ``kind`` at extent ``m`` and its plain version."""
+    from repro_torch.kernels.gemm import vortex_gemm_plain
+    from repro_torch.kernels.grouped_gemm import vortex_grouped_gemm_plain
+
+    dt = torch.bfloat16
+    if kind == "gemm":
+        a = torch.randn(m, 768, generator=g).to(dev, dt)
+        b = torch.randn(768, 768, generator=g).to(dev, dt)
+        return eng.dispatch("gemm", a, b), vortex_gemm_plain(a, b)
+    if kind == "conv2d":
+        # 3x3 inputs under the 3x3 kernel: one output pixel per image, so
+        # the GEMM's extent is the batch, m.
+        cin = cout = RESNET_CONVS[0][2]
+        x = torch.randn(m, 3, 3, cin, generator=g).to(dev, dt)
+        w = (torch.randn(3, 3, cin, cout, generator=g)
+             * (9 * cin) ** -0.5).to(dev, dt)
+        ref = vortex_gemm_plain(x.reshape(m, 9 * cin), w.reshape(9 * cin,
+                                                                  cout))
+        return eng.dispatch("conv2d", x, w), ref.reshape(m, 1, 1, cout)
+    E, d, fe = GRANITE_E, GRANITE_D, GRANITE_FE
+    x = torch.randn(E * 8, m, d, generator=g).to(dev, dt)
+    w = (torch.randn(E, d, fe, generator=g) * E ** -0.5).to(dev, dt)
+    cnt = torch.randint(0, m + 1, (E * 8,), generator=g,
+                        dtype=torch.int32).to(dev)
+    return (eng.dispatch("grouped_gemm", x, w, cnt),
+            vortex_grouped_gemm_plain(x, w, cnt))
+
+
+def tile(sel) -> str:
+    return f"{sel.strategy.l1} {sel.backend}"
+
+
+def backend_share(table) -> dict:
+    """Extents of [1, table.m_max] each backend serves in ``table``."""
+    ends = table.starts[1:] + [table.m_max + 1]
+    out: dict[str, int] = {}
+    for start, end, e in zip(table.starts, ends, table.entries):
+        out[e.backend] = out.get(e.backend, 0) + end - start
+    return out
+
+
+def phase_calibration(dev, kernels, smi: str) -> dict:
+    """Phase 6b, first half: ``run_calibration`` over an engine that served
+    the main path's shapes; then a second engine on the same cache
+    directory loads every table with no measurement."""
+    import tempfile
+
+    from repro_torch.launch.calibration import run_calibration
+
+    g = torch.Generator().manual_seed(9)
+    dt = torch.bfloat16
+    with tempfile.TemporaryDirectory(prefix="vortex-calibration-") as cache:
+        eng = calib_engine(dev, cache, 8)
+        cal = eng.calibrator
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_calibration(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        rep, stats, skipped = out["report"], out["stats"], cal.skipped()
+        print(f"phase 6b: run_calibration in {wall:.1f}s: {stats['kernels']} "
+              f"kernels, {stats['applied']} applied, {stats['skipped']} "
+              f"skipped {skipped}, {stats['measured_buckets']} buckets, "
+              f"{stats['measurements']} candidate timings, "
+              f"{stats['seconds']:.2f}s measuring, top_k "
+              f"{cal.policy.top_k}, m_max {cal.policy.m_max} on {smi}")
+        for kind in CALIB_KINDS:
+            r = rep.get(kind)
+            if r is None or r["measured_buckets"] < 1:
+                fail(f"phase 6b: {kind} measured no bucket ({skipped})")
+            if not r["never_worse_on_measured"]:
+                fail(f"phase 6b: {kind}'s calibrated pick is slower than the "
+                     f"analytical one on a measured bucket")
+        if skipped.get("attention") != ATTN_SKIP:
+            fail(f"phase 6b: attention was not skipped as exec-specialized: "
+                 f"{skipped}")
+        # Each measured candidate ran once untimed, then once per round
+        # (inner 1): bf16 at tensor_core on the wgmma path, at cuda_core on
+        # the FMA loop, and nothing else on the card.
+        want: dict[str, int] = {}
+        for kind in CALIB_KINDS:
+            for b in rep[kind]["buckets"]:
+                for backend, n in b["candidates"].items():
+                    key = f"{CALIB_FAMILY[kind]}.{backend}"
+                    want[key] = want.get(key, 0) + n * (
+                        1 + b["rounds"] * cal.policy.inner)
+        for fam in ("vortex_gemm", "vortex_grouped_gemm"):
+            paths = {p: counts[f"{fam}.{p}"]
+                     for p in ("tensor_core", "cuda_core")}
+            expected = {p: want.get(f"{fam}.{p}", 0) for p in paths}
+            print(f"phase 6b: {fam} measurement launches {counts[fam]} "
+                  f"by path {paths}, expected {expected}")
+            if counts[fam] != sum(paths.values()) or paths != expected:
+                fail(f"phase 6b: {fam} launches {counts[fam]} {paths} do not "
+                     f"match the measured candidates' paths")
+        for fam in ("flash_attention_prefill", "flash_attention_decode"):
+            if counts[fam]:
+                fail(f"phase 6b: the skipped attention launched {fam}")
+
+        kerns = {k.workload.kind: k for k in eng.kernels().values()}
+        for kind in CALIB_KINDS:
+            r, kern = rep[kind], kerns[kind]
+            sel, wl = kern.selector, kern.workload
+            scale = {b: float("%.4g" % a)
+                     for b, a in r["backend_scale"].items()}
+            print(f"phase 6b calibration/{kind}: mode={r['mode']} "
+                  f"residual={r['residual']:.4g} backend_scale={scale} "
+                  f"agreement_rate={r['agreement_rate']:.3f} "
+                  f"pinned/measured={r['pinned_buckets']}/"
+                  f"{r['measured_buckets']} mean_regret_vs_best="
+                  f"{r['mean_regret_vs_best']:.4f} never_worse="
+                  f"{r['never_worse_on_measured']} on {smi}")
+            for b in r["buckets"]:
+                m, dev_us = b["m"], {}
+                for which in ("analytical", "calibrated"):
+                    idx = b[f"{which}_idx"]
+                    if which == "calibrated" and idx == b["analytical_idx"]:
+                        dev_us[which] = dev_us["analytical"]
+                        continue
+                    cand = sel.candidate_selection(idx, m)
+                    fn = wl.build_executable(cand, impl="cuda")
+                    args = wl.example_args(cand, dtype=dt, device=dev)
+                    dev_us[which] = (idx, device_ms(lambda: fn(*args)) * 1e3,
+                                     tile(cand))
+                a_idx, a_us, a_tile = dev_us["analytical"]
+                c_idx, c_us, c_tile = dev_us["calibrated"]
+                print(f"phase 6b {kind} m={m}: host analytical_us="
+                      f"{b['analytical_us']:.3f} best_us={b['best_us']:.3f} "
+                      f"calibrated_us={b['calibrated_us']:.3f} "
+                      f"[interleaved_minima, {b['rounds']} rounds]; device "
+                      f"analytical_us={a_us:.3f} calibrated_us={c_us:.3f} "
+                      f"[torch.profiler]; analytical {a_tile}, calibrated "
+                      f"{c_tile}{' (pinned)' if a_idx != c_idx else ''} "
+                      f"on {smi}")
+            print(f"phase 6b {kind} table entries by backend up to m "
+                  f"{sel.table.m_max}: analytical "
+                  f"{backend_share(sel.build_calibrated_table())} calibrated "
+                  f"{backend_share(sel.table)}")
+            pins = [b for b in r["buckets"]
+                    if b["calibrated_idx"] != b["analytical_idx"]]
+            m = (pins or r["buckets"])[-1]["m"]
+            got, ref = calib_after_swap(dev, eng, kind, m, g)
+            check(f"phase 6b {kind} after the swap at m={m} "
+                  f"({tile(sel.select(m))})", got, ref, TOL[dt])
+
+        eng2 = calib_engine(dev, cache, 8)
+        cal2 = eng2.calibrator
+        loaded = cal2.load()
+        rt = {"loaded": loaded, "re_measurements":
+              cal2.counters["measurements"], "pending": cal2.pending()}
+        print(f"phase 6b roundtrip: a second engine on the same cache loaded "
+              f"{loaded} of {stats['applied']} tables, {rt['re_measurements']} "
+              f"re-measurements, pending {rt['pending']}")
+        if (loaded != stats["applied"] or rt["re_measurements"]
+                or rt["pending"]):
+            fail(f"phase 6b roundtrip: {rt}")
+    del eng, eng2
+    free_cuda()
+    return {"report": rep, "stats": stats, "roundtrip": rt, "wall_s": wall}
+
+
+def phase_served_calibration(dev, kernels, smi: str) -> dict:
+    """Phase 6b, second half: granite-moe-1b-a400m at full width and depth
+    behind ``ContinuousScheduler`` on an engine calibrating on idle; the
+    scheduler's idle ticks calibrate the grouped GEMMs, then new requests
+    are served on the swapped tables."""
+    import tempfile
+
+    from repro_torch import vortex
+    from repro_torch.core.hardware import get_hardware
+    from repro_torch.core.workloads import GroupedGemmWorkload
+    from repro_torch.kernels.grouped_gemm import (
+        vortex_grouped_gemm,
+        vortex_grouped_gemm_plain,
+    )
+    from repro_torch.launch.scheduler import ContinuousScheduler
+    from repro_torch.launch.serve import VortexServer
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(ARCHS[1])
+    dt = torch.bfloat16
+    with tempfile.TemporaryDirectory(prefix="vortex-calibration-") as cache:
+        eng = vortex.Engine(vortex.EngineConfig(
+            backends=(get_hardware("h100_sxm").default_backend,),
+            calibration="on-idle", calibration_cache_dir=cache))
+        server = VortexServer(cfg, max_cache=512, seed=0, engine=eng)
+        server.warmup(max_batch=SCHED_ROWS, m_max=512, max_new=8,
+                      capture=False)
+        cal = eng.calibrator
+        scheds: list = []
+        slices: list[dict] = []
+        real_slice = cal.run_slice
+
+        def run_slice(budget_s=None):
+            sched = scheds[-1]
+            busy = any(r is not None for r in sched.rows) or bool(sched._queue)
+            t = time.perf_counter()
+            n = real_slice(budget_s)
+            slices.append({"s": time.perf_counter() - t, "busy": busy,
+                           "buckets": n})
+            return n
+
+        cal.run_slice = run_slice
+        first = sched_requests(np.random.default_rng(0), cfg, 8, (1, 4),
+                               (16, 128), (8, 8))
+        serve_scheduled(kernels, server, first, batch_rows=SCHED_ROWS,
+                        where="phase 6b granite before the swap",
+                        compare=False, on_sched=scheds.append)
+        grouped = [k for k in eng.kernels().values()
+                   if k.workload.kind == "grouped_gemm"]
+        served = {
+            id(k): sorted({key[0][0] for key, e in k._exec_cache.items()
+                           if e.hits})
+            for k in grouped
+        }
+        ticker = ContinuousScheduler(server, batch_rows=SCHED_ROWS)
+        scheds.append(ticker)
+        ticks = 0
+        while cal.pending() and ticks < 200:
+            ticker.step()
+            ticks += 1
+        if cal.pending():
+            fail(f"phase 6b: calibration still pending after {ticks} idle "
+                 f"ticks: {cal.stats()}")
+        donated = sum(sc.stats["calibration_slices"] for sc in scheds)
+        budget = cal.policy.budget_s
+        print(f"phase 6b granite: {len(slices)} calibration slices "
+              f"({donated} donated by idle ticks, {ticks} idle ticks after "
+              f"the first drain), budget {budget}s, slice wall s "
+              f"{[round(sl['s'], 4) for sl in slices]}, buckets per slice "
+              f"{[sl['buckets'] for sl in slices]}; {cal.stats()}")
+        if donated < 1 or donated != len(slices):
+            fail(f"phase 6b: {donated} donated slices, {len(slices)} ran")
+        if any(sl["busy"] for sl in slices):
+            fail("phase 6b: a calibration slice ran while a row was active "
+                 "or a request was queued")
+        skipped = cal.skipped()
+        for k in grouped:
+            wl = k.workload
+            sel = k.selector
+            if sel.stats.table_swaps < 1:
+                fail(f"phase 6b: grouped GEMM G={wl.G} N={wl.N} K={wl.K} "
+                     f"saw no table swap ({skipped})")
+            for c in served[id(k)]:
+                a = sel.candidate_selection(
+                    int(np.argmin(sel.candidate_costs(c))), c)
+                print(f"phase 6b granite grouped G={wl.G} N={wl.N} K={wl.K} "
+                      f"served C bucket {c}: analytical {tile(a)} -> "
+                      f"calibrated {tile(sel.select(c))} (table_swaps "
+                      f"{sel.stats.table_swaps})")
+
+        second = sched_requests(np.random.default_rng(1), cfg, 8, (1, 4),
+                                (160, 384), (8, 8))
+        after = serve_scheduled(kernels, server, second,
+                                batch_rows=SCHED_ROWS,
+                                where="phase 6b granite after the swap",
+                                on_sched=scheds.append)
+        for sc in scheds:
+            sc.close()
+        if server.kv_pool.stats()["leases_active"] != 0:
+            fail(f"phase 6b: kv pool leases left: {server.kv_pool.stats()}")
+
+        # Rows 3a/3b (phase 5's grouped GEMM calls) under the analytical
+        # and the calibrated tile.
+        E, k, fe, d = (cfg.moe.num_experts, cfg.moe.top_k,
+                       cfg.moe.d_ff_expert, cfg.d_model)
+        G = E * SCHED_ROWS
+        kern = eng.kernel_for(GroupedGemmWorkload(C=None, G=G, E=E, N=fe,
+                                                  K=d))
+        sel = kern.selector
+        g = torch.Generator().manual_seed(4)
+        w = (torch.randn(E, d, fe, generator=g) * E ** -0.5).to(dev, dt)
+        rows = {}
+        for row, s in (("3a", 64), ("3b", 1)):
+            C = moe_capacity(cfg, s)
+            counts = routed_counts(g, SCHED_ROWS, s, E, k, C)
+            cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+            picks = {"analytical": sel.candidate_selection(
+                int(np.argmin(sel.candidate_costs(C))), C),
+                "calibrated": sel.select(C)}
+            times = {}
+            for which, p in picks.items():
+                bm, bn, bk = p.strategy.l1
+                x = torch.randn(G, p.padded_m, d, generator=g).to(dev, dt)
+                for i, n in enumerate(counts):
+                    x[i, n:] = float("nan")
+
+                def call(x=x, bm=bm, bn=bn, bk=bk, be=p.strategy.backend):
+                    return vortex_grouped_gemm(x, w, cnt, block_m=bm,
+                                               block_n=bn, block_k=bk,
+                                               backend=be)
+
+                check(f"phase 6b row {row} {which} tile {tile(p)}", call(),
+                      vortex_grouped_gemm_plain(x, w, cnt), TOL[dt])
+                times[which] = device_ms(call)
+            rows[row] = times
+            print(f"phase 6b row {row} (x=({G},C,{d}) w=({E},{d},{fe}) C={C} "
+                  f"rows={sum(counts)}): analytical {tile(picks['analytical'])}"
+                  f" {times['analytical']:.4f} ms, calibrated "
+                  f"{tile(picks['calibrated'])} {times['calibrated']:.4f} ms "
+                  f"[torch.profiler device time] on {smi}")
+    del server, eng, kern
+    free_cuda()
+    return {"slices": slices, "ticks": ticks, "rows": rows,
+            "logit_rel": after["logit_rel"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script runs on an NVIDIA GPU")
@@ -1973,6 +2356,10 @@ def main() -> int:
     rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
     bench_info = phase_bench(kernels, smi)
     print("phase 6: the serving snapshot keeps its contracts on the card")
+    phase_calibration(dev, kernels, smi)
+    phase_served_calibration(dev, kernels, smi)
+    print(f"phase 6b: calibration on the card ok ({ARCHS[1]} served after "
+          f"an idle-slice swap)")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "

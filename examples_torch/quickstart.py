@@ -89,6 +89,8 @@ def main() -> None:
 
     print("\n== engine stats (one cache hierarchy across workloads) ==")
     for kind, s in eng.stats().items():
+        if kind == "calibration":  # engine-level section, not a kind
+            continue
         print(f" {kind:9s}: {s['signatures']} signature(s), "
               f"{s['selects']} selects ({s['select_cache_hits']} cached), "
               f"{s['exec_entries']} executables for {s['exec_hits']} calls, "

@@ -161,6 +161,7 @@ def runtime_cost_matrix(
     l1_costs: np.ndarray,
     ms: np.ndarray,
     num_cores: int = 1,
+    cost_scale: np.ndarray | None = None,
 ) -> np.ndarray:
     """Fused Eq. 2-4 sweep: C candidates x B runtime extents -> (C, B).
 
@@ -174,6 +175,12 @@ def runtime_cost_matrix(
     Every arithmetic op is elementwise, so the (C,) column at ``ms=[m]`` is
     bit-identical to the same column of a wider sweep containing ``m`` —
     the table/argmin equivalence tests rely on this.
+
+    ``cost_scale`` is an optional (C,) per-candidate multiplier on the
+    final cost — the background calibrator's refined per-backend
+    coefficients (core/calibrate.py).  A constant scale preserves the
+    piecewise-constant-in-M structure (breakpoints are unchanged), so a
+    calibrated selection table is built by the exact same sweep.
     """
     ms = np.atleast_1d(np.asarray(ms, np.float64))
     M, N, K = wl.runtime_dims(ms)
@@ -192,6 +199,8 @@ def runtime_cost_matrix(
         + body + t_store
     f_parallel = np.ceil(gm * gn / max(num_cores, 1))
     out = f_parallel * t_tile
+    if cost_scale is not None:
+        out = out * np.asarray(cost_scale, np.float64)[:, None]
     return np.broadcast_to(out, (l1_tiles.shape[0], ms.shape[0]))
 
 
@@ -202,6 +211,7 @@ def runtime_costs(
     l1_costs: np.ndarray,
     m_runtime: int,
     num_cores: int = 1,
+    cost_scale: np.ndarray | None = None,
 ) -> np.ndarray:
     """Vectorized layer-2 cost over many layer-1 candidates at runtime.
 
@@ -213,4 +223,5 @@ def runtime_costs(
     """
     return runtime_cost_matrix(
         hw, wl, l1_tiles, l1_costs, np.asarray([m_runtime]), num_cores,
+        cost_scale,
     )[:, 0]

@@ -281,6 +281,10 @@ class VortexKernel:
             backends=backends,
         )
         self._exec_cache: dict[tuple, _CacheEntry] = {}
+        # (dtype, device) of the first call that built an executable: what
+        # the calibrator measures in (ROADMAP C5).  Set on the cache-miss
+        # path only; the steady-state dispatch never touches it.
+        self._served_as: tuple[torch.dtype, torch.device] | None = None
         # DispatchStats increments are read-modify-writes; concurrent
         # same-bucket dispatch would lose counts without this.
         self._stats_lock = threading.Lock()
@@ -292,6 +296,12 @@ class VortexKernel:
     @property
     def impl(self) -> str:
         return self._impl
+
+    @property
+    def served_as(self) -> tuple[torch.dtype, torch.device] | None:
+        """(dtype, device) of the calls this kernel has served (its first
+        call's leading tensor), or None before any call."""
+        return self._served_as
 
     # -- executable construction ------------------------------------------
 
@@ -317,6 +327,8 @@ class VortexKernel:
         if entry is None:
             entry = self._build_executable(sel)
             self._exec_cache[key] = entry
+            if self._served_as is None and args:
+                self._served_as = (args[0].dtype, args[0].device)
         entry.hits += 1
         return entry
 
@@ -475,4 +487,6 @@ class VortexKernel:
             "mean_select_us": s.mean_select_us,
             "table_builds": s.table_builds,
             "table_build_seconds": s.table_build_seconds,
+            "calibration_seconds": s.calibration_seconds,
+            "table_swaps": s.table_swaps,
         }

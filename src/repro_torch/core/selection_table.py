@@ -103,6 +103,8 @@ def build_selection_table(
     stacked: StackedLattices,
     m_max: int,
     num_cores: int = 1,
+    cost_scale: np.ndarray | None = None,
+    pinned: dict[int, int] | None = None,
 ) -> SelectionTable:
     """Sweep the breakpoint set once and materialize the selection table.
 
@@ -112,6 +114,19 @@ def build_selection_table(
     repeat are merged (the grid is constant within an interval by
     construction — every dynamic-axis tile extent is a period — so equal
     (winner, grid) pairs imply byte-identical Selections).
+
+    Calibration hooks (core/calibrate.py; both default to the analytical
+    sweep bit-for-bit):
+
+    * ``cost_scale`` — (C,) per-candidate multiplier (refined per-backend
+      coefficients).  A constant scale keeps every cost piecewise constant
+      in M, so the breakpoint set — and everything about the lookup hot
+      path — is unchanged; only the argmin can differ.
+    * ``pinned`` — {measured extent -> candidate index}: the breakpoint
+      interval CONTAINING each extent gets its winner overridden (cost is
+      constant on the interval, so a measurement at any point in it speaks
+      for the whole interval).  Ground truth where we have it; the model
+      (scaled or not) decides everywhere else.
     """
     from repro_torch.core.selector import Selection
 
@@ -128,11 +143,22 @@ def build_selection_table(
     for lo in range(0, n_b, chunk):
         costs = runtime_cost_matrix(
             hw, wl, stacked.l1_tiles, stacked.l1_costs,
-            reps[lo:lo + chunk], num_cores,
+            reps[lo:lo + chunk], num_cores, cost_scale,
         )
         w = np.argmin(costs, axis=0)
         winners[lo:lo + chunk] = w
         win_costs[lo:lo + chunk] = costs[w, np.arange(costs.shape[1])]
+
+    if pinned:
+        for m_pin, idx in pinned.items():
+            if not 1 <= m_pin <= m_max:
+                continue
+            b = bisect.bisect_right(starts, int(m_pin)) - 1
+            winners[b] = int(idx)
+            win_costs[b] = runtime_cost_matrix(
+                hw, wl, stacked.l1_tiles, stacked.l1_costs,
+                reps[b:b + 1], num_cores, cost_scale,
+            )[int(idx), 0]
 
     M, N, K = wl.runtime_dims(reps)
     tiles = stacked.l1_tiles[winners].astype(np.float64)  # (B, 3)

@@ -81,6 +81,12 @@ class SelectorStats:
     select_seconds: float = 0.0          # argmin-path time only
     table_builds: int = 0
     table_build_seconds: float = 0.0
+    # Background-calibration accounting (core/calibrate.py): wall-clock
+    # spent measuring/refitting on behalf of this selector, and how many
+    # times a rebuilt table was atomically swapped in.  Off the serving
+    # path entirely — the hot-path counters above never include these.
+    calibration_seconds: float = 0.0
+    table_swaps: int = 0
 
     @property
     def cache_hits(self) -> int:
@@ -132,9 +138,20 @@ class RuntimeSelector:
         self._table_m_max = table_m_max
         self._table_extend_limit = table_extend_limit
         self.stats = SelectorStats()
+        # Calibration state (core/calibrate.py): a per-candidate cost
+        # multiplier and measured-bucket winner pins.  Both None/empty by
+        # default — the analytical sweep runs bit-identically — and only
+        # replaced through install_table(), so doubling extensions rebuild
+        # with the SAME refined model the installed table was built from.
+        self._cost_scale: np.ndarray | None = None
+        self._pinned: dict[int, int] = {}
         # Built lazily on first use: throwaway selectors (benchmarks,
         # analysis scripts) shouldn't pay the breakpoint sweep up front.
         self._table: SelectionTable | None = None
+
+    @property
+    def workload(self) -> Workload:
+        return self._wl
 
     @property
     def scored(self) -> dict[str, ScoredLattice]:
@@ -156,11 +173,18 @@ class RuntimeSelector:
         charges a sweep to an idle selector."""
         return self._table
 
+    @property
+    def stacked(self) -> StackedLattices:
+        """The fused multi-backend candidate stack (what the background
+        calibrator ranks, measures and refits over)."""
+        return self._stacked
+
     # -- offline table ------------------------------------------------------
 
     def _build_table(self, m_max: int) -> SelectionTable:
         table = build_selection_table(
             self._hw, self._wl, self._stacked, m_max, self._num_cores,
+            cost_scale=self._cost_scale, pinned=self._pinned or None,
         )
         self.stats.table_builds += 1
         self.stats.table_build_seconds += table.build_seconds
@@ -215,15 +239,11 @@ class RuntimeSelector:
             self._table_covering(m_runtime)
         return sel
 
-    def _select_argmin(self, m_runtime: int) -> Selection:
-        """One fused numpy evaluation over ALL backends' candidates."""
-        t0 = time.perf_counter()
+    def _selection(self, idx: int, m_runtime: int, cost: float,
+                   select_seconds: float) -> Selection:
+        """The Selection candidate ``idx`` (stacked index) serves at
+        ``m_runtime``: its launch grid, padded extent and bucket."""
         st = self._stacked
-        costs = runtime_costs(
-            self._hw, self._wl, st.l1_tiles, st.l1_costs,
-            m_runtime, self._num_cores,
-        )
-        idx = int(np.argmin(costs))
         strategy = st.strategy_for(idx)
         m1, n1, k1 = strategy.l1
         M, N, K = self._wl.runtime_dims(m_runtime)
@@ -238,9 +258,130 @@ class RuntimeSelector:
             grid=grid,
             padded_m=grid[0] * m1,
             bucket=self._wl.bucket_dims(grid, strategy.l1),
-            predicted_cost=float(costs[idx]),
-            select_seconds=time.perf_counter() - t0,
+            predicted_cost=cost,
+            select_seconds=select_seconds,
         )
+
+    def _scaled_costs(self, m_runtime: int) -> np.ndarray:
+        """(C,) costs at ``m_runtime`` under the installed calibration
+        scale (the analytical ones when none is installed)."""
+        st = self._stacked
+        return runtime_costs(
+            self._hw, self._wl, st.l1_tiles, st.l1_costs,
+            m_runtime, self._num_cores, self._cost_scale,
+        )
+
+    def _select_argmin(self, m_runtime: int) -> Selection:
+        """One fused numpy evaluation over ALL backends' candidates.
+
+        Applies the installed calibration scale (if any) so the beyond-
+        table fallback and doubling extensions stay consistent with the
+        calibrated table contents; winner pins are table-only (they live
+        inside the calibrated coverage by construction).
+        """
+        t0 = time.perf_counter()
+        costs = self._scaled_costs(m_runtime)
+        idx = int(np.argmin(costs))
+        return self._selection(idx, m_runtime, float(costs[idx]),
+                               time.perf_counter() - t0)
+
+    def select_excluding(
+        self, m_runtime: int, excluded, keyfn
+    ) -> Selection | None:
+        """Cheapest candidate at ``m_runtime`` whose ``keyfn(Selection)``
+        is NOT in ``excluded`` — the degradation ladder's re-selection.
+        Walks candidates in scaled-cost order off the hot path (one fused
+        cost evaluation, Selections built only until the first healthy
+        candidate); returns ``None`` when every candidate is excluded."""
+        t0 = time.perf_counter()
+        costs = self._scaled_costs(m_runtime)
+        for idx in np.argsort(costs, kind="stable"):
+            idx = int(idx)
+            sel = self._selection(idx, m_runtime, float(costs[idx]),
+                                  time.perf_counter() - t0)
+            if keyfn(sel) not in excluded:
+                return sel
+        return None
+
+    # -- calibration surface (core/calibrate.py) -----------------------------
+
+    def candidate_selection(self, idx: int, m_runtime: int) -> Selection:
+        """The Selection candidate ``idx`` (stacked index) would serve at
+        extent ``m_runtime`` — what the calibrator builds executables for
+        when timing non-winning candidates.  ``predicted_cost`` is the
+        UNSCALED analytical cost; ``select_seconds`` is 0."""
+        return self._selection(
+            idx, m_runtime, float(self.candidate_costs(m_runtime)[idx]), 0.0
+        )
+
+    def candidate_costs(self, m_runtime: int) -> np.ndarray:
+        """(C,) UNSCALED analytical costs at ``m_runtime`` — the paper's
+        Eq. 2-4 ranking the calibrator takes its top-K from."""
+        st = self._stacked
+        return runtime_costs(
+            self._hw, self._wl, st.l1_tiles, st.l1_costs,
+            m_runtime, self._num_cores,
+        )
+
+    def rank_candidates(self, m_runtime: int, k: int) -> list[int]:
+        """Indices of the ``k`` analytically-cheapest candidates at
+        ``m_runtime``, cheapest first (the calibrator's measurement set)."""
+        costs = self.candidate_costs(m_runtime)
+        k = min(max(int(k), 1), costs.shape[0])
+        top = np.argpartition(costs, k - 1)[:k]
+        return [int(i) for i in top[np.argsort(costs[top])]]
+
+    def build_calibrated_table(
+        self,
+        m_max: int | None = None,
+        cost_scale: np.ndarray | None = None,
+        pinned: Mapping[int, int] | None = None,
+    ) -> SelectionTable:
+        """Build (OFFLINE — nothing installed, serving untouched) a table
+        from the refined model: per-candidate ``cost_scale`` multipliers
+        plus measured-bucket winner ``pinned`` overrides."""
+        table = self.table
+        m_max = m_max if m_max is not None else (
+            table.m_max if table is not None else self._table_m_max or 1
+        )
+        built = build_selection_table(
+            self._hw, self._wl, self._stacked, m_max, self._num_cores,
+            cost_scale=cost_scale,
+            pinned=dict(pinned) if pinned else None,
+        )
+        self.stats.table_builds += 1
+        self.stats.table_build_seconds += built.build_seconds
+        return built
+
+    def install_table(
+        self,
+        table: SelectionTable,
+        *,
+        cost_scale: np.ndarray | None = None,
+        pinned: Mapping[int, int] | None = None,
+        calibration_seconds: float = 0.0,
+    ) -> None:
+        """ATOMICALLY swap a fully-built table into the serving hot path.
+
+        Install the refined model first (so the argmin fallback and any
+        future doubling extension rebuild consistently), drop the LRU (its
+        entries priced the old model), then publish the table with ONE
+        attribute assignment: ``select`` reads ``self._table`` once per
+        call and SelectionTable is frozen, so every concurrent select sees
+        entirely the old table or entirely the new one.  The bisect lookup
+        itself is untouched.
+        """
+        if not table.starts or table.starts[0] != 1:
+            raise ValueError("selection table must cover extents from 1")
+        self._cost_scale = (
+            None if cost_scale is None
+            else np.asarray(cost_scale, np.float64)
+        )
+        self._pinned = dict(pinned) if pinned else {}
+        self._cache.clear()
+        self._table = table  # the atomic publish
+        self.stats.table_swaps += 1
+        self.stats.calibration_seconds += calibration_seconds
 
     # -- sample-free precompilation set --------------------------------------
 

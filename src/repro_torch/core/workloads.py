@@ -138,6 +138,15 @@ def _pad_dim(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, pad)
 
 
+def _example_like(args: tuple, n: int, dtype, device) -> tuple:
+    """(dtypes of the first ``n`` args, their device) for ``example_args``:
+    the representative call args' when given, else ``dtype`` (float32 by
+    default, the reference's) on ``device`` (the CPU by default)."""
+    if args:
+        return tuple(a.dtype for a in args[:n]), args[0].device
+    return (dtype or torch.float32,) * n, torch.device(device or "cpu")
+
+
 @dataclasses.dataclass(frozen=True)
 class Workload:
     """Protocol base.  A workload is viewed through its (m, n, k) contraction:
@@ -263,6 +272,9 @@ class Workload:
     # ``prepare`` (zero-pad the args to the bucket) is the REFERENCE path,
     # functionally identical; ``call_padded`` runs it for parity tests.
 
+    # Whether the workload implements the staging contract below (the
+    # calibrator measures only such workloads).
+    supports_staging: ClassVar[bool] = False
     # Whether finalize() slices a bucket-shaped output on unaligned calls
     # (decode attention's output never depends on the bucket).
     unstages: ClassVar[bool] = True
@@ -308,6 +320,13 @@ class Workload:
         rather than adjusting the selected tile."""
         raise NotImplementedError
 
+    def example_args(self, sel, *args, dtype=None, device=None) -> tuple:
+        """Zero tensors plus extents matching the executable's full
+        signature ``fn(*bucket_args, *runtime_scalars)`` at ``sel`` (what
+        the calibrator times).  With representative call ``args`` their
+        dtypes and device are used, else ``dtype`` on ``device``."""
+        raise NotImplementedError
+
 
 # ---------------------------------------------------------------------------
 # GEMM
@@ -331,6 +350,7 @@ class GemmWorkload(Workload):
     dynamic_dims: tuple[str, ...] = ("M",)
 
     kind: ClassVar[str] = "gemm"
+    supports_staging: ClassVar[bool] = True
 
     @classmethod
     def bind(cls, a, b) -> "GemmWorkload":
@@ -406,6 +426,14 @@ class GemmWorkload(Workload):
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
         return fn
 
+    def example_args(self, sel, *args, dtype=None, device=None) -> tuple:
+        (da, db), dev = _example_like(args, 2, dtype, device)
+        return (
+            torch.zeros((sel.padded_m, self.K), dtype=da, device=dev),
+            torch.zeros((self.K, self.N), dtype=db, device=dev),
+            sel.padded_m,
+        )
+
 
 # ---------------------------------------------------------------------------
 # Grouped GEMM (ragged MoE expert FFN)
@@ -446,6 +474,7 @@ class GroupedGemmWorkload(Workload):
     dynamic_dims: tuple[str, ...] = ("C",)
 
     kind: ClassVar[str] = "grouped_gemm"
+    supports_staging: ClassVar[bool] = True
 
     @classmethod
     def bind(cls, x, w, counts) -> "GroupedGemmWorkload":
@@ -537,6 +566,20 @@ class GroupedGemmWorkload(Workload):
         return fn
 
 
+    def example_args(self, sel, *args, dtype=None, device=None) -> tuple:
+        # Every group full to the bucket (ROADMAP C6): the kernel issues
+        # no work past a group's count, so the reference's zero counts
+        # would time an empty launch; full counts are the work the Pallas
+        # kernel does at any count.
+        (dx, dw), dev = _example_like(args, 2, dtype, device)
+        return (
+            torch.zeros((self.G, sel.padded_m, self.K), dtype=dx, device=dev),
+            torch.zeros((self.E, self.K, self.N), dtype=dw, device=dev),
+            torch.full((self.G,), sel.padded_m, dtype=torch.int32,
+                       device=dev),
+        )
+
+
 # ---------------------------------------------------------------------------
 # Flash attention
 # ---------------------------------------------------------------------------
@@ -568,6 +611,7 @@ class AttentionWorkload(Workload):
     dynamic_dims: tuple[str, ...] = ("seq",)
 
     kind: ClassVar[str] = "attention"
+    supports_staging: ClassVar[bool] = True
     dynamic_tile_axes: ClassVar[tuple[int, ...]] = (0, 2)
 
     @classmethod
@@ -704,6 +748,18 @@ class AttentionWorkload(Workload):
         return fn
 
 
+    def example_args(self, sel, *args, dtype=None, device=None) -> tuple:
+        pq, d, pkv = sel.bucket
+        b, hq, hkv = self.exec_key(*args) if args else (1, 1, 1)
+        dts, dev = _example_like(args, 3, dtype, device)
+        return (
+            torch.zeros((b, hq, pq, d), dtype=dts[0], device=dev),
+            torch.zeros((b, hkv, pkv, d), dtype=dts[1], device=dev),
+            torch.zeros((b, hkv, pkv, d), dtype=dts[2], device=dev),
+            pkv,
+        )
+
+
 # ---------------------------------------------------------------------------
 # Decode attention (q_len == 1 against a kv-bucketed cache)
 # ---------------------------------------------------------------------------
@@ -834,6 +890,21 @@ class DecodeAttentionWorkload(AttentionWorkload):
         return fn
 
 
+    def example_args(self, sel, *args, dtype=None, device=None) -> tuple:
+        _, d, pkv = sel.bucket
+        b, hq, hkv, kv_ndim = self.exec_key(*args) if args else (1, 1, 1, 0)
+        dts, dev = _example_like(args, 3, dtype, device)
+        # kv_len's rank matches the live calls' (a (b,) vector is per-row).
+        kv_ex = (torch.full((b,), pkv, dtype=torch.int32, device=dev)
+                 if kv_ndim else pkv)
+        return (
+            torch.zeros((b, hq, 1, d), dtype=dts[0], device=dev),
+            torch.zeros((b, hkv, pkv, d), dtype=dts[1], device=dev),
+            torch.zeros((b, hkv, pkv, d), dtype=dts[2], device=dev),
+            kv_ex,
+        )
+
+
 # ---------------------------------------------------------------------------
 # Conv2D (im2col GEMM view)
 # ---------------------------------------------------------------------------
@@ -865,6 +936,7 @@ class Conv2dWorkload(Workload):
     dynamic_dims: tuple[str, ...] = ("m",)
 
     kind: ClassVar[str] = "conv2d"
+    supports_staging: ClassVar[bool] = True
 
     @classmethod
     def bind(cls, x, w, *, stride: int = 1) -> "Conv2dWorkload":
@@ -943,3 +1015,13 @@ class Conv2dWorkload(Workload):
             M=None, N=self.N, K=self.K, dtype_bytes=self.dtype_bytes,
             acc_bytes=self.acc_bytes,
         ).build_executable(sel, impl=impl)
+
+    def example_args(self, sel, *args, dtype=None, device=None) -> tuple:
+        # args are the raw (x, w) call args; the executable consumes the
+        # im2col view, which keeps the input dtypes.
+        (dx, dw), dev = _example_like(args, 2, dtype, device)
+        return (
+            torch.zeros((sel.padded_m, self.K), dtype=dx, device=dev),
+            torch.zeros((self.K, self.N), dtype=dw, device=dev),
+            sel.padded_m,
+        )

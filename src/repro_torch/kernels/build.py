@@ -20,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["library", "CUDA_ERROR_NAMES"]
+__all__ = ["library", "source_digest", "CUDA_ERROR_NAMES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -60,7 +60,9 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
+def source_digest() -> str:
+    """The digest that names the library: every kernel source and header
+    and the nvcc flags (a calibration fingerprint records it too)."""
     h = hashlib.sha256()
     for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(path.name.encode())
@@ -139,7 +141,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            target = BUILD_DIR / f"libvortex_kernels-{_digest()}.so"
+            target = BUILD_DIR / f"libvortex_kernels-{source_digest()}.so"
             with open(BUILD_DIR / "build.lock", "w") as lockf:
                 fcntl.flock(lockf, fcntl.LOCK_EX)
                 if not target.exists():

@@ -158,6 +158,14 @@ class DecodeGraphs:
         st_pos = torch.empty(tokens.shape[0], dtype=torch.int32,
                              device=self.device)
         self._fill(st_tokens, st_pos, tokens, pos)
+        # A calibration slice on another thread (CalibrationDaemon) would
+        # synchronize the card mid-capture and move the counters rolled
+        # back below: the capture holds the calibrator's lock.
+        cal = getattr(self.engine, "calibrator", None)
+        with cal.lock if cal is not None else contextlib.nullcontext():
+            return self._capture(key, step, st_tokens, st_pos)
+
+    def _capture(self, key, step, st_tokens, st_pos) -> DecodeGraph:
         before = self.counters.read()
         try:
             with _on_stream(self._stream):

@@ -40,6 +40,11 @@ wall-clock deadlines (``Request.deadline_s`` ->
 :class:`~repro_torch.launch.serve.DeadlineExceeded`, the slots reused next
 step).
 
+A fully idle tick (no active row, nothing queued) donates one budgeted
+slice to the engine's background calibrator when ``EngineConfig.
+calibration`` is on (``stats["calibration_slices"]``); the donation is not
+request work, so ``drain()`` still ends when the requests do.
+
 Supported architectures are the uniformly-attention decoders (every mixer
 ``attn``, no cross-attention, vision prefix or encoder stack): the shared
 cache then holds only k/v leaves, whose every read goes through the kv_len
@@ -48,6 +53,7 @@ mask -- the stale-tail pool contract.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 
@@ -136,7 +142,7 @@ class ContinuousScheduler:
         self.kvb = 0
         self.stats = {
             "steps": 0, "launches": 0, "padded_calls": 0,
-            "admitted": 0, "retired": 0,
+            "admitted": 0, "retired": 0, "calibration_slices": 0,
             "request_errors": 0, "deadline_expired": 0,
         }
         # Per-step active-row positions (and the bucket they ran at): one
@@ -367,6 +373,11 @@ class ContinuousScheduler:
             if row is not None
         ]
         if not active:
+            # Fully idle tick: donate one budgeted slice to the engine's
+            # background calibrator (config.calibration="on-idle").  The
+            # donation does NOT count as work: drain()'s termination
+            # depends only on request progress.
+            self._donate_idle_slice()
             return worked
         assert self.cache is not None
 
@@ -424,6 +435,26 @@ class ContinuousScheduler:
             if row.stop is not None and t == row.stop:
                 row.remaining = 0
         return True
+
+    def _donate_idle_slice(self) -> None:
+        """With no queued request and no active row, give the engine's
+        background calibrator one budgeted measurement slice (bounded by
+        ``EngineConfig.calibration_budget_s``).  No-op when calibration is
+        off or nothing is pending; never raises into the serving loop.
+        The tick runs between decode steps, outside every graph capture."""
+        cal = self.server.engine.calibrator
+        if cal is None:
+            return
+        with self._lock:
+            if self._queue:
+                return
+        try:
+            if cal.pending():
+                cal.run_slice()
+                self.stats["calibration_slices"] += 1
+        except Exception:
+            logging.getLogger(__name__).exception(
+                "idle calibration slice failed; serving goes on")
 
     def drain(self) -> dict[int, np.ndarray | RequestError]:
         """Run steps until queue and slots are empty; return (and clear)

@@ -545,21 +545,25 @@ class VortexServer:
 
     def engine_dispatch_stats(self) -> dict[str, dict]:
         """Per-kind hot-path accounting from the engine session PLUS the
-        server's per-token decode accounting under ``decode_step`` and the
-        kv pool's lease ledger under ``kv_pool``."""
+        server's per-token decode accounting under ``decode_step``, the kv
+        pool's lease ledger under ``kv_pool`` and the engine's background
+        calibration counters under ``calibration``."""
         keep = (
             "calls", "launches", "aligned_calls", "unaligned_calls",
             "stage_copies", "unstage_copies", "padded_calls",
             "traced_calls", "forwarded", "realize_slices",
             "fallbacks", "quarantined",
         )
+        estats = self.engine.stats()
         out = {
             kind: {k: s[k] for k in keep}
-            for kind, s in self.engine.stats().items()
+            for kind, s in estats.items()
+            if kind != "calibration"  # engine-level section, not a kind
         }
         d = self.decode_stats.as_dict()
         out["decode_step"] = {k: d[k] for k in keep}
         out["kv_pool"] = self.kv_pool.stats()
+        out["calibration"] = estats["calibration"]
         return out
 
     # -- serving ------------------------------------------------------------
@@ -764,6 +768,14 @@ def main() -> None:
                 f"leases_peak={d['leases_peak']} hits={d['lease_hits']} "
                 f"allocs={d['lease_allocs']} released={d['released']}"
             )
+            continue
+        if kind == "calibration":  # engine-level counters, not a kind
+            if d.get("enabled"):
+                print(
+                    f"calibration: mode={d['mode']} applied={d['applied']} "
+                    f"loaded={d['loaded_from_disk']} swaps={d['table_swaps']} "
+                    f"seconds={d['seconds']:.3f}"
+                )
             continue
         print(
             f"engine/{kind}: launches={d['launches']} "

@@ -1,12 +1,13 @@
 """Deterministic fault injection for chaos tests (a copy of
 src/repro/runtime/faults.py; DESIGN.md §11).
 
-The six sites are the reference's.  This package threads two of them:
-``pool_lease`` (``KVBucketPool.lease``, launch/serve.py) and
+The six sites are the reference's.  This package threads four of them:
+``pool_lease`` (``KVBucketPool.lease``, launch/serve.py),
 ``scheduler_step`` (``ContinuousScheduler`` admit and decode launch,
-launch/scheduler.py); the engine and calibration sites (``PENDING``) arrive
-with the modules that own them, and until then a plan that names one is
-refused, since it could never fire.
+launch/scheduler.py), ``cache_io`` (``Calibrator.save``/``load``) and
+``calib_measure`` (``Calibrator._measure_bucket``, core/calibrate.py); the
+engine sites (``PENDING``) arrive with the degradation ladder, and until
+then a plan that names one is refused, since it could never fire.
 
 A :class:`FaultPlan` names *sites* (fixed hook points threaded through the
 engine, server, scheduler and calibrator) and the exact 1-based occurrence
@@ -45,12 +46,12 @@ SITES = (
     "precompile",      # VortexKernel._build_executable (core/engine.py)
     "aot_launch",      # _CacheEntry.run (core/engine.py)
     "pool_lease",      # KVBucketPool.lease (launch/serve.py)
-    "cache_io",        # Calibrator save/load, DenylistStore I/O
+    "cache_io",        # Calibrator save/load (core/calibrate.py)
     "calib_measure",   # Calibrator._measure_bucket (core/calibrate.py)
     "scheduler_step",  # ContinuousScheduler admit + decode launch
 )
 # Sites no hook of this package checks yet; THREADED are the others.
-PENDING = ("precompile", "aot_launch", "cache_io", "calib_measure")
+PENDING = ("precompile", "aot_launch")
 THREADED = tuple(s for s in SITES if s not in PENDING)
 
 

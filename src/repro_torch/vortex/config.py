@@ -51,6 +51,19 @@ class EngineConfig:
     * ``staging_pool_cap`` — LRU bound on the staging-buffer sets each
       executable entry retains (``_StagingPool``); 0 retains nothing
       (every unaligned call allocates transient buffers).
+    * ``calibration`` — background calibration of the selection tables
+      (core/calibrate.py): ``"off"`` (default; nothing is constructed and
+      dispatch is exactly the analytical engine's), ``"on-idle"`` (the
+      continuous scheduler donates budgeted slices when idle, or a
+      ``launch.calibration.CalibrationDaemon`` does) or
+      ``"eager-warmup"`` (load from disk, else measure, as each kernel is
+      built).
+    * ``calibration_top_k`` — analytically best candidates timed per
+      measured bucket (plus the analytical winner).
+    * ``calibration_budget_s`` — wall-clock bound of ONE donated slice.
+    * ``calibration_cache_dir`` — where calibrated tables persist (None:
+      ``$VORTEX_CACHE_DIR``, else ``~/.cache/vortex``; never inside the
+      repo).
     """
 
     hardware: str = "h100_sxm"
@@ -63,6 +76,10 @@ class EngineConfig:
     precompile_m_max: int = 0
     staging: bool = True
     staging_pool_cap: int = 4
+    calibration: str = "off"
+    calibration_top_k: int = 3
+    calibration_budget_s: float = 0.25
+    calibration_cache_dir: str | None = None
 
     def __post_init__(self) -> None:
         dev = resolve_device(self.device)
@@ -80,3 +97,8 @@ class EngineConfig:
                 raise ValueError(
                     f"{name} must be >= 0, got {getattr(self, name)}"
                 )
+        if self.calibration not in ("off", "on-idle", "eager-warmup"):
+            raise ValueError(
+                f"calibration must be 'off', 'on-idle' or 'eager-warmup', "
+                f"got {self.calibration!r}"
+            )

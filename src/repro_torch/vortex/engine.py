@@ -91,6 +91,38 @@ class Engine:
         # Kernel builds are expensive (lattice sweep); serialize them so two
         # threads first touching the same signature don't build it twice.
         self._build_lock = threading.Lock()
+        # Background calibrator (core/calibrate.py), created on first use
+        # when config.calibration != "off".  Guarded by _build_lock.
+        self._calibrator = None
+
+    @property
+    def calibrator(self):
+        """The background :class:`~repro_torch.core.calibrate.Calibrator`
+        for this engine's kernels: None when ``config.calibration ==
+        "off"`` (the default), in which case nothing calibration-related
+        is ever constructed and dispatch is the analytical engine's."""
+        cfg = self.config
+        if cfg.calibration == "off":
+            return None
+        if self._calibrator is None:
+            with self._build_lock:
+                if self._calibrator is None:
+                    from repro_torch.core.calibrate import (
+                        CalibrationPolicy,
+                        Calibrator,
+                    )
+
+                    self._calibrator = Calibrator(
+                        lambda: list(self._kernels.values()),
+                        CalibrationPolicy(
+                            mode=cfg.calibration,
+                            top_k=cfg.calibration_top_k,
+                            budget_s=cfg.calibration_budget_s,
+                            cache_dir=cfg.calibration_cache_dir,
+                        ),
+                        device=cfg.device,
+                    )
+        return self._calibrator
 
     @property
     def hardware(self):
@@ -119,10 +151,12 @@ class Engine:
         """The compiled kernel serving ``wl``'s signature (built lazily)."""
         key = wl.signature
         kern = self._kernels.get(key)
+        built = False
         if kern is None:
             with self._build_lock:
                 kern = self._kernels.get(key)
                 if kern is None:
+                    built = True
                     cfg = self.config
                     kern = VortexKernel(
                         self._hw,
@@ -139,6 +173,14 @@ class Engine:
                         staging_pool_cap=cfg.staging_pool_cap,
                     )
                     self._kernels[key] = kern
+        if built and self.config.calibration == "eager-warmup":
+            # Warm at build time: persisted tables load by hardware
+            # fingerprint (zero re-measurements on restart); anything not
+            # on disk is measured now, before serving.
+            cal = self.calibrator
+            cal.load()
+            if cal.pending():
+                cal.run()
         return kern
 
     def compile(
@@ -198,7 +240,9 @@ class Engine:
 
     def stats(self) -> dict[str, dict]:
         """Per-workload-kind serving stats: selection overhead, executable
-        cache behaviour and the hot-path DispatchStats."""
+        cache behaviour and the hot-path DispatchStats, plus the
+        engine-level ``calibration`` section (not a kind: iterating kinds
+        must skip it)."""
         out: dict[str, dict] = {}
         for kernel in list(self._kernels.values()):  # snapshot (threads)
             kind = kernel.workload.kind
@@ -209,6 +253,7 @@ class Engine:
                     "select_lru_hits": 0, "select_argmin_misses": 0,
                     "select_cache_hits": 0, "select_us_sum": 0.0,
                     "table_entries": 0, "table_build_s": 0.0,
+                    "calibration_seconds": 0.0, "table_swaps": 0,
                     "exec_entries": 0, "exec_hits": 0,
                     "compile_seconds": 0.0,
                     **{k: 0 for k in kernel.dispatch_stats.as_dict()},
@@ -226,11 +271,18 @@ class Engine:
             agg["select_us_sum"] += sstats.select_seconds * 1e6
             agg["table_entries"] += len(table) if table is not None else 0
             agg["table_build_s"] += sstats.table_build_seconds
+            agg["calibration_seconds"] += sstats.calibration_seconds
+            agg["table_swaps"] += sstats.table_swaps
             agg["exec_entries"] += cinfo["entries"]
             agg["exec_hits"] += cinfo["hits"]
             agg["compile_seconds"] += cinfo["compile_seconds"]
             for key, val in kernel.dispatch_stats.as_dict().items():
                 agg[key] += val
+        cal = self.calibrator  # lazily constructs when calibration is on
+        out["calibration"] = (
+            cal.stats() if cal is not None
+            else {"enabled": False, "mode": "off"}
+        )
         return out
 
     def __repr__(self) -> str:

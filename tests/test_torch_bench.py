@@ -2,9 +2,11 @@
 ``serving_payload``) on the CPU, held against the JAX package's bench
 sections (benchmarks/bench_workloads.py) on the same requests: the
 structural counters — decode tokens, growth copies and bucket transitions,
-batched steps per concurrency, MoE launches and padded calls — are equal,
-and MoE is bit-identical to the dense einsums.  ``run.py --gate`` fails on
-a payload doctored to break each of the reference's gates.
+batched steps per concurrency, MoE launches and padded calls, calibrated
+buckets and the persistence roundtrip — are equal, and MoE is
+bit-identical to the dense einsums.  ``run.py --gate`` fails on a payload
+doctored to break each of the reference's gates, the calibration gates
+included.
 
 Runs with ``hardware="tpu_v5e"``, the lattice the reference's server
 buckets with, so kv buckets and batched steps compare one for one.
@@ -18,18 +20,27 @@ pytest.importorskip("jax")
 from benchmarks import bench_workloads as ref_bench  # noqa: E402
 
 from benchmarks_torch import run  # noqa: E402
-from benchmarks_torch.bench_workloads import serving_payload  # noqa: E402
+from benchmarks_torch.bench_workloads import (  # noqa: E402
+    _bench_calibration,
+    serving_payload,
+)
 
 
 @pytest.fixture(scope="module")
 def payload():
-    return serving_payload(True, device="cpu", hardware="tpu_v5e")
+    """What ``run.py --json`` writes: the serving payload and, beside it,
+    the calibration section (on the host CPU's lattice, the reference
+    bench's)."""
+    p = serving_payload(True, device="cpu", hardware="tpu_v5e")
+    p["calibration"] = _bench_calibration(True, device="cpu",
+                                          hardware="host_cpu")
+    return p
 
 
 def test_payload_sections_and_card(payload):
     assert payload["mode"] == "smoke" and payload["card"] == "cpu"
     for key in ("dispatch", "hot_path", "decode", "continuous_batching",
-                "moe"):
+                "moe", "calibration"):
         assert payload[key], key
     assert set(payload["dispatch"]) == set(payload["hot_path"]) == {
         "gemm", "attention", "conv2d"}
@@ -111,6 +122,26 @@ def test_moe_launches_match_the_reference_and_are_bit_identical(payload):
     assert got["dropped_frac"] == pytest.approx(ref["dropped_frac"])
 
 
+def test_calibration_matches_the_reference(payload):
+    """The same gemm, calibrated on the host CPU's lattice by both
+    packages: the same kinds and measured buckets, never worse than the
+    analytical pick, and a fresh engine loads the tables with zero
+    re-measurements."""
+    ref = ref_bench._bench_calibration(True)
+    got = payload["calibration"]
+    assert set(got["kinds"]) == set(ref["kinds"]) == {"gemm"}
+    for kind, r in got["kinds"].items():
+        assert r["measured_buckets"] == ref["kinds"][kind]["measured_buckets"]
+        assert r["never_worse_on_measured"]
+        assert [b["m"] for b in r["buckets"]] == \
+            [b["m"] for b in ref["kinds"][kind]["buckets"]]
+    for key in ("loaded", "re_measurements", "pending_after_load",
+                "table_swaps"):
+        assert got["roundtrip"][key] == ref["roundtrip"][key], key
+    assert got["roundtrip"]["loaded"] == 1
+    assert got["stats"]["applied"] == got["stats"]["saves"] == 1
+
+
 def _passing(payload) -> dict:
     """The CPU payload with its wall-clock ratios set inside the gates
     (their CPU values are host noise, not a card's); every structural
@@ -160,6 +191,15 @@ DOCTORS = {
     "moe_bits_cpu": _set(("moe", "bit_identical_to_dense"), False),
     "decode_graph_captured_in_window": _graphed("decode", 1),
     "cb_graph_step_not_replayed": _graphed("continuous_batching", 0, -1),
+    "calibration_worse": _set(
+        ("calibration", "kinds", "gemm", "never_worse_on_measured"), False),
+    "calibration_unmeasured": _set(
+        ("calibration", "kinds", "gemm", "measured_buckets"), 0),
+    "calibration_roundtrip_remeasures": _set(
+        ("calibration", "roundtrip", "re_measurements"), 2),
+    "calibration_roundtrip_pending": _set(
+        ("calibration", "roundtrip", "pending_after_load"), True),
+    "calibration_missing": lambda p: p.pop("calibration"),
 }
 
 

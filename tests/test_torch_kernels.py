@@ -212,10 +212,10 @@ def test_build_digest_changes_when_a_header_changes(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     headers = sorted(csrc.glob("*.cuh"))
     assert headers, "the kernels share a device header"
-    before = build._digest()
-    assert build._digest() == before
+    before = build.source_digest()
+    assert build.source_digest() == before
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
-    assert build._digest() != before
+    assert build.source_digest() != before
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ padded_calls == 0, and the pool's lease ledger settles to 0 -- on
 retirement, on exceptions and after ``close()``.
 """
 import dataclasses
+import os
 import types
 
 import numpy as np
@@ -310,10 +311,62 @@ def test_fault_plan_refuses_unthreaded_sites(site):
 
 
 def test_fault_plan_random_draws_threaded_sites_only():
-    assert set(faults.THREADED) == {"pool_lease", "scheduler_step"}
+    assert set(faults.THREADED) == {"pool_lease", "scheduler_step",
+                                    "cache_io", "calib_measure"}
     plan = faults.FaultPlan.random(0, rate=0.5, horizon=20)
     assert set(plan.spec) == set(faults.THREADED)
     assert any(plan.spec.values())
+
+
+@pytest.mark.parametrize("site", ("cache_io", "calib_measure"))
+def test_calibration_faults_stay_off_the_serving_path(site, tmp_path):
+    """The calibration sites under the scheduler's idle donation (mirrors
+    tests/test_calibration.py's fault cases): a failed save is counted
+    and the calibrated table stays installed in memory; a failed
+    measurement skips that kernel.  Neither reaches a request: the tokens
+    equal serial ``generate()``'s."""
+    from repro_torch.vortex import Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_smoke_config("paper-gpt2-124m"),
+                              dtype="float32")
+    eng = Engine(EngineConfig(
+        hardware="tpu_v5e", backends=("mxu",), device="cpu",
+        calibration="on-idle", calibration_cache_dir=str(tmp_path)))
+    srv = VortexServer(cfg, max_cache=MAX_CACHE, engine=eng)
+    # The smoke model's projections are plain matmuls: one engine gemm
+    # gives the calibrator a kernel to measure.
+    eng.dispatch("gemm", torch.randn(33, 64), torch.randn(64, 64))
+    cal = eng.calibrator
+    cal.policy = dataclasses.replace(
+        cal.policy, m_max=128, max_buckets=2, min_rounds=2, max_rounds=3,
+        patience=1, top_k=2)
+    reqs = _requests(np.random.default_rng(12), 2, max_new=4)
+    serial = _serial(srv, reqs)
+
+    sched = ContinuousScheduler(srv, batch_rows=4)
+    plan = faults.FaultPlan({site: [1]})
+    with faults.installed(plan):
+        rids = [sched.submit(r) for r in reqs]
+        res = sched.drain()
+        for _ in range(8):
+            if not cal.pending():
+                break
+            sched.step()
+    assert plan.fired == [(site, 1)]
+    for rid, want in zip(rids, serial):
+        assert np.array_equal(res[rid], want)
+    assert sched.stats["calibration_slices"] >= 1
+    assert not cal.pending()
+    if site == "calib_measure":
+        assert cal.skipped()["gemm"] == "measurement failed"
+        assert cal.stats()["applied"] == 0
+    else:
+        assert cal.stats()["applied"] == 1
+        assert cal.counters["save_errors"] == 1
+        assert not (tmp_path / os.path.basename(cal.cache_path())).exists()
+        cal.save()  # the next clean save persists the table
+        assert os.path.exists(cal.cache_path())
+    _assert_clean(srv, sched)
 
 
 def test_bounded_queue_backpressure(server):
