@@ -16,11 +16,12 @@ session and reports, per workload kind:
     from the engine's DispatchStats and the kernels' own launch counters.
 
 :func:`serving_payload` adds the serving sections (``decode``,
-``continuous_batching``, ``moe``) and is what ``benchmarks_torch/run.py
---json`` writes to ``BENCH_serving_torch.json``; ``--json`` here writes
-``BENCH_dispatch_torch.json``.  Everything runs on the card unless the
-caller passes ``device="cpu"`` (the tests do, with ``smoke=True``); on the
-card operands are bf16 and the executables are the hand-written kernels.
+``continuous_batching``, ``prefill_chain``, ``moe``) and is what
+``benchmarks_torch/run.py --json`` writes to ``BENCH_serving_torch.json``;
+``--json`` here writes ``BENCH_dispatch_torch.json``.  Everything runs on
+the card unless the caller passes ``device="cpu"`` (the tests do, with
+``smoke=True``); on the card operands are bf16 and the executables are the
+hand-written kernels.
 Both JSON files carry the ``calibration`` section (:func:`_bench_calibration`).
 
     python benchmarks_torch/bench_workloads.py --json BENCH_dispatch_torch.json
@@ -36,7 +37,9 @@ them (``kernel_launches_per_token``, ``kernel_launches_per_batched_step``:
 n_layers ``decode_attention`` launches a step, inside the graph), and
 ``decode_graph_captures`` / ``decode_graph_replays`` count what happened
 inside the timed windows (``timed_steps`` decode steps): 0 captures and
-one replay a step with graphs on.
+one replay a step with graphs on.  The prefills inside those windows are
+``"aot"`` prefills, one replay of a captured prefill graph each on the
+card (``prefill_graph_captures`` / ``prefill_graph_replays``).
 """
 from __future__ import annotations
 
@@ -387,8 +390,7 @@ def _bench_decode(smoke: bool, *, device="cuda",
         ),
         "graphs": server.graphs is not None,
         "timed_steps": timed,
-        "decode_graph_captures": g_timed.get("decode_graph_captures", 0),
-        "decode_graph_replays": g_timed.get("decode_graph_replays", 0),
+        **{k: g_timed.get(k, 0) for k in GRAPH_COUNTERS},
         "launches_per_token": d.launches / max(tokens, 1),
         "kernel_launches_per_token": {
             k: n / timed for k, n in k_launched.items()
@@ -405,9 +407,12 @@ def _bench_decode(smoke: bool, *, device="cuda",
     }
 
 
+GRAPH_COUNTERS = ("decode_graph_captures", "decode_graph_replays",
+                  "prefill_graph_captures", "prefill_graph_replays")
+
+
 def _graph_counts(server) -> dict[str, int]:
-    return {k: server.stats[k]
-            for k in ("decode_graph_captures", "decode_graph_replays")}
+    return {k: server.stats[k] for k in GRAPH_COUNTERS}
 
 
 def _bench_continuous_batching(smoke: bool, *, device="cuda",
@@ -479,15 +484,14 @@ def _bench_continuous_batching(smoke: bool, *, device="cuda",
         "concurrency": {},
     }
     timed_steps = serial_steps
-    captures = g_serial.get("decode_graph_captures", 0)
-    replays = g_serial.get("decode_graph_replays", 0)
+    graphs = {k: g_serial.get(k, 0) for k in GRAPH_COUNTERS}
     worst_lps, padded = 0.0, 0
     for c in (1, 4, 16):
         timed_sched(c)  # warm the (c, kvb) mixed-progress shapes and graphs
         wall, stats, k_launched, g_timed = timed_sched(c)
         timed_steps += stats["steps"]
-        captures += g_timed.get("decode_graph_captures", 0)
-        replays += g_timed.get("decode_graph_replays", 0)
+        for k in GRAPH_COUNTERS:
+            graphs[k] += g_timed.get(k, 0)
         steps = max(stats["steps"], 1)
         lps = stats["launches"] / steps
         worst_lps = max(worst_lps, lps)
@@ -506,8 +510,7 @@ def _bench_continuous_batching(smoke: bool, *, device="cuda",
         }
     # Every timed window: the serial pass and each concurrency's.
     out["timed_steps"] = timed_steps
-    out["decode_graph_captures"] = captures
-    out["decode_graph_replays"] = replays
+    out.update(graphs)
     out["launches_per_batched_step"] = worst_lps
     out["padded_calls"] = padded
     out["speedup_at_16"] = (
@@ -518,6 +521,122 @@ def _bench_continuous_batching(smoke: bool, *, device="cuda",
     out["kv_pool"] = pool
     assert pool["leases_active"] == 0, pool
     return out
+
+
+def _bench_prefill_chain(smoke: bool, *, device="cuda",
+                         hardware: str = "h100_sxm") -> dict:
+    """The chained-prefill section (DESIGN.md §8): whole-model prefills
+    through launch/serve.py's lazy handle chain, reporting the
+    boundary-copy contract -- zero interior unstage+restage pairs at a
+    chain-aligned bucket, every engine boundary forwarded -- plus
+    bit-identity vs the eager per-op reference (the identical dispatch
+    sequence on plain tensors).  The reference's CI gates
+    ``boundary_copies_per_block <= 1``, ``forwarded_per_prefill >= 1`` and
+    ``bit_identical_to_eager`` (``run.py --gate``).  ``smoke`` serves the
+    smoke config of paper-gpt2-124m, else its full config (12 layers,
+    d_model 768, bf16 on the card).
+
+    Beside the reference's numbers: the kernels' launches in one chained
+    prefill (per path too), and host wall-clock µs of one synchronized
+    prefill at the same (bp, sp) through the chain, the ``"aot"``
+    program's captured graph (on the card) and its eager forward
+    (``graphs=False``), all on the same weights."""
+    from repro_torch.launch.serve import VortexServer
+    from repro_torch.models.registry import get_config, get_smoke_config
+
+    cfg = get_smoke_config("paper-gpt2-124m") if smoke \
+        else get_config("paper-gpt2-124m")
+    server = VortexServer(cfg, max_cache=256, device=device,
+                          hardware=hardware, prefill="chained")
+    rng = np.random.default_rng(29)
+    bp, s = 1, 100
+    sp = server.chain_seq_bucket(s, bp)
+    tokens = rng.integers(0, cfg.vocab, (bp, s))
+    padded = torch.zeros((bp, sp), dtype=torch.int64)
+    padded[:, :s] = torch.from_numpy(tokens)
+    padded = padded.to(server.device)
+
+    def chain(eager=False):
+        return server.prefill_chained(bp, sp, padded, last=s - 1,
+                                      eager=eager)
+
+    def sync():
+        if server.device.type == "cuda":
+            torch.cuda.synchronize(server.device)
+
+    def chain_counters() -> dict:
+        keys = (
+            "stage_copies", "unstage_copies", "realize_slices", "forwarded",
+        )
+        out = dict.fromkeys(keys, 0)
+        for kind, st in server.engine.stats().items():
+            if kind == "calibration":  # engine-level section, not a kind
+                continue
+            for k in keys:
+                out[k] += st[k]
+        return out
+
+    # Warm the per-bucket executables, then count over ONE prefill.
+    chain()
+    sync()
+    before, k_before = chain_counters(), launch_counts()
+    last, cache = chain()
+    after, k_launched = chain_counters(), _delta(k_before, launch_counts())
+    copies = sum(
+        after[k] - before[k]
+        for k in ("stage_copies", "unstage_copies", "realize_slices")
+    )
+    forwarded = after["forwarded"] - before["forwarded"]
+    blocks = cfg.n_layers
+
+    last_e, cache_e = chain(eager=True)
+    leaves = [last] + [c[n] for c in cache.values() for n in ("k", "v")]
+    leaves_e = [last_e] + [c[n] for c in cache_e.values() for n in ("k", "v")]
+    max_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(leaves, leaves_e))
+
+    def host_us(fn) -> float:
+        times = []
+        for _ in range(3 if smoke else 10):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return min(times) * 1e6
+
+    # The "aot" program at the same bucket: its graph (captured on the
+    # first call) and its eager forward, through ``prefill()``.
+    aot = {}
+    for name, graphs in (("graphed", None), ("eager", False)):
+        srv = VortexServer(cfg, max_cache=256, params=server.params,
+                           device=device, hardware=hardware, graphs=graphs)
+        if name == "graphed" and srv.graphs is None:
+            aot[name] = None  # the CPU has no graphs
+            continue
+        toks = np.zeros((bp, sp), np.int64)  # an aligned prompt of sp
+        toks[:, :s] = tokens
+
+        def one(srv=srv, toks=toks):
+            srv.release_cache(srv.prefill(toks)[1])
+
+        one()  # warm: executables (and the graph's capture)
+        aot[name] = host_us(one)
+    return {
+        "arch": cfg.name,
+        "seq_bucket": sp,
+        "batch_bucket": bp,
+        "prompt_len": s,
+        "blocks_per_prefill": blocks,
+        "chain_aligned": server._chain_aligned(bp, sp),
+        "boundary_copies_per_block": copies / max(blocks, 1),
+        "forwarded_per_prefill": forwarded,
+        "kernel_launches_per_prefill": k_launched,
+        "us_per_prefill": host_us(chain),
+        "aot_graphed_us_per_prefill": aot["graphed"],
+        "aot_eager_us_per_prefill": aot["eager"],
+        "max_abs_diff_vs_eager": max_abs,
+        "bit_identical_to_eager": max_abs == 0.0,
+    }
 
 
 def _bench_moe(smoke: bool, *, device="cuda",
@@ -691,10 +810,10 @@ def serving_payload(smoke: bool, *, device="cuda",
     overhead on unseen shapes, the aligned-vs-unaligned hot-path ratio and
     copies/launches per call (with raw per-round samples), the serving
     decode contract, the continuous-batching contract and the MoE
-    grouped-GEMM contract, with the card's name and power limit.  The
-    reference's ``prefill_chain`` section (lazy handles) waits for that
-    module of the port; ``run.py --json`` adds the ``calibration``
-    section (:func:`_bench_calibration`) beside these."""
+    grouped-GEMM contract, the chained prefill's boundary-copy contract
+    (``prefill_chain``), with the card's name and power limit;
+    ``run.py --json`` adds the ``calibration`` section
+    (:func:`_bench_calibration`) beside these."""
     eng = Engine(hardware, device=device,
                  empirical_levels=(() if smoke else None))
     _touch_kinds(eng, device)
@@ -708,6 +827,7 @@ def serving_payload(smoke: bool, *, device="cuda",
         "hot_path": _bench_hot_path(smoke, **kw),
         "decode": _bench_decode(smoke, **kw),
         "continuous_batching": _bench_continuous_batching(smoke, **kw),
+        "prefill_chain": _bench_prefill_chain(smoke, **kw),
         "moe": _bench_moe(smoke, **kw),
     }
 

@@ -63,7 +63,9 @@ def gate_failures(payload: dict) -> list[str]:
 
     The structural gates (launches, padded calls, decode steps) are exact;
     the wall-clock ones are the reference's bounds on the ratios the bench
-    measured with ``retry_best``.  On the card the MoE output is held
+    measured with ``retry_best``; the chained prefill's three are the
+    reference's (boundary copies per block, forwarded operands, bit-identity
+    to the eager per-op reference).  On the card the MoE output is held
     against the dense einsums within the grouped GEMM's bf16 tolerance
     (``within_tolerance``); on the CPU, where both sides are plain
     PyTorch, it must be bit-identical as the reference's gate asks.  The
@@ -138,6 +140,24 @@ def gate_failures(payload: dict) -> list[str]:
     need(cb["speedup_at_16"] >= SPEEDUP_AT_16,
          f"continuous_batching: speedup_at_16 {cb['speedup_at_16']:.3f} < "
          f"{SPEEDUP_AT_16}")
+    pc = payload.get("prefill_chain")
+    if pc is None:
+        out.append("prefill_chain: the snapshot has no prefill_chain section")
+    else:
+        # The lazy-handle chain contract: a whole-model prefill crosses
+        # every engine boundary without an unstage+restage pair (zero
+        # boundary copies at a chain-aligned bucket; <= 1/block is the
+        # hard ceiling), forwards at least once, and stays bit-identical
+        # to the eager per-op reference.
+        need(pc["boundary_copies_per_block"] <= 1,
+             f"prefill_chain: {pc['boundary_copies_per_block']} boundary "
+             f"copies per block > 1")
+        need(pc["forwarded_per_prefill"] >= 1,
+             f"prefill_chain: {pc['forwarded_per_prefill']} forwarded "
+             f"operands per prefill < 1")
+        need(pc["bit_identical_to_eager"],
+             f"prefill_chain: max |chain - eager| "
+             f"{pc['max_abs_diff_vs_eager']} (must be bit-identical)")
     moe = payload["moe"]
     need(moe["launches_per_moe_layer"] == 1,
          f"moe: launches_per_moe_layer {moe['launches_per_moe_layer']}")
@@ -167,6 +187,14 @@ def print_gates(payload: dict) -> list[str]:
           f"steps/token, {dec['decode_us_per_token']:.0f}us/token")
     print(f"continuous_batching: serial {cb['serial_tokens_per_s']:.0f} tok/s, "
           f"speedup@16 {cb['speedup_at_16']:.2f}x")
+    pc = payload.get("prefill_chain")
+    if pc is not None:
+        print(f"prefill_chain: sp={pc['seq_bucket']} "
+              f"aligned={pc['chain_aligned']} "
+              f"{pc['boundary_copies_per_block']:.2f} copies/block, "
+              f"{pc['forwarded_per_prefill']} forwarded, "
+              f"{pc['us_per_prefill']:.0f}us/prefill, "
+              f"max|d|={pc['max_abs_diff_vs_eager']:.3g}")
     cal = payload.get("calibration") or {"kinds": {}}
     for kind, r in cal["kinds"].items():
         print(f"calibration/{kind}: mode={r['mode']} "

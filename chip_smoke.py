@@ -91,6 +91,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    into the next kv bucket, then ``generate()``; and (in phase 4c)
    gemma2-9b's compared mixed-progress step with a vector ``pos``.  Every
    step's logits must be bit-identical and the tokens identical.
+4i. Graphed "aot" prefills against eager ones (``graphs=False``, the same
+   weights) on phase 4's and 4b's servers at (rows, prompt) (1, 64),
+   (2, 100) and (4, 37): first-token logits, ``dropped_frac`` and every
+   cache leaf bit-identical.  Phases 4 and 4b also fail unless every
+   prefill after ``warmup`` is one replay of a warmed prefill graph, and
+   4c-4f unless every admission's prefill is one replay.
+4h. ``VortexServer(prefill="chained")`` on phase 4's paper-gpt2-124m
+   weights at (1, 100), (2, 100) (chain bucket 128) and (1, 150) (seq
+   bucket 192, chain bucket 256): 0 stage, unstage and realize copies,
+   ``forwarded >= n_layers``, exactly 73 tensor-core GEMM and 12
+   tensor-core prefill-attention launches a prefill, logits and cache
+   bit-identical to ``eager=True``, first-token logits within LOGIT_TOL
+   of the "aot" prefill; NaN-tailed handles forwarded into the GEMM,
+   prefill attention and decode attention (over the chain's own k/v
+   buffers), each bit-identical to the staged call and within tolerance
+   of the plain version; two chained ``generate()`` runs, every decode
+   step one replay; then gemma2-9b at full width with 2 layers through
+   the chain (window 4096, softcaps 50/30, d = 256).
 5. Time each kernel at the main path's shapes and selected strategy
    beside its plain version, its bound and one PyTorch library call
    computing the same function (device time per call from torch.profiler);
@@ -102,7 +120,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``score_mod``, a causal-window or per-row kv_len block mask,
    ``enable_gqa``), held against the plain version before it is timed.
    The staging copy at the hot path's unaligned attention call (three
-   operands), its library call one ``torch._foreach_copy_``.
+   operands), its library call one ``torch._foreach_copy_``.  Rows 1b
+   and 1c: the chain's MLP-in GEMM (K 768, N 3072) and LM head (K 768,
+   N 50432) at m = 128, beside ``torch.matmul``.
 6. The benchmark suite's serving snapshot at full width on the card
    (``benchmarks_torch.bench_workloads.serving_payload(smoke=False)``, the
    payload ``benchmarks_torch/run.py --json`` writes): the hot path's
@@ -110,7 +130,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    attention (8/4 heads of 64) and a 1x1 conv2d (1536 wide); decode and
    continuous batching (serial, then concurrency 1, 4, 16) on
    paper-gpt2-124m at 12 layers; one granite-moe-1b-a400m expert-FFN
-   layer at its real widths (1024/512, 32 experts, top-8).  Fails unless
+   layer at its real widths (1024/512, 32 experts, top-8); one chained
+   paper-gpt2 prefill (``prefill_chain``: 0 boundary copies, 73 GEMM and
+   12 prefill launches, bit-identical to eager, beside the graphed and
+   eager "aot" prefill's µs), with 0 prefill captures in the timed
+   windows.  Fails unless
    every engine call is one engine launch and one kernel launch with 0
    padded calls and every unaligned call one staging launch, every token
    and every batched step is one decode step of
@@ -151,7 +175,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    budget, the grouped GEMM's analytical and calibrated tile at each
    served capacity bucket, and rows 3a/3b's device time under both.
 7. Print the kernels line (with phase 6's launch counts), then the result
-   line.
+   line.  Every phase prints its wall time.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
 1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMMs, grouped and
@@ -735,6 +759,9 @@ def phase_serve(dev, kernels, arch: str) -> dict:
     counts = kernels.launch_counts()
     graphs = {k: server.stats[k] - captured[k]
               for k in ("decode_graph_captures", "decode_graph_replays")}
+    prefill_graphs = {k: server.stats[k] - captured[k]
+                      for k in ("prefill_graph_captures",
+                                "prefill_graph_replays")}
 
     tokens = sum(o.size for o in outs)
     steps = sum(r.max_new - 1 for r in reqs)
@@ -760,6 +787,15 @@ def phase_serve(dev, kernels, arch: str) -> dict:
     if graphs != {"decode_graph_captures": 0, "decode_graph_replays": steps}:
         fail(f"serve: expected one replay of a warmed graph per decode step, "
              f"got {graphs} for {steps} steps")
+    print(f"serve {cfg.name}: warmup captured "
+          f"{captured['prefill_graph_captures']} prefill graphs; the requests "
+          f"made {prefill_graphs['prefill_graph_replays']} replays and "
+          f"{prefill_graphs['prefill_graph_captures']} captures for "
+          f"{len(reqs)} prefills")
+    if prefill_graphs != {"prefill_graph_captures": 0,
+                          "prefill_graph_replays": len(reqs)}:
+        fail(f"serve: expected one replay of a warmed prefill graph per "
+             f"request, got {prefill_graphs}")
     if counts["flash_attention_decode"] != cfg.n_layers * steps:
         fail("serve: expected n_layers decode-attention launches per token")
     if counts["flash_attention_prefill"] != cfg.n_layers * len(reqs):
@@ -922,6 +958,392 @@ def phase_graphs(info: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4i: graphed "aot" prefills against eager ones
+# ---------------------------------------------------------------------------
+
+PREFILL_GRAPH_CASES = ((1, 64), (2, 100), (4, 37))  # (rows, prompt)
+
+
+def phase_prefill_graphs(info: dict) -> dict:
+    """Phase 4i: phase 4's (or 4b's) server replays its "aot" prefill
+    graph beside an eager server (``graphs=False``) on the same weights,
+    at three (batch, seq) keys: one whose prompt fills its seq bucket, one
+    unaligned in s (100 in a 128-row bucket, a key warmup did not
+    capture) and one of 4 rows.  The first-token logits, the MoE
+    ``dropped_frac`` and every cache leaf's rows must be bit-identical."""
+    from repro_torch.launch.serve import VortexServer
+
+    srv, cfg = info["server"], info["cfg"]
+    dev = srv.device
+    eager = VortexServer(cfg, max_cache=srv.max_cache, params=srv.params,
+                         graphs=False)
+    rng = np.random.default_rng(8)
+    g0 = dict(srv.stats)
+    for b, s in PREFILL_GRAPH_CASES:
+        bp, sp = srv.batch_bucket(b), srv.seq_bucket(s)
+        kvb = srv.kv_bucket(sp)
+        toks = torch.zeros((bp, sp), dtype=torch.int64)
+        toks[:b, :s] = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (b, s)).astype(np.int64))
+        n0 = dict(srv.stats)
+        cache = srv.lease_cache(bp, kvb)
+        try:
+            got, dropped = (t.clone() for t in
+                            srv._prefill_graphed(cache, toks, s - 1))
+            want, want_drop, ecache = eager._prefill_eager(
+                None, toks.to(dev), s - 1, kvb)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"phase 4i: {cfg.name} (b={b}, s={s}): graphed logits "
+                     f"differ from the eager prefill's (max |diff| "
+                     f"{(got.float() - want.float()).abs().max().item()})")
+            if not torch.equal(dropped, want_drop):
+                fail(f"phase 4i: {cfg.name} dropped_frac differs")
+            for key, entry in cache.items():
+                for name, leaf in entry.items():
+                    if not torch.equal(leaf[..., :sp, :],
+                                       ecache[key][name][..., :sp, :]):
+                        fail(f"phase 4i: {cfg.name} (b={b}, s={s}) cache "
+                             f"{key}/{name} differs")
+        finally:
+            srv.release_cache(cache)
+        moved = {k: srv.stats[k] - n0[k] for k in
+                 ("prefill_graph_captures", "prefill_graph_replays")}
+        print(f"phase 4i: {cfg.name} prefill (b={b}, s={s}) at bucket "
+              f"({bp}, {sp}), kv {kvb}: graph replay vs eager logits, "
+              f"dropped_frac and cache bit-identical; {moved}")
+    del eager
+    return {k: srv.stats[k] - g0[k]
+            for k in ("prefill_graph_captures", "prefill_graph_replays")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4h: the chained prefill (lazy bucket handles)
+# ---------------------------------------------------------------------------
+
+CHAIN_CASES = ((1, 100), (2, 100), (1, 150))  # (rows, prompt)
+CHAIN_KEYS = ("stage_copies", "unstage_copies", "realize_slices",
+              "forwarded")
+
+
+def chain_counters(engine) -> dict:
+    out = dict.fromkeys(CHAIN_KEYS, 0)
+    for kind, st in engine.stats().items():
+        if kind == "calibration":  # engine-level section, not a kind
+            continue
+        for k in CHAIN_KEYS:
+            out[k] += st[k]
+    return out
+
+
+def chain_gemm_launches(server) -> dict:
+    """Launches per chain GEMM signature (K, N) on the server's engine."""
+    from repro_torch.core.workloads import GemmWorkload
+
+    return {(k, n): server.engine.kernel_for(
+        GemmWorkload(M=None, N=n, K=k)).dispatch_stats.launches
+        for k, n in server._chain_gemm_sigs()}
+
+
+def chain_prefill(kernels, server, aot, b: int, s: int, rng,
+                  where: str) -> dict:
+    """One chained prefill of a (b, s) prompt at its chain bucket, checked:
+    the bucket is chain-aligned, 0 stage, unstage and realize copies,
+    ``forwarded >= n_layers``, every GEMM (n_layers x projections + the
+    head) and prefill-attention launch on the tensor cores and nothing
+    else launched, the logits and every cache leaf bit-identical to
+    ``eager=True``, and the first-token logits within LOGIT_TOL of the
+    "aot" prefill's (``aot``'s eager forward at seq_bucket(s), the same
+    weights)."""
+    cfg = server.cfg
+    bp = server.batch_bucket(b)
+    sp = server.chain_seq_bucket(s, bp)
+    if not server._chain_aligned(bp, sp):
+        fail(f"{where}: ({bp}, {sp}) is not chain-aligned")
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int64))
+    toks = torch.zeros((bp, sp), dtype=torch.int64)
+    toks[:b, :s] = prompt
+    toks = toks.to(server.device)
+    server.prefill_chained(bp, sp, toks, last=s - 1)  # warm: executables
+    torch.cuda.synchronize()
+    c0, n0 = chain_counters(server.engine), kernels.launch_counts()
+    sig0 = chain_gemm_launches(server)
+    last, cache = server.prefill_chained(bp, sp, toks, last=s - 1)
+    torch.cuda.synchronize()
+    c1, n1 = chain_counters(server.engine), kernels.launch_counts()
+    sig1 = chain_gemm_launches(server)
+    d = {k: c1[k] - c0[k] for k in CHAIN_KEYS}
+    launched = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    per_sig = {sig: sig1[sig] - sig0[sig] for sig in sig1}
+    n_gemm = 1 + sum(
+        4 + sum(w in p["mlp"] for w in ("w_in", "w_gate", "w_out"))
+        for _, p in server._chain_layers())
+    L = cfg.n_layers
+    want = {"vortex_gemm": n_gemm, "vortex_gemm.tensor_core": n_gemm,
+            "flash_attention_prefill": L,
+            "flash_attention_prefill.tensor_core": L}
+    copies = d["stage_copies"] + d["unstage_copies"] + d["realize_slices"]
+    print(f"{where}: {cfg.name} chained prefill (b={b}, s={s}) at "
+          f"({bp}, {sp}): {d}, kernel launches {launched}, per GEMM "
+          f"signature (K, N) {per_sig}")
+    if copies or d["forwarded"] < L:
+        fail(f"{where}: {copies} boundary copies and {d['forwarded']} "
+             f"forwarded operands in one chained prefill")
+    if launched != want:
+        fail(f"{where}: kernel launches {launched}, expected {want}")
+    last_e, cache_e = server.prefill_chained(bp, sp, toks, last=s - 1,
+                                             eager=True)
+    torch.cuda.synchronize()
+    if not torch.equal(last, last_e):
+        fail(f"{where}: chained logits differ from eager=True (max |diff| "
+             f"{(last.float() - last_e.float()).abs().max().item()})")
+    for key, entry in cache.items():
+        for name, leaf in entry.items():
+            if not torch.equal(leaf, cache_e[key][name]):
+                fail(f"{where}: cache {key}/{name} differs from eager=True")
+    # The "aot" prefill at seq_bucket(s) on the same weights.
+    spa = aot.seq_bucket(s)
+    toks_a = torch.zeros((bp, spa), dtype=torch.int64)
+    toks_a[:b, :s] = prompt
+    ref, _, _ = aot._prefill_eager(None, toks_a.to(server.device), s - 1,
+                                   aot.kv_bucket(spa))
+    err, rel = rel_err(last[:b, :cfg.vocab], ref[:b, :cfg.vocab])
+    print(f"{where}: chain vs eager=True bit-identical (logits and "
+          f"{sum(len(e) for e in cache.values())} cache leaves); first-token "
+          f"logits vs the aot prefill at seq bucket {spa}: "
+          f"max_abs_err={err:.4g} rel={rel:.4g} (tolerance {LOGIT_TOL})")
+    if not rel <= LOGIT_TOL:
+        fail(f"{where}: chained logits disagree with the aot prefill: {rel}")
+    return {"bp": bp, "sp": sp, "per_sig": per_sig, "cache": cache,
+            "launched": launched}
+
+
+def chain_forwarding(dev, server) -> None:
+    """Phase 4h on the card: handles with NaN-poisoned tails forward into
+    the hand-written kernels.  A gemm handle at the MLP's width, q/k/v
+    handles into prefill attention, and the chain's own k/v cache buffers
+    (tails poisoned) into decode attention: each forwarded result is
+    bit-identical to the engine's staged call on the clean true-extent
+    operands and within tolerance of the plain version, with ``forwarded``
+    counted and no stage copy."""
+    from repro_torch.core.engine import LazyBucket
+    from repro_torch.core.workloads import GemmWorkload
+    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.gemm import vortex_gemm_plain
+
+    cfg, eng = server.cfg, server.engine
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(21)
+    nan = float("nan")
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dt)
+
+    def forwarded(kern, run):
+        st0 = kern.dispatch_stats.as_dict()
+        out = run()
+        st1 = kern.dispatch_stats.as_dict()
+        return out, {k: st1[k] - st0[k] for k in
+                     ("forwarded", "stage_copies", "launches")}
+
+    # gemm: a NaN tail past m inside the bucket.
+    d, ff = cfg.d_model, cfg.d_ff
+    kern = eng.kernel_for(GemmWorkload(M=None, N=ff, K=d))
+    bucket = kern.select(100).padded_m
+    m = next(m for m in range(bucket - 1, 0, -1)
+             if kern.select(m).padded_m == bucket)
+    a, w = rnd(bucket, d), rnd(d, ff)
+    clean = a[:m].clone()
+    a[m:] = nan
+    out, delta = forwarded(
+        kern, lambda: kern(LazyBucket(a, m, 0, kern.dispatch_stats), w))
+    staged = kern(clean, w)
+    torch.cuda.synchronize()
+    if delta != {"forwarded": 1, "stage_copies": 0, "launches": 1} \
+            or not torch.equal(out, staged):
+        fail(f"phase 4h: forwarded gemm handle {delta} or differs from the "
+             f"staged call")
+    check(f"phase 4h forwarded gemm handle m={m} in bucket {bucket} "
+          f"(K={d}, N={ff})", out, vortex_gemm_plain(clean, w), TOL[dt])
+
+    # Prefill attention: q/k/v handles with NaN tails past m.
+    H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    params = {"causal": True, "window": None, "softcap": cfg.attn_softcap}
+    q, k, v = rnd(1, H, 128, hd), rnd(1, hkv, 128, hd), rnd(1, hkv, 128, hd)
+    kern = eng.op_kernel("attention", (q, k, v), params)
+    sb = kern.select(128).bucket[0]
+    m = next(m for m in range(sb - 1, 0, -1)
+             if kern.select(m).bucket[0] == sb)
+    q, k, v = rnd(1, H, sb, hd), rnd(1, hkv, sb, hd), rnd(1, hkv, sb, hd)
+    clean = [t[:, :, :m].clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t[:, :, m:] = nan
+    out, delta = forwarded(kern, lambda: kern(
+        *(LazyBucket(t, m, 2, kern.dispatch_stats) for t in (q, k, v))))
+    staged = kern(*clean)
+    torch.cuda.synchronize()
+    if delta != {"forwarded": 3, "stage_copies": 0, "launches": 1} \
+            or not torch.equal(out, staged):
+        fail(f"phase 4h: forwarded attention handles {delta} or differ from "
+             f"the staged call")
+    check(f"phase 4h forwarded q/k/v handles m={m} in bucket {sb}", out,
+          flash_attention_plain(*clean, m), ATTN_TOL[dt])
+
+
+def chain_decode_forwarding(dev, server, cache, b: int, s: int) -> None:
+    """Decode attention reads the chain's own layer-0 k/v cache buffers as
+    handles with extent s, their rows past s poisoned with NaN."""
+    from repro_torch.core.engine import LazyBucket
+    from repro_torch.kernels.attention import flash_attention_plain
+
+    cfg, eng = server.cfg, server.engine
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    k, v = (cache["pos0"][n][0].clone() for n in ("k", "v"))
+    clean = [t[:, :, :s].clone() for t in (k, v)]
+    for t in (k, v):
+        t[:, :, s:] = float("nan")
+    q = torch.randn(k.shape[0], H, 1, hd,
+                    generator=torch.Generator().manual_seed(22)).to(
+                        dev, k.dtype)
+    params = {"window": None, "softcap": cfg.attn_softcap}
+    kern = eng.op_kernel("decode_attention", (q, k, v, s), params)
+    st0 = kern.dispatch_stats.as_dict()
+    out = kern(q, LazyBucket(k, s, 2, kern.dispatch_stats),
+               LazyBucket(v, s, 2, kern.dispatch_stats), s)
+    st1 = kern.dispatch_stats.as_dict()
+    staged = kern(q, *clean, s)
+    torch.cuda.synchronize()
+    delta = {f: st1[f] - st0[f] for f in ("forwarded", "stage_copies")}
+    if delta != {"forwarded": 2, "stage_copies": 0} \
+            or not torch.equal(out, staged):
+        fail(f"phase 4h: decode over the chain's k/v handles {delta} or "
+             f"differs from the staged call")
+    check(f"phase 4h decode attention over the chain's layer-0 k/v buffers "
+          f"(rows {s} of {k.shape[2]}, tails NaN)", out,
+          flash_attention_plain(q, *clean, s, q_offset=s - 1, causal=False),
+          ATTN_TOL[k.dtype])
+
+
+def phase_chain(dev, kernels, serve_info: dict) -> dict:
+    """Phase 4h: ``VortexServer(prefill="chained")`` on paper-gpt2-124m at
+    full width and depth (phase 4's weights), then gemma2-9b at full width
+    with 2 layers."""
+    import dataclasses
+
+    from repro_torch.launch.serve import Request, VortexServer
+    from repro_torch.models.registry import get_config
+
+    aot = serve_info["server"]
+    cfg = aot.cfg
+    server = VortexServer(cfg, max_cache=aot.max_cache, params=aot.params,
+                          prefill="chained")
+    rng = np.random.default_rng(30)
+    per_sig: dict = {}
+    results = []
+    for b, s in CHAIN_CASES:
+        r = chain_prefill(kernels, server, aot, b, s, rng, "phase 4h")
+        for sig, n in r["per_sig"].items():
+            per_sig[sig] = per_sig.get(sig, 0) + n
+        results.append(r)
+    chain_forwarding(dev, server)
+    chain_decode_forwarding(dev, server, results[0]["cache"], 1,
+                            CHAIN_CASES[0][1])
+
+    # generate() through the chain: every decode step one graph replay,
+    # a repeat of the same shape with 0 captures.
+    req = Request(tokens=rng.integers(0, cfg.vocab, (2, 100)).astype(
+        np.int64), max_new=8)
+    steps = req.max_new - 1
+    outs = []
+    for i in range(2):
+        g0 = dict(server.stats)
+        outs.append(server.generate(req))
+        moved = {k: server.stats[k] - g0[k] for k in
+                 ("chained_prefills", "decode_graph_captures",
+                  "decode_graph_replays", "prefill_graph_captures")}
+        print(f"phase 4h: generate() through the chain, run {i + 1}: "
+              f"{moved}")
+        if moved["chained_prefills"] != 1 or \
+                moved["decode_graph_replays"] != steps or \
+                moved["prefill_graph_captures"] or \
+                (i and moved["decode_graph_captures"]):
+            fail(f"phase 4h: generate() through the chain: {moved}")
+    if not np.array_equal(outs[0], outs[1]):
+        fail("phase 4h: two chained generate() runs gave different tokens")
+    aot_tokens = aot.generate(req)
+    same = np.array_equal(outs[0], aot_tokens)
+    print(f"phase 4h: chained tokens {outs[0].tolist()} vs aot "
+          f"{aot_tokens.tolist()} (identical={same}; bf16 through two GEMM "
+          f"kernels, not required)")
+    if server.kv_pool.stats()["leases_active"]:
+        fail("phase 4h: kv pool leases leaked")
+    m = results[0]["bp"] * results[0]["sp"]
+    info = {"engine": server.engine, "per_sig": per_sig, "m": m,
+            "prefills": len(CHAIN_CASES)}
+    del server, results
+    free_cuda()
+
+    # gemma2-9b at full width, 2 layers: window 4096, softcaps, d = 256.
+    g2 = dataclasses.replace(get_config(GEMMA2), n_layers=2)
+    server = VortexServer(g2, max_cache=1024, seed=0, prefill="chained")
+    r = chain_prefill(kernels, server, server, 1, 100, rng,
+                      "phase 4h gemma2-9b (2 layers)")
+    print(f"phase 4h: {g2.name} 2 layers windows "
+          f"{[sp.window for sp in g2.pattern]} softcaps {g2.attn_softcap}/"
+          f"{g2.logit_softcap} d={g2.resolved_head_dim} through the chain ok")
+    del server, r
+    free_cuda()
+    return info
+
+
+def chain_gemm_rows(dev, chain_info: dict, errs: dict) -> list[dict]:
+    """Rows 1b and 1c: the chain's MLP-in GEMM (K = 768, N = 3072) and LM
+    head (K = 768, N = 50432) at m = 128 (phase 4h's (1, 128) bucket), at
+    the tile and backend the chain's engine selects; launches are phase
+    4h's counted chained prefills'."""
+    from repro_torch.core.workloads import GemmWorkload
+    from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
+
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(23)
+    eng, M = chain_info["engine"], chain_info["m"]
+    rows = []
+    for tag, (K, N) in (("1b", (768, 3072)), ("1c", (768, 50432))):
+        sel = eng.kernel_for(GemmWorkload(M=None, N=N, K=K)).select(M)
+        bm, bn, bk = sel.strategy.l1
+        be = sel.strategy.backend
+        a = torch.randn(M, K, generator=g).to(dev, dt)
+        b = torch.randn(K, N, generator=g).to(dev, dt)
+
+        def gemm(a=a, b=b, bm=bm, bn=bn, bk=bk, be=be):
+            return vortex_gemm(a, b, M, block_m=bm, block_n=bn, block_k=bk,
+                               backend=be)
+
+        err = check(f"vortex_gemm row {tag} at the chain's shape", gemm(),
+                    vortex_gemm_plain(a, b, M), TOL[dt])
+        errs["vortex_gemm"] = max(errs["vortex_gemm"], err)
+        bnd, by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * N * K, dt)
+        rows.append(timed(
+            {
+                "name": "vortex_gemm", "route": "cuda",
+                "source": "src/repro_torch/csrc/gemm.cu",
+                "replaces": "src/repro/kernels/gemm.py:110",
+                "launches": chain_info["per_sig"][(K, N)],
+                "max_abs_err": errs["vortex_gemm"],
+                "bound_ms": bnd, "bound_by": by,
+                "shape": f"row {tag}: M={M} N={N} K={K} blocks=({bm},{bn},"
+                         f"{bk}) {be} bf16, the chained prefill",
+            },
+            ms=gemm,
+            plain_ms=lambda a=a, b=b: vortex_gemm_plain(a, b, M),
+            library_ms=lambda a=a, b=b: torch.matmul(a, b),
+        ))
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phases 4c-4f: continuous batching (ContinuousScheduler) on the dense family
 # ---------------------------------------------------------------------------
 
@@ -1037,7 +1459,11 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
         tokens += out.size
     steps = sched.stats["steps"]
     graphs = {k: server.stats[k] - g0[k]
-              for k in ("decode_graph_captures", "decode_graph_replays")}
+              for k in ("decode_graph_captures", "decode_graph_replays",
+                        "prefill_graph_captures", "prefill_graph_replays")}
+    if graphs["prefill_graph_replays"] != sched.stats["admitted"]:
+        fail(f"{where}: {graphs['prefill_graph_replays']} prefill graph "
+             f"replays for {sched.stats['admitted']} admissions")
     if server.graphs is None or graphs["decode_graph_replays"] != steps:
         fail(f"{where}: expected one graph replay per batched step, got "
              f"{graphs} for {steps} steps")
@@ -1067,6 +1493,8 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
           f"kvb={sorted({p['kvb'] for p in sched.step_positions})} "
           f"graph_captures={graphs['decode_graph_captures']} "
           f"graph_replays={graphs['decode_graph_replays']} "
+          f"prefill_graph_captures={graphs['prefill_graph_captures']} "
+          f"prefill_graph_replays={graphs['prefill_graph_replays']} "
           f"kernel_launches={counts} kv_pool={st['kv_pool']}")
 
     rel = None
@@ -1163,8 +1591,9 @@ def phase_gemma2(kernels) -> dict:
     c = serve_scheduled(kernels, server, reqs, batch_rows=SCHED_ROWS,
                         where="phase 4c", eager_check=True)
     print(f"phase 4c: init_s={init_s:.2f} warmup_s={warmup_s:.3f} "
-          f"serve_s={c['wall_s']:.3f} peak_gb="
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+          f"serve_s={c['wall_s']:.3f} admissions_s={c['secs']['prefill']:.3f} "
+          f"(graphed prefills, each key captured at its first admission) "
+          f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     big = max(reqs, key=lambda r: r.tokens.size)
 
     rng = np.random.default_rng(1)
@@ -1876,6 +2305,22 @@ def check_serving_payload(p: dict) -> None:
     if cb["kv_pool"]["leases_active"] != 0:
         fail(f"phase 6: kv pool leases left active: {cb['kv_pool']}")
     for name, r in (("decode", dec), ("continuous_batching", cb)):
+        if r["prefill_graph_captures"] or not r["prefill_graph_replays"]:
+            fail(f"phase 6 {name}: {r['prefill_graph_captures']} prefill "
+                 f"graph captures and {r['prefill_graph_replays']} replays "
+                 f"in the timed windows")
+    pc = p["prefill_chain"]
+    layers = pc["blocks_per_prefill"]
+    want = {"vortex_gemm": 6 * layers + 1,
+            "vortex_gemm.tensor_core": 6 * layers + 1,
+            "flash_attention_prefill": layers,
+            "flash_attention_prefill.tensor_core": layers}
+    if not (pc["chain_aligned"] and pc["boundary_copies_per_block"] == 0
+            and pc["forwarded_per_prefill"] >= layers
+            and pc["bit_identical_to_eager"]
+            and pc["kernel_launches_per_prefill"] == want):
+        fail(f"phase 6 prefill_chain: {pc}")
+    for name, r in (("decode", dec), ("continuous_batching", cb)):
         if not (r["graphs"] and r["decode_graph_captures"] == 0
                 and r["decode_graph_replays"] == r["timed_steps"]):
             fail(f"phase 6 {name}: {r['decode_graph_captures']} captures and "
@@ -1936,6 +2381,21 @@ def phase_bench(kernels, smi: str) -> dict:
           f"{cb['speedup_at_16']:.3f} ({cb['decode_graph_replays']} graph "
           f"replays, {cb['decode_graph_captures']} captures for "
           f"{cb['timed_steps']} timed decode steps) on {smi}")
+    pc = p["prefill_chain"]
+    print(f"phase 6 prefill_chain: {pc['arch']} (b={pc['batch_bucket']}, "
+          f"s={pc['prompt_len']}) at seq bucket {pc['seq_bucket']}: chained "
+          f"{pc['us_per_prefill']:.1f} us, aot graphed "
+          f"{pc['aot_graphed_us_per_prefill']:.1f} us, aot eager "
+          f"{pc['aot_eager_us_per_prefill']:.1f} us a prefill [host "
+          f"wall-clock, synchronized, bf16]; "
+          f"{pc['boundary_copies_per_block']} copies/block, "
+          f"{pc['forwarded_per_prefill']} forwarded, kernel launches "
+          f"{pc['kernel_launches_per_prefill']}, bit_identical_to_eager "
+          f"{pc['bit_identical_to_eager']} on {smi}")
+    print(f"phase 6 prefill graphs in the timed windows: decode "
+          f"{dec['prefill_graph_replays']} replays / "
+          f"{dec['prefill_graph_captures']} captures, continuous_batching "
+          f"{cb['prefill_graph_replays']} / {cb['prefill_graph_captures']}")
     print(f"phase 6 moe: {moe['experts']} experts top-{moe['top_k']} "
           f"d_model {moe['d_model']} d_ff_expert {moe['d_ff_expert']}, "
           f"{moe['tokens']} tokens: engine {moe['engine_us_per_layer']:.1f} "
@@ -2326,40 +2786,68 @@ def main() -> int:
 
     errs = {"vortex_gemm": 0.0, "flash_attention_prefill": 0.0,
             "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
-    phase_kernels(dev, kernels, errs)
-    phase_window_gather(dev, kernels, errs)
-    phase_stage(dev, kernels, errs)
-    print("phase 2: kernels agree with their plain versions")
-    gemm_info = phase_gemm(dev, kernels)
-    print("phase 3: vortex.ops.gemm main path ok")
-    conv_info = phase_conv(dev, kernels)
-    print("phase 3b: vortex.ops.conv2d main path ok")
-    serve_info = phase_serve(dev, kernels, ARCHS[0])
-    print(f"phase 4: VortexServer main path on {ARCHS[0]} ok")
-    moe_info = phase_serve(dev, kernels, ARCHS[1])
-    print(f"phase 4b: VortexServer main path on {ARCHS[1]} ok")
-    for info in (serve_info, moe_info):
-        phase_graphs(info)
-    print("phase 4g: graphed decode steps bit-identical to eager ones "
-          f"({', '.join(ARCHS)}; {GEMMA2} in phase 4c)")
-    g2_info = phase_gemma2(kernels)
-    print(f"phase 4c/4d: ContinuousScheduler on {GEMMA2} ok")
-    dense_info = phase_dense_2l(kernels)
-    print(f"phase 4e: ContinuousScheduler on {', '.join(DENSE_2L)} ok")
-    phase_gemma2_f32(kernels)
-    print("phase 4f: float32 scheduler tokens equal serial generate() ok")
-    rows = phase_time(dev, gemm_info, serve_info, errs)
-    rows += attention_rows(dev, moe_info, errs, torch.Generator()
-                           .manual_seed(6), ", granite 16/8")
-    rows += dense_attention_rows(g2_info, dense_info, errs)
-    rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
-    rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
-    bench_info = phase_bench(kernels, smi)
-    print("phase 6: the serving snapshot keeps its contracts on the card")
-    phase_calibration(dev, kernels, smi)
-    phase_served_calibration(dev, kernels, smi)
-    print(f"phase 6b: calibration on the card ok ({ARCHS[1]} served after "
-          f"an idle-slice swap)")
+
+    def phase(label: str, fn, *args, done: str = ""):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {done + '; ' if done else ''}wall_s="
+              f"{time.perf_counter() - t:.1f}", flush=True)
+        return out
+
+    def phase2():
+        phase_kernels(dev, kernels, errs)
+        phase_window_gather(dev, kernels, errs)
+        phase_stage(dev, kernels, errs)
+
+    phase("2", phase2, done="kernels agree with their plain versions")
+    gemm_info = phase("3", phase_gemm, dev, kernels,
+                      done="vortex.ops.gemm main path ok")
+    conv_info = phase("3b", phase_conv, dev, kernels,
+                      done="vortex.ops.conv2d main path ok")
+    serve_info = phase("4", phase_serve, dev, kernels, ARCHS[0],
+                       done=f"VortexServer main path on {ARCHS[0]} ok")
+    moe_info = phase("4b", phase_serve, dev, kernels, ARCHS[1],
+                     done=f"VortexServer main path on {ARCHS[1]} ok")
+    phase("4g", lambda: [phase_graphs(i) for i in (serve_info, moe_info)],
+          done="graphed decode steps bit-identical to eager ones "
+               f"({', '.join(ARCHS)}; {GEMMA2} in phase 4c)")
+    phase("4i", lambda: [phase_prefill_graphs(i)
+                         for i in (serve_info, moe_info)],
+          done=f"graphed prefills bit-identical to eager ones "
+               f"({', '.join(ARCHS)})")
+    chain_info = phase("4h", phase_chain, dev, kernels, serve_info,
+                       done=f"chained prefill on {ARCHS[0]} and {GEMMA2} "
+                            f"(2 layers) ok")
+    g2_info = phase("4c/4d", phase_gemma2, kernels,
+                    done=f"ContinuousScheduler on {GEMMA2} ok")
+    dense_info = phase("4e", phase_dense_2l, kernels,
+                       done=f"ContinuousScheduler on {', '.join(DENSE_2L)} "
+                            f"ok")
+    phase("4f", phase_gemma2_f32, kernels,
+          done="float32 scheduler tokens equal serial generate() ok")
+
+    def phase5():
+        rows = phase_time(dev, gemm_info, serve_info, errs)
+        rows += chain_gemm_rows(dev, chain_info, errs)
+        rows += attention_rows(dev, moe_info, errs, torch.Generator()
+                               .manual_seed(6), ", granite 16/8")
+        rows += dense_attention_rows(g2_info, dense_info, errs)
+        rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
+        rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
+        return rows
+
+    rows = phase("5", phase5, done="kernels timed")
+    bench_info = phase("6", phase_bench, kernels, smi,
+                       done="the serving snapshot keeps its contracts on "
+                            "the card")
+
+    def phase6b():
+        phase_calibration(dev, kernels, smi)
+        phase_served_calibration(dev, kernels, smi)
+
+    phase("6b", phase6b, done=f"calibration on the card ok ({ARCHS[1]} "
+                              f"served after an idle-slice swap)")
+    print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "

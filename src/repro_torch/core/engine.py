@@ -21,6 +21,13 @@ launch per call (and, inside a served decode step, one node of the step's
 CUDA graph: launch/graphs.py).  An unaligned call stages every operand in
 one launch of the staging kernel (kernels/stage.py).  A kernel that fails
 raises: there is no degradation rung in this package yet.
+
+A :class:`LazyBucket` is a bucket-shaped launch output not yet sliced to
+its true extent; a dispatch that receives one at a position its workload
+declares in ``consumes_staged`` hands the raw buffer to the kernel
+(``_call_forwarded``), so chained engine ops cross their boundaries with
+no unstage and no restage (the prefill chain, launch/serve.py
+``prefill="chained"``).
 """
 from __future__ import annotations
 
@@ -40,9 +47,11 @@ from repro_torch.kernels.stage import StagePlan
 
 __all__ = [
     "DispatchStats",
+    "LazyBucket",
     "OfflineStats",
     "PrecompileError",
     "VortexKernel",
+    "lazy_map",
 ]
 
 
@@ -79,10 +88,16 @@ class DispatchStats:
     ``stage_copies``/``unstage_copies`` count the O(true-size) boundary
     copies an unaligned extent pays (the in-place copy into an engine
     buffer / the output slice back).  ``padded_calls`` counts calls on the
-    zero-pad reference path.  ``traced_calls``, ``forwarded``,
-    ``realize_slices``, ``fallbacks`` and ``quarantined`` belong to paths
-    this package does not have yet (traced calls, lazy handles, the
-    degradation ladder) and stay 0.
+    zero-pad reference path.
+
+    ``forwarded`` counts :class:`LazyBucket` operands whose buffer entered
+    the next launch directly -- an op boundary crossed with NO unstage and
+    NO restage; ``realize_slices`` counts deferred output slices forced by
+    a non-engine consumer (``LazyBucket.realize``/``clamp``).  Whole-chain
+    boundary traffic is exactly ``stage_copies + unstage_copies +
+    realize_slices``.  ``traced_calls``, ``fallbacks`` and ``quarantined``
+    belong to paths this package does not have (calls traced inside an
+    enclosing jit, the degradation ladder) and stay 0.
     """
 
     calls: int = 0
@@ -100,6 +115,186 @@ class DispatchStats:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+class LazyBucket:
+    """A bucket-shaped engine result that has NOT been sliced to its true
+    extent: ``buffer`` is the launch's own output (rows past ``extent``
+    along ``axis`` hold garbage the masked-tail contract never reads),
+    ``extent`` the true dynamic size.
+
+    ``.shape`` reports the TRUE shape, so workload hooks that read only
+    ``.shape``/``.dtype`` (``bind``, ``dispatch_key``,
+    ``dynamic_extent``) treat a handle as the realized tensor.
+    Realization -- the deferred output slice -- happens once, when a
+    non-engine consumer forces it through :meth:`realize` or a torch
+    function (``__torch_function__`` realizes every handle argument,
+    the counterpart of the reference's ``__jax_array__``).  An engine
+    dispatch whose operand is a handle in a compatible bucket consumes
+    ``buffer`` directly (``DispatchStats.forwarded``).
+
+    The buffer is always a launch's fresh output (or a row-local function
+    of one), never an engine staging buffer or a CUDA graph's static
+    output, so nothing the engine reuses is ever aliased.  Handles are
+    eager-only plumbing between dispatches.
+    """
+
+    __slots__ = ("buffer", "extent", "axis", "_stats", "_lock", "_realized")
+
+    def __init__(self, buffer, extent, axis, stats=None, lock=None):
+        self.buffer = buffer
+        self.extent = int(extent)
+        self.axis = axis
+        self._stats = stats
+        self._lock = lock
+        self._realized = None
+
+    # -- shape surface (what shape-reading hooks consume) ------------------
+
+    @property
+    def shape(self) -> tuple:
+        s = list(self.buffer.shape)
+        s[self.axis] = self.extent
+        return tuple(s)
+
+    @property
+    def dtype(self):
+        return self.buffer.dtype
+
+    @property
+    def device(self):
+        return self.buffer.device
+
+    @property
+    def ndim(self) -> int:
+        return self.buffer.ndim
+
+    @property
+    def padded_extent(self) -> int:
+        """The bucket size the buffer is shaped to along ``axis``."""
+        return self.buffer.shape[self.axis]
+
+    @property
+    def is_aligned(self) -> bool:
+        return self.padded_extent == self.extent
+
+    def _count_slice(self) -> None:
+        if self._stats is not None:
+            if self._lock is not None:
+                with self._lock:
+                    self._stats.realize_slices += 1
+            else:
+                self._stats.realize_slices += 1
+
+    def realize(self) -> torch.Tensor:
+        """The true-extent tensor (the deferred unstage).  Identity for an
+        aligned bucket; otherwise ONE counted slice into a dense tensor (as
+        the reference's slice is a fresh array; the kernels take dense
+        operands), cached so repeated forcing pays once."""
+        if self._realized is None:
+            if self.is_aligned:
+                self._realized = self.buffer
+            else:
+                self._realized = self.buffer.narrow(
+                    self.axis, 0, self.extent).contiguous()
+                self._count_slice()
+        return self._realized
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return func(*_realized(args), **_realized(kwargs or {}))
+
+    def rewrap(self, buffer, extent=None, axis=None) -> "LazyBucket":
+        """A new handle over ``buffer`` sharing this handle's copy
+        accounting -- for extent-preserving reshapes/transposes between
+        dispatches (split/merge heads, flattening batch into rows)."""
+        return LazyBucket(
+            buffer,
+            self.extent if extent is None else extent,
+            self.axis if axis is None else axis,
+            self._stats,
+            self._lock,
+        )
+
+    def map(self, fn) -> "LazyBucket":
+        """Apply a ROW-LOCAL ``fn`` (output row i depends only on input row
+        i along ``axis``) to the raw buffer: garbage tail rows stay confined
+        past ``extent``.  The handle's bucket geometry must survive."""
+        out = fn(self.buffer)
+        if out.shape[self.axis] != self.padded_extent:
+            raise ValueError(
+                f"map changed the bucket axis: {self.padded_extent} -> "
+                f"{out.shape[self.axis]}"
+            )
+        return self.rewrap(out)
+
+    def clamp(self, padded: int) -> "LazyBucket":
+        """This handle re-bucketed to ``padded`` rows along ``axis`` (true
+        extent unchanged).  Identity when already that size; otherwise one
+        counted boundary slice into a dense buffer -- how chain callers pin
+        a dispatch output that came back in a larger bucket to the chain's
+        width."""
+        if self.padded_extent == padded:
+            return self
+        if padded < self.extent:
+            raise ValueError(
+                f"cannot clamp below the true extent: {padded} < "
+                f"{self.extent}"
+            )
+        buf = self.buffer.narrow(self.axis, 0, padded).contiguous()
+        self._count_slice()
+        return self.rewrap(buf)
+
+    def __repr__(self) -> str:
+        return (
+            f"LazyBucket(shape={self.shape}, padded_extent="
+            f"{self.padded_extent}, axis={self.axis}, dtype={self.dtype})"
+        )
+
+
+def _realized(tree):
+    """``tree`` (nested tuples/lists/dicts) with every handle realized."""
+    if isinstance(tree, LazyBucket):
+        return tree.realize()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_realized(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _realized(v) for k, v in tree.items()}
+    return tree
+
+
+def lazy_map(fn, *xs):
+    """Apply an elementwise/row-local ``fn`` across tensors and LazyBuckets
+    without realizing: the chain glue for the non-engine ops between
+    dispatches (norms, residual adds, activations).
+
+    ``fn`` must be ROW-LOCAL along the handles' bucket axis.  All handle
+    operands must share (axis, padded_extent) -- then ``fn`` runs on the
+    raw buffers and the result is re-wrapped (extent = min of the
+    operands', so any row past a partial operand's extent is
+    conservatively garbage).  Incompatible handles fall back to realizing
+    everything (counted).  Plain operands must broadcast against the
+    BUFFER shape (e.g. per-feature norm weights).  With no handle operands
+    this is ``fn(*xs)``.
+    """
+    handles = [x for x in xs if isinstance(x, LazyBucket)]
+    if not handles:
+        return fn(*xs)
+    ref = handles[0]
+    if any(
+        h.axis != ref.axis or h.padded_extent != ref.padded_extent
+        for h in handles[1:]
+    ):
+        return fn(
+            *(x.realize() if isinstance(x, LazyBucket) else x for x in xs)
+        )
+    out = fn(*(x.buffer if isinstance(x, LazyBucket) else x for x in xs))
+    if out.shape[ref.axis] != ref.padded_extent:
+        raise ValueError(
+            "lazy_map fn changed the bucket axis: "
+            f"{ref.padded_extent} -> {out.shape[ref.axis]}"
+        )
+    return ref.rewrap(out, extent=min(h.extent for h in handles))
 
 
 def _stream_key(device: torch.device):
@@ -354,7 +549,7 @@ class VortexKernel:
                 raise PrecompileError(self._wl.kind, sel, e) from e
         return len(sels)
 
-    def __call__(self, *args):
+    def __call__(self, *args, lazy: bool = False):
         """Dynamic-shape dispatch through the masked-tail staging contract.
 
         Select on the runtime extent, then make ONE launch of the bucket's
@@ -369,13 +564,42 @@ class VortexKernel:
 
         The returned tensor is the launch's own fresh output (or a view of
         it), never an engine buffer, so a caller may mutate it freely.
-        """
-        wl = self._wl
-        m = wl.dynamic_extent(*args)
-        sel = self.selector.select(m)
-        return self._dispatch(sel, args)
 
-    def _dispatch(self, sel: Selection, args: tuple):
+        :class:`LazyBucket` operands at positions the workload declares in
+        ``consumes_staged`` forward their bucket buffer into the launch
+        (``_call_forwarded``): no unstage of the producer, no restage here
+        when the buckets agree.  Handles at any other position realize
+        first (one counted slice).  With ``lazy=True`` the output comes
+        back as a LazyBucket instead of being finalized -- best-effort:
+        the zero-pad reference path (staging off) and workloads without a
+        bucket-shaped output return plain tensors, so chain callers accept
+        both.  A call of plain tensors pays one type scan for all this.
+        """
+        if lazy or LazyBucket in map(type, args):
+            return self._call_lazy(args, lazy)
+        m = self._wl.dynamic_extent(*args)
+        return self._dispatch(self.selector.select(m), m, args)
+
+    def _call_lazy(self, args: tuple, lazy: bool):
+        """``__call__`` for handle operands or a ``lazy`` output."""
+        wl = self._wl
+        if LazyBucket in map(type, args):
+            fwd = wl.consumes_staged if self._staging else {}
+            args = tuple(
+                a.realize()
+                if isinstance(a, LazyBucket) and i not in fwd else a
+                for i, a in enumerate(args)
+            )
+            handles = {
+                i for i, a in enumerate(args) if isinstance(a, LazyBucket)
+            }
+            if handles:
+                return self._call_forwarded(args, handles, lazy)
+        m = wl.dynamic_extent(*args)
+        return self._dispatch(self.selector.select(m), m, args, lazy)
+
+    def _dispatch(self, sel: Selection, m: int, args: tuple,
+                  lazy: bool = False):
         wl = self._wl
         entry = self._entry_for(sel, args)
         st = self.dispatch_stats
@@ -384,6 +608,7 @@ class VortexKernel:
             with self._stats_lock:
                 st.calls += 1
             return self._call_padded(sel, entry, args, view)
+        lazy_out = lazy and wl.staged_out_axis is not None
         scalars = wl.runtime_scalars(sel, *view)
         shapes = wl.staged_shapes(sel, *view)
         unaligned = [
@@ -396,6 +621,9 @@ class VortexKernel:
                 st.aligned_calls += 1
                 st.launches += 1
             out = entry.run(*view, *scalars)
+            if lazy_out:
+                return LazyBucket(out, m, wl.staged_out_axis, st,
+                                  self._stats_lock)
             return wl.finalize(sel, out, *args)
         device = view[unaligned[0]].device
         stream = _stream_key(device)
@@ -410,7 +638,10 @@ class VortexKernel:
             st.unaligned_calls += 1
             st.stage_copies += len(unaligned)
             st.launches += 1
-            if wl.unstages:
+            # A lazy output defers the unstage slice: it is only paid (and
+            # counted, as realize_slices) if a non-engine consumer forces
+            # the handle.
+            if wl.unstages and not lazy_out:
                 st.unstage_copies += 1
         try:
             out = entry.run(*staged, *scalars)
@@ -418,6 +649,97 @@ class VortexKernel:
             # The launch that reads the set is enqueued on this stream; the
             # pool hands the set only to callers on the same stream.
             entry.pool.release(bufs, device, stream)
+        if lazy_out:
+            return LazyBucket(out, m, wl.staged_out_axis, st,
+                              self._stats_lock)
+        return wl.finalize(sel, out, *args)
+
+    def _call_forwarded(self, args: tuple, handles: set, lazy: bool):
+        """Bucket-to-bucket dispatch: LazyBucket operands hand their raw
+        bucket buffers to the launch, the true extents ride in the runtime
+        scalars.  Selection happens at the PADDED extent (the buffers' own
+        bucket), so a producer and consumer sharing a bucket forward with
+        zero copies; a handle whose buffer does not match this selection's
+        staged shape restages (counted stage copy) -- correct either way,
+        because staged tails are garbage by contract and every mask scalar
+        is computed from the TRUE shapes (which the handles report).
+
+        Forwarding is eager-only: inside a CUDA graph capture every handle
+        realizes and the call takes the plain path.  ``consumes_staged``
+        positions are call-arg positions; only identity-``stage_view``
+        workloads declare any, so view index == arg index throughout.
+        """
+        wl = self._wl
+        st = self.dispatch_stats
+
+        def realize_all():
+            flat = tuple(
+                a.realize() if isinstance(a, LazyBucket) else a for a in args
+            )
+            return self(*flat, lazy=lazy)
+
+        raw = tuple(
+            a.buffer if isinstance(a, LazyBucket) else a for a in args
+        )
+        if args[min(handles)].device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            return realize_all()
+        view = wl.stage_view(*raw)
+        try:
+            m_disp = wl.dynamic_extent(*raw)
+            m_true = wl.dynamic_extent(*args)
+        except ValueError:
+            # Mixed handle/plain operands whose padded vs true extents the
+            # workload refuses to reconcile (attention's q/kv seq match).
+            return realize_all()
+        sel = self.selector.select(m_disp)
+        entry = self._entry_for(sel, raw)
+        scalars = wl.runtime_scalars(sel, *wl.stage_view(*args))
+        shapes = wl.staged_shapes(sel, *view)
+        unaligned = [
+            i for i, s in enumerate(shapes)
+            if s is not None and tuple(view[i].shape) != s
+        ]
+        lazy_out = lazy and wl.staged_out_axis is not None
+        slices_out = (
+            wl.unstages and not lazy_out and wl.dynamic_bucket(sel) != m_true
+        )
+        if not unaligned:
+            with self._stats_lock:
+                st.calls += 1
+                st.aligned_calls += 1
+                st.launches += 1
+                st.forwarded += len(handles)
+                if slices_out:
+                    st.unstage_copies += 1
+            out = entry.run(*view, *scalars)
+        else:
+            device = view[unaligned[0]].device
+            stream = _stream_key(device)
+            need = tuple((i, shapes[i], view[i].dtype) for i in unaligned)
+            bufs = entry.pool.acquire(need, device, stream)
+            # Restaging a handle writes its WHOLE buffer -- garbage tail
+            # included -- into the larger bucket; safe, since the scalars
+            # above mask at the true extents.
+            bufs.stage(unaligned, [view[i] for i in unaligned], stream)
+            staged = list(view)
+            for i in unaligned:
+                staged[i] = bufs[i]
+            with self._stats_lock:
+                st.calls += 1
+                st.unaligned_calls += 1
+                st.stage_copies += len(unaligned)
+                st.launches += 1
+                st.forwarded += len(handles - set(unaligned))
+                if slices_out:
+                    st.unstage_copies += 1
+            try:
+                out = entry.run(*staged, *scalars)
+            finally:
+                entry.pool.release(bufs, device, stream)
+        if lazy_out:
+            return LazyBucket(out, m_true, wl.staged_out_axis, st,
+                              self._stats_lock)
         return wl.finalize(sel, out, *args)
 
     def add_dispatch_stats(self, delta: dict[str, int]) -> None:

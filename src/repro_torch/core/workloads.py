@@ -278,6 +278,25 @@ class Workload:
     # Whether finalize() slices a bucket-shaped output on unaligned calls
     # (decode attention's output never depends on the bucket).
     unstages: ClassVar[bool] = True
+    # -- lazy handle (bucket-to-bucket) contract --------------------------
+    # Call-arg positions that may arrive as engine LazyBucket handles --
+    # bucket-shaped buffers whose tail rows past the true extent are
+    # GARBAGE.  The value documents why that stale tail is safe:
+    #   "rowlocal" -- output row i depends only on input row i, so garbage
+    #                rows produce garbage rows confined past the extent
+    #                (sliced off by finalize/realize);
+    #   "masked"   -- the kernel masks reads past the runtime extent scalar
+    #                (kv_len), so garbage rows are never consumed at all.
+    # The engine only tests membership; handles at any OTHER position are
+    # realized before dispatch.  Declare positions only for workloads whose
+    # ``stage_view`` is the identity (view index == arg index): conv's
+    # im2col cannot consume a raw bucket buffer, so conv keeps this empty.
+    consumes_staged: ClassVar[dict[int, str]] = {}
+    # The buffer axis of a bucket-shaped OUTPUT that holds the dynamic
+    # extent -- what a ``lazy=True`` dispatch wraps a LazyBucket around.
+    # None: the output is never bucket-shaped (decode's (b, h, 1, d)), so
+    # there is nothing to defer and ``lazy`` is ignored.
+    staged_out_axis: ClassVar[int | None] = None
 
     def dynamic_extent(self, *args) -> int:
         """The runtime value of the dynamic dim, from the call arguments."""
@@ -351,6 +370,10 @@ class GemmWorkload(Workload):
 
     kind: ClassVar[str] = "gemm"
     supports_staging: ClassVar[bool] = True
+    # Rows of A @ B are independent: a garbage A tail stays in the output
+    # tail.
+    consumes_staged: ClassVar[dict[int, str]] = {0: "rowlocal"}
+    staged_out_axis: ClassVar[int | None] = 0
 
     @classmethod
     def bind(cls, a, b) -> "GemmWorkload":
@@ -475,6 +498,11 @@ class GroupedGemmWorkload(Workload):
 
     kind: ClassVar[str] = "grouped_gemm"
     supports_staging: ClassVar[bool] = True
+    # x could in principle arrive as a bucket handle on axis 1, but
+    # LazyBucket forwarding is axis-0/row oriented: opted out, as in the
+    # reference.
+    consumes_staged: ClassVar[dict[int, str]] = {}
+    staged_out_axis: ClassVar[int | None] = None
 
     @classmethod
     def bind(cls, x, w, counts) -> "GroupedGemmWorkload":
@@ -613,6 +641,12 @@ class AttentionWorkload(Workload):
     kind: ClassVar[str] = "attention"
     supports_staging: ClassVar[bool] = True
     dynamic_tile_axes: ClassVar[tuple[int, ...]] = (0, 2)
+    # q rows are independent queries (rowlocal on the seq axis); k/v rows
+    # past the kv_len scalar are score-masked AND value-zeroed in-kernel.
+    consumes_staged: ClassVar[dict[int, str]] = {
+        0: "rowlocal", 1: "masked", 2: "masked",
+    }
+    staged_out_axis: ClassVar[int | None] = 2  # out (b, hq, sq_bucket, d)
 
     @classmethod
     def bind(
@@ -788,6 +822,11 @@ class DecodeAttentionWorkload(AttentionWorkload):
 
     kind: ClassVar[str] = "decode_attention"
     unstages: ClassVar[bool] = False  # out is (b, hq, 1, d): nothing to slice
+    # The kv cache may arrive as bucket-shaped handles (the prefill chain's
+    # k/v projection buffers): rows past kv_len are masked.  q is a single
+    # token, never bucket-shaped; kv_len is a scalar or a (b,) vector.
+    consumes_staged: ClassVar[dict[int, str]] = {1: "masked", 2: "masked"}
+    staged_out_axis: ClassVar[int | None] = None
 
     @classmethod
     def bind(
@@ -937,6 +976,10 @@ class Conv2dWorkload(Workload):
 
     kind: ClassVar[str] = "conv2d"
     supports_staging: ClassVar[bool] = True
+    # stage_view is im2col, not the identity: a raw bucket buffer is not a
+    # valid executable input, so handles always realize before dispatch.
+    consumes_staged: ClassVar[dict[int, str]] = {}
+    staged_out_axis: ClassVar[int | None] = None
 
     @classmethod
     def bind(cls, x, w, *, stride: int = 1) -> "Conv2dWorkload":

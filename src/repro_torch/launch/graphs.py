@@ -1,28 +1,34 @@
-"""One captured decode step per (form, batch bucket, kv bucket, cache): the
-CUDA-graph counterpart of the reference's AOT decode programs
-(``_decode_exec_for`` / ``_decode_exec_vec_for``, src/repro/launch/
-serve.py).
+"""The server's steps as CUDA graphs: one captured decode step per (form,
+batch bucket, kv bucket, cache) and one captured prefill per (batch
+bucket, seq bucket, cache) -- the counterparts of the reference's AOT
+decode programs (``_decode_exec_for`` / ``_decode_exec_vec_for``) and AOT
+prefill programs (``_prefill_exec_for``, src/repro/launch/serve.py).
 
-A :class:`DecodeGraphs` keeps an LRU of :class:`DecodeGraph` entries.  A
-key is ``(form, bp, kvb, leaf addresses)``: ``form`` is ``"scalar"`` (one
-``pos`` for the batch, ``generate()``) or ``"vector"`` (a (bp,) ``pos``,
-the scheduler's step), and the addresses are the ``data_ptr()`` of every
-cache leaf the graph binds, so a replay never runs against a cache other
-than the one it captured: a cache at new addresses captures anew.  Every
-graph draws from one memory pool (graphs replay in sequence on one
-stream, never concurrently).
+A :class:`StepGraphs` keeps an LRU of :class:`StepGraph` entries for one
+kind of step.  :class:`DecodeGraphs` keys ``(form, bp, kvb, leaf
+addresses)``: ``form`` is ``"scalar"`` (one ``pos`` for the batch,
+``generate()``) or ``"vector"`` (a (bp,) ``pos``, the scheduler's step).
+:class:`PrefillGraphs` keys ``(bp, sp, leaf addresses)``; its static
+inputs are the (bp, sp) tokens and the (1,) index of the last real prompt
+token, its static outputs the first-token logits and the MoE
+``dropped_frac``.  The addresses are the ``data_ptr()`` of every cache
+leaf the graph binds, so a replay never runs against a cache other than
+the one it captured: a cache at new addresses captures anew.  The two
+kinds keep separate LRUs (a burst of prompts cannot evict the decode
+graphs) and draw from one memory pool (:class:`GraphMemory`: graphs
+replay in sequence on one stream, never concurrently).
 
 Capturing a key first runs the step once eagerly on the capture stream
 (which builds the engine's executables and selections and allocates the
-kernels' per-stream scratch outside the capture), then captures it.  The
-step is idempotent -- it writes the same k/v row at the same ``pos`` --
-so the warm-up leaves the cache as the replay that follows it does.  The
-host counters the warm-up and the capture advanced (the engine's
-DispatchStats, the kernels' launch counters) are rolled back, and each
-replay adds the delta one captured step counted: the counters read as an
-eager run's.  The staging-buffer sets the capture bound stay referenced by
-the graph, so the engine's pool evicting them never frees memory a replay
-writes.
+kernels' per-stream scratch and staging sets outside the capture), then
+captures it.  Both steps are idempotent -- a decode step writes the same
+k/v row at the same ``pos``, a prefill the same cache rows -- so the
+warm-up leaves the cache as the replay that follows it does.  The host
+counters the warm-up and the capture advanced (the engine's DispatchStats,
+the kernels' launch counters) are rolled back, and each replay adds the
+delta one captured step counted: the counters read as an eager run's.
+The staging-buffer sets the capture bound stay referenced by the graph, so
+the engine's pool evicting them never frees memory a replay writes.
 
 Nothing falls back: a capture or replay that fails raises.
 :func:`capture_graph` is the one call that needs the card; the CPU tests
@@ -39,11 +45,12 @@ import torch
 
 from repro_torch import kernels
 
-__all__ = ["DecodeGraph", "DecodeGraphs", "StepCounters", "capture_graph"]
+__all__ = ["DecodeGraphs", "GraphMemory", "PrefillGraphs", "StepCounters",
+           "StepGraph", "StepGraphs", "capture_graph"]
 
 
 class StepCounters:
-    """The host counters a decode step advances: every engine kernel's
+    """The host counters a step advances: every engine kernel's
     DispatchStats and the hand-written kernels' launch counters."""
 
     def __init__(self, engine):
@@ -83,7 +90,7 @@ def capture_graph(fn: Callable, pool, stream):
     returns ``(graph, what fn returned)`` -- its tensors are the graph's
     static outputs, rewritten by every replay."""
     if stream is None:
-        raise RuntimeError("a decode step is captured on the card only")
+        raise RuntimeError("a step is captured on the card only")
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool, stream=stream):
         out = fn()
@@ -104,101 +111,151 @@ def _on_stream(stream):
     cur.wait_stream(stream)
 
 
+class GraphMemory:
+    """The capture stream and the one memory pool every graph of a server
+    draws from, made at the first capture on the card (None on the CPU)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = None
+        self.pool = None
+
+    def ready(self) -> tuple:
+        if self.device.type == "cuda" and self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.stream, self.pool
+
+
 @dataclasses.dataclass
-class DecodeGraph:
-    """One captured decode step: its static inputs, which the caller fills
-    before a replay (``tokens`` (bp, 1), ``pos`` (bp,) int32), its static
-    outputs, the counters one step advances, and what it must keep alive."""
+class StepGraph:
+    """One captured step: its static inputs, which the caller fills before
+    a replay, its static outputs, the counters one step advances, and what
+    it must keep alive."""
 
     graph: object
-    tokens: torch.Tensor
-    pos: torch.Tensor
+    inputs: tuple
     outputs: tuple
     delta: tuple
     keepalive: list
 
 
-class DecodeGraphs:
-    """An LRU of captured decode steps, at most ``MAX_GRAPHS`` of them.
+class StepGraphs:
+    """An LRU of captured steps of one kind, at most ``MAX_GRAPHS``.
 
-    ``step(tokens, pos)`` is the eager decode step against the key's cache
-    (it closes over the cache), returning the tuple of tensors a replay
-    hands back.
+    ``step(*inputs)`` is the eager step against the key's cache (it closes
+    over the cache), returning the tuple of tensors a replay hands back.
+    A subclass names the static inputs: ``_statics(*values)`` makes them
+    on the device, ``_fill(inputs, *values)`` refills them.
     """
 
     MAX_GRAPHS = 32
 
-    def __init__(self, engine, device: torch.device):
+    def __init__(self, engine, device: torch.device,
+                 memory: GraphMemory | None = None):
         self.engine = engine
         self.device = device
+        self.memory = memory if memory is not None else GraphMemory(device)
         self.counters = StepCounters(engine)
-        self._graphs: collections.OrderedDict[tuple, DecodeGraph] = \
+        self._graphs: collections.OrderedDict[tuple, StepGraph] = \
             collections.OrderedDict()
-        self._pool = None
-        self._stream = None
 
     def keys(self) -> list[tuple]:
         return list(self._graphs)
 
-    def get(self, key: tuple) -> DecodeGraph | None:
+    def get(self, key: tuple) -> StepGraph | None:
         g = self._graphs.get(key)
         if g is not None:
             self._graphs.move_to_end(key)
         return g
 
-    def capture(self, key: tuple, step: Callable, tokens: torch.Tensor,
-                pos) -> DecodeGraph:
+    def _statics(self, *values) -> tuple:
+        raise NotImplementedError
+
+    @staticmethod
+    def _fill(inputs: tuple, *values) -> None:
+        raise NotImplementedError
+
+    def capture(self, key: tuple, step: Callable, *values) -> StepGraph:
         """Warm up and capture ``step`` for ``key`` with static inputs
-        holding ``tokens`` and ``pos`` (an int fills the (bp,) vector);
-        the counters end as they began."""
-        if self.device.type == "cuda" and self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-        st_tokens = tokens.to(self.device).clone()
-        st_pos = torch.empty(tokens.shape[0], dtype=torch.int32,
-                             device=self.device)
-        self._fill(st_tokens, st_pos, tokens, pos)
+        holding ``values``; the counters end as they began."""
+        stream, pool = self.memory.ready()
+        inputs = self._statics(*values)
         # A calibration slice on another thread (CalibrationDaemon) would
         # synchronize the card mid-capture and move the counters rolled
         # back below: the capture holds the calibrator's lock.
         cal = getattr(self.engine, "calibrator", None)
         with cal.lock if cal is not None else contextlib.nullcontext():
-            return self._capture(key, step, st_tokens, st_pos)
+            return self._capture(key, step, inputs, stream, pool)
 
-    def _capture(self, key, step, st_tokens, st_pos) -> DecodeGraph:
+    def _capture(self, key, step, inputs, stream, pool) -> StepGraph:
         before = self.counters.read()
         try:
-            with _on_stream(self._stream):
-                step(st_tokens, st_pos)  # warm-up: executables, scratch
+            with _on_stream(stream):
+                step(*inputs)  # warm-up: executables, scratch, staging
                 warm = self.counters.read()
                 graph, outputs = capture_graph(
-                    lambda: step(st_tokens, st_pos), self._pool,
-                    self._stream)
+                    lambda: step(*inputs), pool, stream)
             after = self.counters.read()
         finally:
             self.counters.add(
                 StepCounters.diff(before, self.counters.read()), sign=-1)
         keepalive = [s for k in self.engine.kernels().values()
                      for s in k.staging_sets()]
-        g = DecodeGraph(graph, st_tokens, st_pos, tuple(outputs),
-                        StepCounters.diff(warm, after), keepalive)
+        g = StepGraph(graph, inputs, tuple(outputs),
+                      StepCounters.diff(warm, after), keepalive)
         self._graphs[key] = g
         while len(self._graphs) > self.MAX_GRAPHS:
             self._graphs.popitem(last=False)
         return g
 
+    def replay(self, g: StepGraph, *values) -> tuple:
+        """Fill the static inputs, replay, count one step; the static
+        outputs (callers copy what they hand on)."""
+        self._fill(g.inputs, *values)
+        g.graph.replay()
+        self.counters.add(g.delta)
+        return g.outputs
+
+
+class DecodeGraphs(StepGraphs):
+    """Decode steps: static inputs ``tokens`` (bp, 1) and ``pos`` (bp,)
+    int32 (an int ``pos`` fills the vector)."""
+
+    def _statics(self, tokens, pos) -> tuple:
+        inputs = (tokens.to(self.device).clone(),
+                  torch.empty(tokens.shape[0], dtype=torch.int32,
+                              device=self.device))
+        self._fill(inputs, tokens, pos)
+        return inputs
+
     @staticmethod
-    def _fill(st_tokens, st_pos, tokens, pos) -> None:
+    def _fill(inputs, tokens, pos) -> None:
+        st_tokens, st_pos = inputs
         st_tokens.copy_(tokens)
         if torch.is_tensor(pos):
             st_pos.copy_(pos)
         else:
             st_pos.fill_(pos)
 
-    def replay(self, g: DecodeGraph, tokens: torch.Tensor, pos) -> tuple:
-        """Fill the static inputs, replay, count one step; the static
-        outputs (callers copy what they hand on)."""
-        self._fill(g.tokens, g.pos, tokens, pos)
-        g.graph.replay()
-        self.counters.add(g.delta)
-        return g.outputs
+
+class PrefillGraphs(StepGraphs):
+    """Prefills: static inputs ``tokens`` (bp, sp) int64 and ``last`` (1,)
+    int64, the index of the last real prompt token.  Fewer entries than
+    the decode LRU: each holds its bucket's cache binding and static
+    logits."""
+
+    MAX_GRAPHS = 16
+
+    def _statics(self, tokens, last) -> tuple:
+        inputs = (torch.empty(tuple(tokens.shape), dtype=torch.long,
+                              device=self.device),
+                  torch.empty((1,), dtype=torch.long, device=self.device))
+        self._fill(inputs, tokens, last)
+        return inputs
+
+    @staticmethod
+    def _fill(inputs, tokens, last) -> None:
+        st_tokens, st_last = inputs
+        st_tokens.copy_(tokens)
+        st_last.fill_(last)

@@ -8,14 +8,28 @@ quantizes both through the vortex engine session it owns:
     breakpoints the runtime selector bisects;
   * the request batch dim is pow2-bucketed (``vortex.pow2_bucket``).
 
-Each request is one eager prefill forward at its (batch-bucket,
-seq-bucket) shape, then one decode step per token, all under
-``engine.use()`` so prefill attention and every decode token's attention
-dispatch through the engine — on the card, through the hand-written
-kernels.  On the card a decode step is ONE replay of a CUDA graph captured
-per (form, batch bucket, kv bucket, cache) (launch/graphs.py), the
-counterpart of the reference's AOT decode programs; ``graphs=False``, or
-the CPU, runs the same step eagerly, op by op.  The KV cache lives in
+Each request is one prefill at its (batch-bucket, seq-bucket) shape, then
+one decode step per token, all under ``engine.use()`` so prefill attention
+and every decode token's attention dispatch through the engine — on the
+card, through the hand-written kernels.  Two prefill programs sit behind
+the reference's knob ``prefill="aot" | "chained"``:
+
+  * ``"aot"`` (the default): on the card ONE replay of a CUDA graph
+    captured per (batch bucket, seq bucket, cache) (launch/graphs.py), the
+    counterpart of the reference's AOT prefill programs; ``graphs=False``,
+    or the CPU, runs the same forward eagerly, op by op;
+  * ``"chained"``: the whole model eagerly through the engine, every
+    projection and the LM head an engine ``gemm`` and every dispatch
+    output a bucket-shaped :class:`~repro_torch.core.engine.LazyBucket`
+    that the next dispatch consumes directly (``prefill_chained``), at a
+    seq bucket where the whole chain is aligned (``chain_seq_bucket``).
+    An architecture the chain does not serve (MoE) runs the ``"aot"``
+    program, and ``stats["chained_prefills"]`` does not move.
+
+On the card a decode step is ONE replay of a CUDA graph captured per
+(form, batch bucket, kv bucket, cache), the counterpart of the
+reference's AOT decode programs; ``graphs=False``, or the CPU, runs the
+same step eagerly, op by op.  The KV cache lives in
 kv-BUCKET-shaped buffers (the decode-attention workload's own bucket
 set), each token's K/V row is
 written into it in place, and rows past ``pos`` are dead weight the kv_len
@@ -30,7 +44,7 @@ as its dynamic extent; ``mean_dropped_frac`` reports the capacity drops.
 
 Unlike the reference, the first generated token is the argmax at the last
 REAL prompt position (s - 1), not at the last padded position of the
-sequence bucket.
+sequence bucket, in both prefill programs (ROADMAP C1).
 
 Continuous batching (launch/scheduler.py) drives the same server through
 :meth:`VortexServer.prefill` (one request's prefill, its cache leased) and
@@ -43,18 +57,21 @@ failure domains use the typed errors here (:class:`RequestError`,
 
 ``python -m repro_torch.launch.serve --arch paper-gpt2-124m --requests 8``
 ``python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --requests 8``
+``python -m repro_torch.launch.serve --prefill chained --requests 8``
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.engine import DispatchStats
+from repro_torch.core.engine import DispatchStats, LazyBucket, lazy_map
 from repro_torch.core.workloads import (
     AttentionWorkload,
     DecodeAttentionWorkload,
@@ -62,9 +79,19 @@ from repro_torch.core.workloads import (
     GroupedGemmWorkload,
 )
 from repro_torch.core.hardware import get_hardware
-from repro_torch.launch.graphs import DecodeGraphs
-from repro_torch.models.layers import moe_capacity
-from repro_torch.models.model import abstract_cache, decode_step, prefill_step
+from repro_torch.launch.graphs import DecodeGraphs, PrefillGraphs
+from repro_torch.models.layers import (
+    block_forward_lazy,
+    lazy_matmul,
+    moe_capacity,
+    norm,
+)
+from repro_torch.models.model import (
+    _slice,
+    abstract_cache,
+    decode_step,
+    prefill_step,
+)
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_config, get_smoke_config
 from repro_torch.runtime import faults
@@ -242,12 +269,19 @@ class VortexServer:
     :func:`~repro_torch.models.params.params_from_numpy`) replaces the
     seeded init.
 
+    ``prefill``: ``"aot"`` (the default) or ``"chained"``, the
+    reference's knob (see the module docstring); anything else raises
+    ValueError.
+
     ``graphs``: None (the default) replays one captured CUDA graph per
-    decode step on the card and runs the step eagerly on the CPU;
-    ``False`` runs the eager step on the card too, for comparison.  A
-    capture or replay that fails raises: the eager step is never a
-    fallback.  ``stats`` counts ``decode_graph_captures`` and
-    ``decode_graph_replays`` beside the reference's bucket counters.
+    decode step and per ``"aot"`` prefill on the card and runs both
+    eagerly on the CPU; ``False`` runs them eagerly on the card too, for
+    comparison.  A capture or replay that fails raises and settles its
+    leases: the eager step is never a fallback.  ``stats`` counts
+    ``decode_graph_captures``/``decode_graph_replays``,
+    ``prefill_graph_captures``/``prefill_graph_replays`` and
+    ``chained_prefills`` beside the reference's bucket counters
+    (``prefill_buckets`` is the reference's ``prefill_compiles``).
     """
 
     def __init__(
@@ -262,7 +296,13 @@ class VortexServer:
         hardware: str = "h100_sxm",
         impl: str | None = None,
         graphs: bool | None = None,
+        prefill: str = "aot",
     ):
+        if prefill not in ("aot", "chained"):
+            raise ValueError(
+                f"prefill must be 'aot' or 'chained', got {prefill!r}"
+            )
+        self.prefill_mode = prefill
         self.cfg = cfg
         if engine is None:
             engine = Engine(EngineConfig(
@@ -306,10 +346,23 @@ class VortexServer:
             "prefill_buckets": 0, "bucket_hits": 0,
             "decode_buckets": 0, "decode_bucket_hits": 0,
             "decode_graph_captures": 0, "decode_graph_replays": 0,
+            "prefill_graph_captures": 0, "prefill_graph_replays": 0,
+            "chained_prefills": 0,
         }
         if graphs is None:
             graphs = self.device.type == "cuda"
+        # Decode and prefill graphs keep their own LRUs and share one
+        # memory pool.
         self.graphs = DecodeGraphs(engine, self.device) if graphs else None
+        self.prefill_graphs = (
+            PrefillGraphs(engine, self.device, self.graphs.memory)
+            if graphs else None
+        )
+        # Lazy-chain prefill state: per-(bp, sp) alignment verdicts, the
+        # per-layer params in execution order, and the dense head matrix.
+        self._chain_aligned_cache: dict[tuple[int, int], bool] = {}
+        self._chain_layer_cache: list | None = None
+        self._head_cache: torch.Tensor | None = None
         # Per-token decode accounting: one step per token, zero pad
         # fallbacks, a stage copy only when the cache grows.
         self.decode_stats = DispatchStats()
@@ -463,11 +516,14 @@ class VortexServer:
         model, the grouped-GEMM capacity buckets that the seq buckets and
         decode (s = 1) imply, per batch bucket.  With graphs on and
         ``capture``, also capture the scalar-form decode graph of every
-        reachable (batch bucket, kv bucket) (``generate()``'s), each
-        against a cache leased from the pool and parked again, so that a
-        later request of that shape leases the same leaves and replays it
-        (a large model passes ``capture=False``: every parked cache stays
-        allocated).  Returns the number of executables built."""
+        reachable (batch bucket, kv bucket) (``generate()``'s) and, where
+        the ``"aot"`` program serves the prefills, the prefill graph of
+        every reachable (batch bucket, seq bucket) -- as the reference
+        AOT-compiles both -- each against a cache leased from the pool and
+        parked again, so that a later request of that shape leases the
+        same leaves and replays it (a large model passes
+        ``capture=False``: every parked cache stays allocated).  Returns
+        the number of executables built."""
         cfg, eng = self.cfg, self.engine
         m_max = self.max_cache if m_max is None else min(m_max, self.max_cache)
         hd = cfg.resolved_head_dim
@@ -532,7 +588,213 @@ class VortexServer:
                             self._capture(cache, tokens, 0)
                     finally:
                         self.release_cache(cache)
+                if self._chained():
+                    continue
+                for sp in self.seq_buckets(m_max):
+                    cache = self.lease_cache(bp, self.kv_bucket(sp))
+                    try:
+                        if self.prefill_graphs.get(
+                                self._prefill_key(cache, bp, sp)) is None:
+                            self._capture_prefill(
+                                cache, torch.zeros((bp, sp),
+                                                   dtype=torch.int64),
+                                sp - 1)
+                    finally:
+                        self.release_cache(cache)
         return built() - before
+
+    # -- lazy-handle chained prefill ----------------------------------------
+
+    def _prefill_chained_supported(self) -> bool:
+        """True when every layer of the architecture runs through the lazy
+        handle chain (plain attn mixer, dense/none MLP, no cross-attention,
+        no vision prefix / encoder stack)."""
+        cfg = self.cfg
+        if cfg.vision_prefix or cfg.encoder_decoder:
+            return False
+        return all(
+            spec.mixer == "attn" and spec.mlp in ("dense", "none")
+            and not spec.cross_attn
+            for spec in cfg.pattern
+        )
+
+    def _chained(self) -> bool:
+        """True when prefills run through the chain (the knob, and an
+        architecture it serves)."""
+        return (self.prefill_mode == "chained"
+                and self._prefill_chained_supported())
+
+    def _chain_gemm_sigs(self) -> list[tuple[int, int]]:
+        """Every (K, N) GEMM signature the chained prefill dispatches:
+        q/k/v/o projections, the MLP pair, and the LM head."""
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        sigs = {
+            (d, cfg.n_heads * hd),        # wq
+            (d, cfg.n_kv_heads * hd),     # wk / wv
+            (cfg.n_heads * hd, d),        # wo
+            (d, cfg.vocab_padded),        # lm head
+        }
+        if any(spec.mlp == "dense" for spec in cfg.pattern):
+            sigs.add((d, cfg.d_ff))       # w_in / w_gate
+            sigs.add((cfg.d_ff, d))       # w_out
+        return sorted(sigs)
+
+    def _chain_aligned(self, bp: int, sp: int) -> bool:
+        """True when EVERY dispatch of a (bp, sp) chained prefill lands on
+        its own bucket: each chain GEMM's selection at m = bp*sp pads to
+        exactly bp*sp, the attention bucket at sp is (sp, hd, sp), and the
+        kv cache bucket covering sp is sp itself -- so handles forward
+        bucket-to-bucket with zero boundary copies end to end."""
+        key = (bp, sp)
+        hit = self._chain_aligned_cache.get(key)
+        if hit is None:
+            eng, cfg = self.engine, self.cfg
+            hd = cfg.resolved_head_dim
+            m = bp * sp
+            ok = all(
+                eng.kernel_for(
+                    GemmWorkload(M=None, N=n, K=k)
+                ).select(m).padded_m == m
+                for k, n in self._chain_gemm_sigs()
+            )
+            if ok:
+                for window in {
+                    spec.window for spec in cfg.pattern
+                    if spec.mixer == "attn"
+                }:
+                    kern = eng.kernel_for(AttentionWorkload(
+                        seq=None, head_dim=hd, causal=True,
+                        window=window, softcap=cfg.attn_softcap,
+                    ))
+                    if kern.select(sp).bucket != (sp, hd, sp):
+                        ok = False
+                        break
+            hit = ok and self.kv_bucket(sp) == sp
+            self._chain_aligned_cache[key] = hit
+        return hit
+
+    def chain_seq_bucket(self, s: int, bp: int = 1) -> int:
+        """The sequence bucket a chained prefill serves ``s`` at: the first
+        engine bucket >= seq_bucket(s) where the whole chain is aligned
+        (``_chain_aligned``), falling back to seq_bucket(s) when none is --
+        a misaligned chain stays correct, it just pays counted boundary
+        copies."""
+        base = self.seq_bucket(s)
+        for sp in self.seq_buckets():
+            if sp >= base and self._chain_aligned(bp, sp):
+                return sp
+        return base
+
+    def _chain_layers(self) -> list:
+        """(spec, params) per layer in execution order (group-major), as
+        views of the stacked parameter tree."""
+        if self._chain_layer_cache is None:
+            cfg = self.cfg
+            self._chain_layer_cache = [
+                (spec, _slice(self.params[f"pos{i}"], g))
+                for g in range(cfg.n_groups)
+                for i, spec in enumerate(cfg.pattern)
+            ]
+        return self._chain_layer_cache
+
+    def _head(self) -> torch.Tensor:
+        """The LM head as a dense (d, vocab_padded) matrix: a tied
+        embedding's transpose is copied once per server (the kernels take
+        dense operands)."""
+        if self._head_cache is None:
+            self._head_cache = (
+                self.params["embed"].T.contiguous()
+                if self.cfg.tie_embeddings else self.params["lm_head"]
+            )
+        return self._head_cache
+
+    @staticmethod
+    def _chain_cache_leaf(t) -> torch.Tensor:
+        """A chain k/v projection as a dense (b, KV, s, hd) tensor: the
+        chain's fully-valid handles realize as their own buffer."""
+        return t.realize() if isinstance(t, LazyBucket) else t
+
+    def prefill_chained(self, bp: int, sp: int, tokens: torch.Tensor, *,
+                        last: int, eager: bool = False,
+                        out_cache: dict | None = None):
+        """Whole-model prefill as a lazy handle chain: embed (plain ops) ->
+        per-layer ``block_forward_lazy`` -> final norm / head / softcap /
+        vocab mask via ``lazy_map`` -- every engine boundary passes a
+        LazyBucket, so at a chain-aligned ``sp`` nothing unstages between
+        dispatches.  ``tokens`` is the (bp, sp) padded batch on the device.
+        Returns ``(logits (bp, vocab_padded), cache)`` like the ``"aot"``
+        prefill: the logits at row ``last`` (the last real prompt token,
+        s - 1, read from the logits handle's buffer without realizing it;
+        the reference reads sp - 1, ROADMAP C1), the cache kv-bucket
+        shaped.  With ``out_cache`` (a leased cache) each layer's k and v
+        are copied into its leaves' first sp rows, one copy each; without,
+        fresh zero-padded leaves are stacked, as the reference does.
+
+        ``eager=True`` runs the IDENTICAL dispatch sequence on plain
+        tensors (per-op stage/unstage) -- the bit-identity reference."""
+        cfg = self.cfg
+        eng = self.engine
+        lazy = not eager
+        if not cfg.use_rope:
+            raise NotImplementedError(
+                f"{cfg.name}: absolute positions are not ported yet"
+            )
+
+        # Pre-block embedding, as the model's forward does it.
+        x = self.params["embed"][tokens]
+        if cfg.embed_scale:
+            x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+        positions = torch.arange(sp, device=x.device)
+
+        if lazy:
+            x = LazyBucket(x, sp, 1)
+        kvs = []
+        for spec, p in self._chain_layers():
+            x, kv = block_forward_lazy(
+                eng, p, x, cfg, spec, positions=positions, lazy=lazy,
+            )
+            kvs.append(kv)
+
+        x = lazy_map(lambda t: norm(t, self.params["final_norm"], cfg), x)
+        logits = lazy_matmul(eng, x, self._head(), lazy=lazy)
+        if cfg.logit_softcap is not None:
+            c = cfg.logit_softcap
+            logits = lazy_map(
+                lambda t: (torch.tanh(t.float() / c) * c).to(t.dtype),
+                logits,
+            )
+        if cfg.vocab_padded != cfg.vocab:
+            def mask(t):
+                t = t.clone()
+                t[..., cfg.vocab:] = -1e30  # argmax never sees the pad
+                return t
+            logits = lazy_map(mask, logits)
+        # Row ``last`` of the handle's buffer is a real row: read it
+        # without forcing a slice.
+        buf = logits.buffer if isinstance(logits, LazyBucket) else logits
+        last_logits = buf[:, last].contiguous()
+
+        kvb = self.kv_bucket(sp)
+        n_pos = len(cfg.pattern)
+        cache: dict = {}
+        for i in range(n_pos):
+            entry = {}
+            for name in ("k", "v"):
+                layers = [self._chain_cache_leaf(kvs[g * n_pos + i][name])
+                          for g in range(cfg.n_groups)]
+                if out_cache is not None:
+                    dst = out_cache[f"pos{i}"][name]
+                    for g, t in enumerate(layers):
+                        dst[g, :, :, :t.shape[2]].copy_(t)
+                    entry[name] = dst
+                else:
+                    entry[name] = torch.stack([
+                        F.pad(t, (0, 0, 0, kvb - t.shape[2]))
+                        for t in layers
+                    ])
+            cache[f"pos{i}"] = entry
+        return last_logits, cache
 
     def mean_dropped_frac(self) -> float:
         """Mean MoE ``dropped_frac`` over every forward served so far (0.0
@@ -589,34 +851,88 @@ class VortexServer:
         (bp,) device tensor, cache, kvb)`` -- the greedy token at each
         row's last REAL prompt position, the kv-bucket cache (already
         registered as pool leases: the caller releases it), and its
-        length."""
+        length.  Runs the chain (``prefill="chained"`` on an architecture
+        it serves, at ``chain_seq_bucket``), else the ``"aot"`` program at
+        ``seq_bucket``: one graph replay with graphs on, the eager forward
+        with graphs off."""
         b, s = tokens.shape
         bp = self.batch_bucket(b)
-        sp = self.seq_bucket(s)
-        toks = np.zeros((bp, sp), np.int64)
-        toks[:b, :s] = tokens
+        chained = self._chained()
+        sp = self.chain_seq_bucket(s, bp) if chained else self.seq_bucket(s)
+        toks = torch.zeros((bp, sp), dtype=torch.int64)
+        toks[:b, :s] = torch.from_numpy(np.asarray(tokens))
         kvb = self.kv_bucket(sp)  # the prefill-emitted cache length
-        self._note(self._prefill_seen, (bp, sp), "prefill_buckets",
-                   "bucket_hits")
+        if not chained:
+            self._note(self._prefill_seen, (bp, sp), "prefill_buckets",
+                       "bucket_hits")
         # With graphs on the prefill writes into leased leaves, so the
-        # decode graphs find the addresses they captured; with graphs off
-        # it emits fresh leaves, adopted as leases (the reference's way).
+        # graphs find the addresses they captured; with graphs off it
+        # emits fresh leaves, adopted as leases (the reference's way).
         out = None if self.graphs is None else self.lease_cache(bp, kvb)
+        dropped = None
         try:
-            with self.engine.use():
-                logits, cache, stats = prefill_step(
-                    self.cfg, self.params,
-                    torch.from_numpy(toks).to(self.device),
-                    cache_len=kvb, last=s - 1, out_cache=out,
-                )
+            if chained:
+                logits, cache = self.prefill_chained(
+                    bp, sp, toks.to(self.device), last=s - 1, out_cache=out)
+            elif out is None:
+                logits, dropped, cache = self._prefill_eager(
+                    None, toks.to(self.device), s - 1, kvb)
+            else:
+                logits, dropped = self._prefill_graphed(out, toks, s - 1)
+                cache = out
         except BaseException:
             if out is not None:
                 self.release_cache(out)
             raise
-        self._note_moe(stats["dropped_frac"])
+        if chained:
+            self.stats["chained_prefills"] += 1
+        else:
+            self._note_moe(dropped)
         if out is None:
             self.adopt_cache(cache)
         return logits.argmax(-1), cache, kvb
+
+    def _prefill_eager(self, cache: dict | None, tokens: torch.Tensor,
+                       last, kvb: int):
+        """The eager ``"aot"`` forward: ``(first-token logits, MoE
+        dropped_frac, cache)``, the cache written into ``cache`` in place
+        (with ``cache`` None, emitted fresh)."""
+        with self.engine.use():
+            logits, cache, stats = prefill_step(
+                self.cfg, self.params, tokens, cache_len=kvb, last=last,
+                out_cache=cache,
+            )
+        return logits, stats["dropped_frac"], cache
+
+    def _prefill_key(self, cache: dict, bp: int, sp: int) -> tuple:
+        """(bp, sp, every cache leaf's address)."""
+        return (bp, sp, tuple(leaf.data_ptr()
+                              for leaf in self._cache_leaves(cache)))
+
+    def _capture_prefill(self, cache: dict, tokens: torch.Tensor, last: int):
+        bp, sp = tokens.shape
+        kvb = next(self._cache_leaves(cache)).shape[3]
+        g = self.prefill_graphs.capture(
+            self._prefill_key(cache, bp, sp),
+            lambda t, i: self._prefill_eager(cache, t, i, kvb)[:2],
+            tokens, last,
+        )
+        self.stats["prefill_graph_captures"] += 1
+        return g
+
+    def _prefill_graphed(self, cache: dict, tokens: torch.Tensor,
+                         last: int):
+        """The ``"aot"`` prefill as one replay of the (bp, sp, cache)
+        graph, captured at the key's first use: ``(first-token logits,
+        dropped_frac)``, the graph's static outputs (read them before the
+        next replay)."""
+        bp, sp = tokens.shape
+        g = self.prefill_graphs.get(self._prefill_key(cache, bp, sp))
+        if g is None:
+            g = self._capture_prefill(cache, tokens, last)
+        out = self.prefill_graphs.replay(g, tokens, last)
+        self.stats["prefill_graph_replays"] += 1
+        return out
 
     def decode_vec(
         self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor
@@ -717,16 +1033,19 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--prefill", choices=("aot", "chained"), default="aot",
+                    help="the prefill program (see VortexServer)")
     ap.add_argument(
         "--warmup", action="store_true",
         help="build every attention and grouped-GEMM executable (and, on "
-             "the card, capture every decode graph) first",
+             "the card, capture every decode and prefill graph) first",
     )
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     server = VortexServer(
-        cfg, max_cache=256, seed=args.seed, device=args.device
+        cfg, max_cache=256, seed=args.seed, device=args.device,
+        prefill=args.prefill,
     )
     if args.warmup:
         n = server.warmup(max_batch=8, m_max=64, max_new=args.max_new)
@@ -749,7 +1068,10 @@ def main() -> None:
         f"{server.device}; prefill_buckets={server.stats['prefill_buckets']} "
         f"bucket_hits={server.stats['bucket_hits']} "
         f"decode_buckets={server.stats['decode_buckets']} "
-        f"decode_bucket_hits={server.stats['decode_bucket_hits']}"
+        f"decode_bucket_hits={server.stats['decode_bucket_hits']} "
+        f"chained_prefills={server.stats['chained_prefills']} "
+        f"prefill_graph_captures={server.stats['prefill_graph_captures']} "
+        f"prefill_graph_replays={server.stats['prefill_graph_replays']}"
     )
     ds = server.decode_stats
     print(
@@ -781,7 +1103,8 @@ def main() -> None:
             f"engine/{kind}: launches={d['launches']} "
             f"stage_copies={d['stage_copies']} "
             f"unstage_copies={d['unstage_copies']} "
-            f"padded={d['padded_calls']}"
+            f"padded={d['padded_calls']} forwarded={d['forwarded']} "
+            f"realize_slices={d['realize_slices']}"
         )
 
 

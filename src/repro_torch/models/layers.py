@@ -16,7 +16,10 @@ exactly where the reference routes them; without one the plain chunked
 attention runs inline.  Likewise each MoE layer serves its experts through
 three ``grouped_gemm`` dispatches (one launch per projection for all
 experts) under a session, and through inline einsums without one.  The
-dense projections are plain matmuls, as the JAX package leaves them to XLA.
+dense projections are plain matmuls, as the JAX package leaves them to XLA,
+except in the lazy handle chain (``block_forward_lazy``, the server's
+``prefill="chained"``), where every projection is an engine ``gemm``
+dispatch.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.engine import LazyBucket, lazy_map
 from repro_torch.kernels.ref import chunked_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.vortex import session
@@ -37,6 +41,10 @@ __all__ = [
     "apply_rope",
     "attn_forward",
     "mlp_forward",
+    "lazy_matmul",
+    "attn_forward_lazy",
+    "mlp_forward_lazy",
+    "block_forward_lazy",
     "route",
     "moe_capacity",
     "moe_forward",
@@ -292,6 +300,148 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if "w_gate" in p else None
     return _glu_act(cfg, h, g) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Lazy handle chain: whole-block prefill with zero boundary copies
+# ---------------------------------------------------------------------------
+# Engine-served block forward where every dispatch output stays a bucket-
+# shaped LazyBucket and the next dispatch consumes the buffer directly
+# (DESIGN.md §8).  The non-engine glue between dispatches (norms, rope,
+# residual adds, head splits) runs row-locally on the raw buffers via
+# lazy_map/LazyBucket.map, so nothing forces a realize inside a block.
+# Single-card serving path (launch/serve.py prefill="chained"): handles are
+# eager-only; the eager per-op reference (``lazy=False``) runs the
+# identical dispatch sequence on plain tensors and is the bit-identity
+# baseline.  Every buffer handed to a kernel is dense: head splits copy
+# (``_split_heads``), head merges copy (``_merge_heads`` reshapes a
+# transpose), and the gemm's (b*s, d) row view of a dense (b, s, d) buffer
+# is a view.
+
+
+def lazy_matmul(engine, x, w, *, lazy: bool = True):
+    """``x @ w`` through the engine's gemm with ``x`` (b, s, d) either a
+    plain tensor or a fully-valid seq-axis LazyBucket (extent == buffer
+    seq).  A handle flattens to a (b*s, d) row handle and forwards
+    bucket-to-bucket; the output re-wraps on the seq axis, clamped back to
+    the chain width if the gemm bucket outgrew it (one counted slice)."""
+    if (
+        lazy and isinstance(x, LazyBucket) and x.axis == 1
+        and x.extent == x.buffer.shape[1]
+    ):
+        b, s, d = x.buffer.shape
+        flat = x.rewrap(x.buffer.reshape(b * s, d), extent=b * s, axis=0)
+        out = engine.dispatch("gemm", flat, w, lazy=True)
+        if isinstance(out, LazyBucket):
+            out = out.clamp(b * s)
+            return x.rewrap(out.buffer.reshape(b, s, -1))
+        return out.reshape(b, s, -1)  # the engine returned a plain tensor
+    if isinstance(x, LazyBucket):
+        x = x.realize()
+    b, s, d = x.shape
+    out = engine.dispatch("gemm", x.reshape(b * s, d), w)
+    return out.reshape(b, s, -1)
+
+
+def attn_forward_lazy(
+    engine,
+    p: dict,
+    x,
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    lazy: bool = True,
+):
+    """Prefill GQA attention as a handle chain: q/k/v projections,
+    attention and the output projection all forward bucket-to-bucket.
+
+    ``positions`` must cover the BUFFER seq width (rope is row-local, so
+    pad rows get real rotations applied to garbage -- confined).  Returns
+    ``(y, {"k": k, "v": v})`` where k/v are the post-rope head-split
+    projections -- (b, KV, s, hd) handles on the seq axis, which serving
+    writes into the kv cache.
+    """
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+
+    q = lazy_matmul(engine, x, p["wq"], lazy=lazy)
+    k = lazy_matmul(engine, x, p["wk"], lazy=lazy)
+    v = lazy_matmul(engine, x, p["wv"], lazy=lazy)
+
+    def split(t, n):
+        if isinstance(t, LazyBucket):
+            return t.rewrap(_split_heads(t.buffer, n), axis=2)
+        return _split_heads(t, n)
+
+    q, k, v = split(q, H), split(k, KV), split(v, KV)
+
+    if cfg.use_rope:
+        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+        cos, sin = cos[None, None], sin[None, None]  # (1, 1, s, hd/2)
+
+        def rope(t):
+            return apply_rope(t, cos, sin)
+
+        q = q.map(rope) if isinstance(q, LazyBucket) else rope(q)
+        k = k.map(rope) if isinstance(k, LazyBucket) else rope(k)
+
+    out = engine.dispatch(
+        "attention", q, k, v, causal=causal, window=spec.window,
+        softcap=cfg.attn_softcap, lazy=lazy,
+    )
+    sp = (x.buffer if isinstance(x, LazyBucket) else x).shape[1]
+    if isinstance(out, LazyBucket):
+        out = out.clamp(sp)
+        merged = out.rewrap(_merge_heads(out.buffer), axis=1)
+    else:
+        merged = _merge_heads(out)
+    y = lazy_matmul(engine, merged, p["wo"], lazy=lazy)
+    return y, {"k": k, "v": v}
+
+
+def mlp_forward_lazy(engine, p: dict, x, cfg: ModelConfig, *,
+                     lazy: bool = True):
+    """Dense MLP as a handle chain (activation via lazy_map, row-local)."""
+    h = lazy_matmul(engine, x, p["w_in"], lazy=lazy)
+    if "w_gate" in p:
+        g = lazy_matmul(engine, x, p["w_gate"], lazy=lazy)
+        h = lazy_map(lambda a, b: _glu_act(cfg, a, b), h, g)
+    else:
+        h = lazy_map(lambda a: _glu_act(cfg, a, None), h)
+    return lazy_matmul(engine, h, p["w_out"], lazy=lazy)
+
+
+def block_forward_lazy(
+    engine,
+    p: dict,
+    x,
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    lazy: bool = True,
+):
+    """One transformer block (attn mixer + dense/none MLP) as a handle
+    chain: the attention -> projection -> MLP sequence passes LazyBuckets
+    across every engine boundary; norms and residual adds ride lazy_map.
+    Returns ``(x, kv)`` with kv the layer's k/v handles for the cache."""
+    if not (spec.mixer == "attn" and spec.mlp in ("dense", "none")
+            and not spec.cross_attn):
+        raise ValueError("the lazy chain serves plain attn blocks only")
+    h = lazy_map(lambda t: norm(t, p["norm_mixer"], cfg), x)
+    y, kv = attn_forward_lazy(
+        engine, p["attn"], h, cfg, spec,
+        positions=positions, causal=causal, lazy=lazy,
+    )
+    x = lazy_map(torch.add, x, y)
+    if spec.mlp != "none":
+        h = lazy_map(lambda t: norm(t, p["norm_mlp"], cfg), x)
+        y = mlp_forward_lazy(engine, p["mlp"], h, cfg, lazy=lazy)
+        x = lazy_map(torch.add, x, y)
+    return x, kv
 
 
 # ---------------------------------------------------------------------------

@@ -201,19 +201,26 @@ def forward(
 
 def prefill_step(
     cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-    cache_len: int, last: int, out_cache: dict | None = None,
+    cache_len: int, last: int | torch.Tensor,
+    out_cache: dict | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Prefill a bucket-padded batch: ``(logits at row last (b, vocab),
     cache, moe_stats)`` (``moe_stats`` as :func:`forward` returns it).
     ``last`` is the index of the last real prompt token (s - 1), so the
-    bucket's pad positions never pick the first token.  ``out_cache``
+    bucket's pad positions never pick the first token: an int, or a (1,)
+    integer device tensor that a captured prefill (launch/graphs.py)
+    refills before each replay.  Both read the row with one
+    ``index_select``, so the two give the same bits.  ``out_cache``
     (``cache_len`` long) receives the cache in place instead of fresh
     zero-padded leaves."""
     x, cache, stats = _hidden(
         cfg, params, tokens, mode="prefill", cache=None, pos=None,
         cache_len=cache_len, out_cache=out_cache,
     )
-    return _head(cfg, params, x[:, last]), cache, stats
+    if not torch.is_tensor(last):
+        last = torch.full((1,), last, dtype=torch.long, device=x.device)
+    x_last = x.index_select(1, last.reshape(1)).squeeze(1)
+    return _head(cfg, params, x_last), cache, stats
 
 
 def decode_step(

@@ -18,6 +18,7 @@ Quickstart (on the card)::
 """
 from __future__ import annotations
 
+from repro_torch.core.engine import LazyBucket, lazy_map  # noqa: F401
 from repro_torch.core.workloads import (  # noqa: F401
     WORKLOADS,
     Workload,
@@ -39,12 +40,14 @@ __all__ = [
     "CompiledOp",
     "Engine",
     "EngineConfig",
+    "LazyBucket",
     "WORKLOADS",
     "Workload",
     "compile",
     "current_engine",
     "default_engine",
     "installed_engine",
+    "lazy_map",
     "make_workload",
     "ops",
     "pow2_bucket",

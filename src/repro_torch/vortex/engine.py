@@ -230,11 +230,15 @@ class Engine:
             self._dispatch[key] = kern
         return kern
 
-    def dispatch(self, kind: str, *args: Any, **kwargs: Any):
+    def dispatch(self, kind: str, *args: Any, lazy: bool = False,
+                 **kwargs: Any):
         """Serve one call of a registered workload kind: ``args`` are the
-        runtime tensors, ``kwargs`` the workload parameters.  This is what
-        ``vortex.ops.<kind>(...)`` invokes."""
-        return self.op_kernel(kind, args, kwargs)(*args)
+        runtime tensors (or engine
+        :class:`~repro_torch.core.engine.LazyBucket` handles), ``kwargs``
+        the workload parameters.  ``lazy=True`` asks for the output as a
+        LazyBucket handle -- best-effort, see ``VortexKernel.__call__``.
+        This is what ``vortex.ops.<kind>(...)`` invokes."""
+        return self.op_kernel(kind, args, kwargs)(*args, lazy=lazy)
 
     # -- introspection ------------------------------------------------------
 

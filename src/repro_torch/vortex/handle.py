@@ -64,8 +64,8 @@ class CompiledOp:
 
     # -- serving ------------------------------------------------------------
 
-    def __call__(self, *args):
-        return self._kernel(*args)
+    def __call__(self, *args, lazy: bool = False):
+        return self._kernel(*args, lazy=lazy)
 
     def select(self, m: int) -> Selection:
         return self._kernel.select(m)
@@ -96,7 +96,10 @@ class CompiledOp:
         accounting for this op.  ``dispatch`` carries the padding-free
         contract's observables: launches per call, staging/unstaging copies
         for unaligned extents, how many calls fell back to the zero-pad
-        reference path (``padded_calls`` — 0 in steady-state serving)."""
+        reference path (``padded_calls`` — 0 in steady-state serving), and
+        the lazy-handle chain counters — ``forwarded`` (LazyBucket operands
+        consumed bucket-to-bucket, no boundary copy) and ``realize_slices``
+        (deferred output slices forced by non-engine consumers)."""
         k = self._kernel
         return {
             "kind": self.kind,

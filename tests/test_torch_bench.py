@@ -2,9 +2,11 @@
 ``serving_payload``) on the CPU, held against the JAX package's bench
 sections (benchmarks/bench_workloads.py) on the same requests: the
 structural counters — decode tokens, growth copies and bucket transitions,
-batched steps per concurrency, MoE launches and padded calls, calibrated
-buckets and the persistence roundtrip — are equal, and MoE is
-bit-identical to the dense einsums.  ``run.py --gate`` fails on a payload
+batched steps per concurrency, MoE launches and padded calls, the chained
+prefill's bucket, boundary copies and forwarded operands, calibrated
+buckets and the persistence roundtrip — are equal, and MoE and the chained
+prefill are bit-identical to their references (the dense einsums, the
+eager per-op chain).  ``run.py --gate`` fails on a payload
 doctored to break each of the reference's gates, the calibration gates
 included.
 
@@ -40,7 +42,7 @@ def payload():
 def test_payload_sections_and_card(payload):
     assert payload["mode"] == "smoke" and payload["card"] == "cpu"
     for key in ("dispatch", "hot_path", "decode", "continuous_batching",
-                "moe", "calibration"):
+                "prefill_chain", "moe", "calibration"):
         assert payload[key], key
     assert set(payload["dispatch"]) == set(payload["hot_path"]) == {
         "gemm", "attention", "conv2d"}
@@ -87,6 +89,7 @@ def test_graph_counters_cover_the_timed_windows(payload):
     for r in (dec, cb):
         assert r["graphs"] is False
         assert r["decode_graph_captures"] == r["decode_graph_replays"] == 0
+        assert r["prefill_graph_captures"] == r["prefill_graph_replays"] == 0
     assert dec["timed_steps"] == dec["tokens"] - dec["tokens"] // 2
     serial = cb["requests"] * (cb["max_new"] - 1)
     assert cb["timed_steps"] == serial + sum(
@@ -120,6 +123,23 @@ def test_moe_launches_match_the_reference_and_are_bit_identical(payload):
     assert got["launches_per_moe_layer"] == 1.0
     assert got["bit_identical_to_dense"] and ref["bit_identical_to_dense"]
     assert got["dropped_frac"] == pytest.approx(ref["dropped_frac"])
+
+
+def test_prefill_chain_matches_the_reference(payload):
+    """The same smoke prefill (batch 1, prompt 100) through both packages'
+    chains: the same chain-aligned bucket, zero boundary copies, the same
+    forwarded operands, and bit-identity to the eager per-op chain."""
+    ref = ref_bench._bench_prefill_chain(True)
+    got = payload["prefill_chain"]
+    for key in ("seq_bucket", "batch_bucket", "blocks_per_prefill",
+                "chain_aligned", "boundary_copies_per_block",
+                "forwarded_per_prefill", "bit_identical_to_eager"):
+        assert got[key] == ref[key], key
+    assert got["chain_aligned"] and got["boundary_copies_per_block"] == 0
+    assert got["bit_identical_to_eager"]
+    assert got["kernel_launches_per_prefill"] == {}  # plain versions here
+    assert got["aot_graphed_us_per_prefill"] is None  # no graphs here
+    assert got["aot_eager_us_per_prefill"] > 0
 
 
 def test_calibration_matches_the_reference(payload):
@@ -200,6 +220,12 @@ DOCTORS = {
     "calibration_roundtrip_pending": _set(
         ("calibration", "roundtrip", "pending_after_load"), True),
     "calibration_missing": lambda p: p.pop("calibration"),
+    "chain_copies": _set(("prefill_chain", "boundary_copies_per_block"), 1.5),
+    "chain_not_forwarded": _set(("prefill_chain", "forwarded_per_prefill"),
+                                0),
+    "chain_not_bit_identical": _set(
+        ("prefill_chain", "bit_identical_to_eager"), False),
+    "chain_missing": lambda p: p.pop("prefill_chain"),
 }
 
 

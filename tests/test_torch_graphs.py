@@ -1,6 +1,7 @@
-"""One captured decode step per (form, batch bucket, kv bucket, cache):
-the port's CUDA-graph counterpart of the reference's AOT decode programs
-(launch/graphs.py), on the CPU.
+"""One captured decode step per (form, batch bucket, kv bucket, cache)
+and one captured prefill per (batch bucket, seq bucket, cache): the
+port's CUDA-graph counterparts of the reference's AOT decode and prefill
+programs (launch/graphs.py), on the CPU.
 
 A CUDA graph needs the card, so here ``graphs.capture_graph`` is replaced
 by a stub with a real graph's contract: capture runs the step once and
@@ -19,9 +20,16 @@ rolls back whatever the step's wrappers counted).  Against that stub:
   to the JAX server's), and ``generate()``'s equal the JAX server's at
   aligned prompt lengths here too;
 * a failed capture raises (no eager fallback); the CPU defaults to the
-  eager step, and the real capture refuses the CPU.
+  eager step, and the real capture refuses the CPU;
+* prefill graphs key on (bp, sp) and the cache's addresses, refill the
+  static ``last`` before each replay (two prompt lengths in one bucket
+  replay one graph and read their own last rows), keep an LRU apart from
+  the decode graphs', and repeated scheduler admissions of one shape
+  replay; the chained prefill with graphs on writes its cache into leased
+  leaves, so its decode steps replay too.
 
-The ``cuda`` case holds the real graphs against the eager step on the card.
+The ``cuda`` cases hold the real graphs against the eager steps on the
+card.
 """
 import dataclasses
 
@@ -187,6 +195,9 @@ def test_graphed_counters_equal_an_eager_run(params, monkeypatch):
         assert s_g[key] == s_e[key], key
     assert s_g["decode_graph_replays"] == steps
     assert s_e["decode_graph_captures"] == s_e["decode_graph_replays"] == 0
+    assert s_g["prefill_graph_replays"] == len(reqs)
+    assert s_g["prefill_graph_captures"] == 3  # (1, 9) is served twice
+    assert s_e["prefill_graph_captures"] == s_e["prefill_graph_replays"] == 0
     assert st_g["kv_pool"]["leases_active"] == 0
 
 
@@ -250,11 +261,17 @@ def test_scheduler_tokens_equal_the_eager_step(monkeypatch):
     # A second scheduler over the same server leases the same shared
     # leaves: its steps replay and capture nothing.
     n = graphed.stats["decode_graph_captures"]
+    n_prefill = graphed.stats["prefill_graph_captures"]
+    assert graphed.stats["prefill_graph_replays"] == len(reqs)
     sched = ContinuousScheduler(graphed, batch_rows=4)
     rids = [sched.submit(r) for r in reqs]
     res = sched.drain()
     sched.close()
     assert graphed.stats["decode_graph_captures"] == n
+    # Repeated admissions of one (bp, sp) lease the same per-request
+    # leaves and replay their prefill graph.
+    assert graphed.stats["prefill_graph_captures"] == n_prefill
+    assert graphed.stats["prefill_graph_replays"] == 2 * len(reqs)
     for rid, want in zip(rids, got["eager"]):
         np.testing.assert_array_equal(res[rid], want)
 
@@ -265,12 +282,16 @@ def test_warmup_captures_what_later_requests_replay(params, monkeypatch):
     srv.warmup(max_batch=2, m_max=32, max_new=4)
     n = srv.stats["decode_graph_captures"]
     assert n == 2 * len(srv.decode_buckets(m_max=32, max_new=4))
+    n_prefill = srv.stats["prefill_graph_captures"]
+    assert n_prefill == 2 * len(srv.seq_buckets(32))
     assert srv.kv_pool.stats()["leases_active"] == 0
     rng = np.random.default_rng(7)
     for b, s in ((1, 20), (2, 9), (1, 32)):
         srv.generate(_req(rng, b, s, 4))
     assert srv.stats["decode_graph_captures"] == n
     assert srv.stats["decode_graph_replays"] == 9
+    assert srv.stats["prefill_graph_captures"] == n_prefill
+    assert srv.stats["prefill_graph_replays"] == 3
 
 
 def test_a_failed_capture_raises_and_settles_the_leases(params, monkeypatch):
@@ -313,6 +334,164 @@ def test_tokens_equal_the_jax_server_at_aligned_prompt_lengths(monkeypatch):
     assert port.stats["decode_graph_replays"] == 8
 
 
+def test_prefill_graph_keys_on_bucket_and_cache_addresses(params,
+                                                         monkeypatch):
+    srv, eager = _server(params, True), _server(params, False)
+    _stub(monkeypatch, srv)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(0, CFG.vocab, (2, 20))
+    bp, sp = srv.batch_bucket(2), srv.seq_bucket(20)
+    first, cache, kvb = srv.prefill(toks)
+    key = srv.prefill_graphs.keys()[0]
+    assert key == srv._prefill_key(cache, bp, sp)
+    assert key[:2] == (bp, sp)
+    srv.release_cache(cache)
+    again, cache, _ = srv.prefill(toks)  # the same leaves: a replay
+    assert srv.stats["prefill_graph_captures"] == 1
+    assert srv.stats["prefill_graph_replays"] == 2
+    assert torch.equal(first, again)
+    # A cache at new addresses (this one is still leased) captures anew.
+    other, cache2, _ = srv.prefill(toks)
+    assert srv.stats["prefill_graph_captures"] == 2
+    assert srv.prefill_graphs.keys()[-1][2] != key[2]
+    want, ecache, _ = eager.prefill(toks)
+    for got_first in (first, again, other):
+        assert torch.equal(got_first, want)
+    for c in (cache, cache2):
+        for name in ("k", "v"):
+            leaf = c["pos0"][name][..., :20, :]
+            assert torch.equal(leaf, ecache["pos0"][name][..., :20, :])
+        srv.release_cache(c)
+    eager.release_cache(ecache)
+    assert srv.kv_pool.stats()["leases_active"] == 0
+    assert srv.graphs.keys() == []  # no decode step ran
+
+
+def test_prefill_graph_refills_the_static_last_row(params, monkeypatch):
+    """Two prompt lengths in one seq bucket share one graph; each replay
+    reads its own last real row, as the eager prefill does."""
+    srv, eager = _server(params, True), _server(params, False)
+    _stub(monkeypatch, srv)
+    rng = np.random.default_rng(11)
+    s1, s2 = 17, 30
+    assert srv.seq_bucket(s1) == srv.seq_bucket(s2)
+    for s in (s1, s2, s1):
+        toks = rng.integers(0, CFG.vocab, (1, s))
+        got, cache, _ = srv.prefill(toks)
+        srv.release_cache(cache)
+        want, ecache, _ = eager.prefill(toks)
+        eager.release_cache(ecache)
+        assert torch.equal(got, want), s
+    assert srv.stats["prefill_graph_captures"] == 1
+    assert srv.stats["prefill_graph_replays"] == 3
+    g = srv.prefill_graphs.get(srv.prefill_graphs.keys()[0])
+    assert g.inputs[1].tolist() == [s1 - 1]
+
+
+def test_prefill_lru_is_apart_from_the_decode_lru(params, monkeypatch):
+    srv = _server(params, True)
+    _stub(monkeypatch, srv)
+    srv.prefill_graphs.MAX_GRAPHS = 1
+    rng = np.random.default_rng(12)
+    for b in (1, 2, 4):
+        srv.generate(_req(rng, b, 9, 3))
+    assert [k[0] for k in srv.prefill_graphs.keys()] == [4]
+    assert [k[1] for k in srv.graphs.keys()] == [1, 2, 4]
+    assert srv.graphs.memory is srv.prefill_graphs.memory  # one pool
+    srv.generate(_req(rng, 1, 9, 3))  # evicted: captures again
+    assert srv.stats["prefill_graph_captures"] == 4
+    assert srv.stats["decode_graph_captures"] == 3
+
+
+def test_chained_prefill_with_graphs_leases_and_replays(params, monkeypatch):
+    """``prefill="chained"`` stays eager with graphs on; it writes its
+    cache into leased leaves, so a repeat shape's decode steps replay."""
+    srv = _server(params, True, prefill="chained")
+    ref = _server(params, False, prefill="chained")
+    _stub(monkeypatch, srv)
+    rng = np.random.default_rng(13)
+    req = _req(rng, 2, 37, 4)
+    want = ref.generate(req)
+    for _ in range(2):
+        np.testing.assert_array_equal(srv.generate(req), want)
+    assert srv.stats["chained_prefills"] == 2
+    assert srv.stats["prefill_graph_captures"] == 0
+    assert srv.stats["decode_graph_captures"] == 1
+    assert srv.stats["decode_graph_replays"] == 6
+    assert srv.kv_pool.stats()["leases_active"] == 0
+
+
+@pytest.mark.cuda
+def test_graphed_prefill_bit_identical_to_eager_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("paper-gpt2-124m")
+    graphed = VortexServer(cfg, max_cache=256, seed=0)
+    eager = VortexServer(cfg, max_cache=256, params=graphed.params,
+                         graphs=False)
+    rng = np.random.default_rng(14)
+    for b, s in ((2, 60), (1, 100), (2, 50)):
+        toks = rng.integers(0, cfg.vocab, (b, s))
+        got, cache, _ = graphed.prefill(toks)
+        want, ecache, _ = eager.prefill(toks)
+        assert torch.equal(got, want), (b, s)
+        for key in cache:
+            for name in ("k", "v"):
+                assert torch.equal(cache[key][name][..., :s, :],
+                                   ecache[key][name][..., :s, :])
+        graphed.release_cache(cache)
+        eager.release_cache(ecache)
+    assert graphed.stats["prefill_graph_replays"] == 3
+
+
+@pytest.mark.cuda
+def test_chained_prefill_on_the_card_is_bit_identical_to_eager():
+    """The chain on the card: 0 boundary copies at its bucket, every GEMM
+    and prefill-attention launch on the tensor cores, bit-identical to
+    ``eager=True``, and a chained ``generate()`` replays its decode
+    graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the hand-written kernels)")
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("paper-gpt2-124m")
+    srv = VortexServer(cfg, max_cache=256, seed=0, prefill="chained")
+    rng = np.random.default_rng(15)
+    s = 100
+    sp = srv.chain_seq_bucket(s)
+    toks = torch.zeros((1, sp), dtype=torch.int64)
+    toks[:, :s] = torch.from_numpy(rng.integers(0, cfg.vocab, (1, s)))
+    toks = toks.cuda()
+    srv.prefill_chained(1, sp, toks, last=s - 1)  # warm: executables
+    st0 = srv.engine_dispatch_stats()["gemm"]
+    n0 = kernels.launch_counts()
+    last, cache = srv.prefill_chained(1, sp, toks, last=s - 1)
+    n1 = kernels.launch_counts()
+    st1 = srv.engine_dispatch_stats()["gemm"]
+    gemms = 6 * cfg.n_layers + 1
+    assert n1["vortex_gemm.tensor_core"] - n0["vortex_gemm.tensor_core"] \
+        == gemms
+    assert n1["flash_attention_prefill.tensor_core"] \
+        - n0["flash_attention_prefill.tensor_core"] == cfg.n_layers
+    assert st1["forwarded"] - st0["forwarded"] == gemms
+    for key in ("stage_copies", "unstage_copies", "realize_slices"):
+        assert st1[key] == st0[key], key
+    last_e, cache_e = srv.prefill_chained(1, sp, toks, last=s - 1,
+                                          eager=True)
+    assert torch.equal(last, last_e)
+    for key in cache:
+        for name in ("k", "v"):
+            assert torch.equal(cache[key][name], cache_e[key][name])
+    req = Request(tokens=rng.integers(0, cfg.vocab, (2, s)), max_new=4)
+    first = srv.generate(req)
+    n = srv.stats["decode_graph_captures"]
+    np.testing.assert_array_equal(srv.generate(req), first)
+    assert srv.stats["decode_graph_captures"] == n
+    assert srv.stats["chained_prefills"] == 2
+
+
 @pytest.mark.cuda
 def test_graphed_logits_bit_identical_to_eager_on_the_card():
     if not torch.cuda.is_available():
@@ -324,11 +503,13 @@ def test_graphed_logits_bit_identical_to_eager_on_the_card():
     eager = VortexServer(cfg, max_cache=256, params=graphed.params,
                          graphs=False)
     rng = np.random.default_rng(9)
-    tok, cache, _ = graphed.prefill(rng.integers(0, cfg.vocab, (2, 60)))
+    s = 50  # ten decode steps stay inside the prefill's 64-row cache
+    tok, cache, kvb = graphed.prefill(rng.integers(0, cfg.vocab, (2, s)))
+    assert kvb >= s + 10
     copy = {k: {n: leaf.clone() for n, leaf in e.items()}
             for k, e in cache.items()}
     t = tok[:, None]
-    for pos in range(60, 70):
+    for pos in range(s, s + 10):
         a = graphed._decode(cache, t, pos, graphed._decode_seen)
         b = eager._decode(copy, t, pos, eager._decode_seen)
         assert torch.equal(a, b), pos
