@@ -174,7 +174,33 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    leases are back to 0.  Prints each slice's wall time against the
    budget, the grouped GEMM's analytical and calibrated tile at each
    served capacity bucket, and rows 3a/3b's device time under both.
-7. Print the kernels line (with phase 6's launch counts), then the result
+7. Failure domains on the card (core/engine.py's degradation ladder,
+   core/denylist.py, launch/graphs.py's ladder-aware capture).
+   ``tools/chaos_torch.py`` runs in-process for seeds 0-2 (phase A: a
+   bf16 ``vortex.ops.gemm`` stream at K = N = 768 under seeded
+   precompile/aot_launch faults, within 2^-7 of a float32 matmul; phase
+   B: paper-gpt2-124m at full width with graphs on, float32, behind
+   ``ContinuousScheduler`` under pool_lease/scheduler_step faults: every
+   request resolves, non-faulted tokens equal serial ``generate()``'s,
+   0 leases after close).  A gemm call with every precompile and
+   aot_launch occurrence failing takes the ``impl="torch"`` rung (no
+   ``vortex_gemm`` launch, 1 + max_kernel_retries quarantines, within
+   2^-7 of the plain version) and persists its quarantines; a fresh
+   ``Engine`` on the same cache directory loads the denylist and serves
+   the same call with 0 quarantine events and one kernel launch.  A fault
+   aimed at the first launch inside a decode step's capture: the ladder
+   quarantines once, the capture is taken again, the graphed logits equal
+   the eager step's (``graphs=False`` on the same engine) bit for bit,
+   and a replay fires no fault site.  Prints the host µs of a healthy
+   gemm call, of a call that walked one rung and of a call that fell
+   back to the plain version, with the card's name and power limit.
+   Every earlier phase fails unless the ladder never fired on any engine
+   kernel it built (``fallbacks == quarantined == 0``, no plan
+   installed): a quarantine or a fallback there would hide a kernel that
+   fails on the main path.  The script points ``VORTEX_CACHE_DIR`` at a
+   temporary directory, so no denylist from an earlier run steers a
+   selection.
+8. Print the kernels line (with phase 6's launch counts), then the result
    line.  Every phase prints its wall time.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
@@ -192,6 +218,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1564,6 +1591,40 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
+class LadderWatch:
+    """The DispatchStats of every engine kernel built while the script
+    runs (servers' engines and those inside the benchmark payload too),
+    to hold each phase before 7 to ``fallbacks == quarantined == 0``:
+    with no fault plan installed the degradation ladder must never fire,
+    or a fallback would hide a kernel that fails on the main path."""
+
+    def __init__(self):
+        from repro_torch.core.engine import VortexKernel
+
+        self.stats: list = []
+        init = VortexKernel.__init__
+
+        def tracked(kern, *args, **kwargs):
+            init(kern, *args, **kwargs)
+            self.stats.append(kern.dispatch_stats)
+
+        VortexKernel.__init__ = tracked
+
+    def check(self, where: str) -> str:
+        """Fails unless the ladder stayed silent on every kernel built
+        since the last check; then forgets them."""
+        from repro_torch.runtime import faults
+
+        if faults.ACTIVE is not None:
+            fail(f"{where}: a fault plan is installed")
+        loud = [st for st in self.stats if st.fallbacks or st.quarantined]
+        if loud:
+            fail(f"{where}: the degradation ladder fired with no plan "
+                 f"installed: {[st.as_dict() for st in loud]}")
+        n, self.stats = len(self.stats), []
+        return f"ladder silent on {n} engine kernels"
+
+
 def phase_gemma2(kernels) -> dict:
     """Phases 4c and 4d: gemma2-9b at full width and depth."""
     from repro_torch.launch.serve import Request, VortexServer
@@ -2762,6 +2823,229 @@ def phase_served_calibration(dev, kernels, smi: str) -> dict:
             "logit_rel": after["logit_rel"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: failure domains -- the degradation ladder, the denylist, chaos
+# ---------------------------------------------------------------------------
+
+LADDER_M = 100  # an unaligned gemm extent: one staging and one launch
+
+
+def host_us(fn, iters: int = 50, before=None) -> float:
+    """Median host wall-clock µs of one synchronized call of ``fn``;
+    ``before`` runs untimed ahead of each call."""
+    ts = []
+    for _ in range(iters):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e6)
+    return float(np.median(ts))
+
+
+def ladder_counts(eng) -> dict:
+    """quarantined/fallbacks summed over an engine's kinds."""
+    st = [s for kind, s in eng.stats().items() if kind != "calibration"]
+    return {k: sum(s[k] for s in st) for k in ("quarantined", "fallbacks")}
+
+
+def gemm_ladder(dev, kernels, smi: str) -> dict:
+    """Phase 7: a hammered gemm call takes the impl="torch" rung and
+    persists its quarantines; a fresh engine on the same cache directory
+    loads them and serves with 0 quarantine events; the ladder's µs."""
+    import glob
+
+    from repro_torch import vortex
+    from repro_torch.kernels.gemm import vortex_gemm_plain
+    from repro_torch.runtime import faults
+
+    d, dt = 768, torch.bfloat16
+    g = torch.Generator().manual_seed(70)
+    a = torch.randn(LADDER_M, d, generator=g).to(dev, dt)
+    b = torch.randn(d, d, generator=g).to(dev, dt)
+    plain = vortex_gemm_plain(a, b)
+    cache = tempfile.mkdtemp(prefix="deny-",
+                             dir=os.environ["VORTEX_CACHE_DIR"])
+
+    def launches() -> int:
+        return kernels.launch_counts()["vortex_gemm"]
+
+    eng = vortex.Engine(calibration_cache_dir=cache)
+    hammer = faults.FaultPlan({"precompile": range(1, 200),
+                               "aot_launch": range(1, 200)})
+    n0 = launches()
+    with faults.installed(hammer), vortex.use(eng):
+        out = vortex.ops.gemm(a, b)
+    torch.cuda.synchronize()
+    st = ladder_counts(eng)
+    rungs = 1 + eng.config.max_kernel_retries
+    kern = next(iter(eng.kernels().values()))
+    quarantined = set(kern._quarantined)
+    deny = glob.glob(os.path.join(cache, "*.deny.json"))
+    print(f"phase 7 hammered gemm ({LADDER_M}x{d} @ {d}x{d} bf16): fired "
+          f"{len(hammer.fired)}, {st}, vortex_gemm launches "
+          f"{launches() - n0}, denylist files {len(deny)} holding "
+          f"{len(quarantined)} keys")
+    if st != {"quarantined": rungs, "fallbacks": 1} or launches() != n0:
+        fail(f"phase 7: the hammered gemm did not take the impl='torch' "
+             f"rung after {rungs} quarantines: {st}")
+    check("phase 7 hammered gemm (impl='torch' rung)", out, plain,
+          TOL[dt])
+    if len(deny) != 1 or len(quarantined) != rungs:
+        fail(f"phase 7: expected one denylist file of {rungs} keys, got "
+             f"{deny} and {quarantined}")
+
+    eng2 = vortex.Engine(calibration_cache_dir=cache)
+    n0 = launches()
+    with vortex.use(eng2):
+        out2 = vortex.ops.gemm(a, b)
+    torch.cuda.synchronize()
+    st2 = ladder_counts(eng2)
+    kern2 = next(iter(eng2.kernels().values()))
+    print(f"phase 7 restart on the same cache: {st2}, vortex_gemm launches "
+          f"{launches() - n0}, denylist keys loaded "
+          f"{len(kern2._quarantined)}")
+    if st2 != {"quarantined": 0, "fallbacks": 0} or launches() - n0 != 1:
+        fail(f"phase 7: the restarted engine re-failed a denylisted "
+             f"candidate or fell back: {st2}")
+    if kern2._quarantined != quarantined or \
+            kern2._qkey(kern2._select_healthy(LADDER_M)) in quarantined:
+        fail("phase 7: the restarted engine did not load the denylist")
+    check("phase 7 gemm after restart", out2, plain, TOL[dt])
+
+    # The ladder's cost with warm executables: no persistence, and the
+    # quarantine cleared before each timed call so each walks again.
+    eng3 = vortex.Engine(denylist_persist=False)
+
+    def call():
+        with vortex.use(eng3):
+            return vortex.ops.gemm(a, b)
+
+    call()
+    kern3 = next(iter(eng3.kernels().values()))
+    reset = kern3._quarantined.clear
+    healthy = host_us(call, before=reset)
+    walk = faults.FaultPlan({"aot_launch": range(1, 1000, 2)})  # odd ones
+    with faults.installed(walk):
+        reset()
+        call()  # builds the next-best candidate's executable
+        walked = host_us(call, before=reset)
+    c0 = ladder_counts(eng3)
+    down = faults.FaultPlan({"aot_launch": range(1, 1000)})
+    with faults.installed(down):
+        reset()
+        call()
+        fallback = host_us(call, before=reset)
+    c1 = ladder_counts(eng3)
+    if c1["fallbacks"] - c0["fallbacks"] != 51:
+        fail(f"phase 7: the timed fallback calls did not all fall back: "
+             f"{c0} -> {c1}")
+    print(f"phase 7 gemm ({LADDER_M}x{d} @ {d}x{d} bf16) host us a call: "
+          f"healthy {healthy:.1f}, one rung walked {walked:.1f}, "
+          f"impl='torch' rung after {rungs} failed rungs {fallback:.1f} "
+          f"[median of 50 synchronized calls, host wall-clock] on {smi}")
+    return {"healthy_us": healthy, "walked_us": walked,
+            "fallback_us": fallback}
+
+
+def graph_ladder(serve_info) -> dict:
+    """Phase 7: a fault aimed at the first launch inside a decode step's
+    capture.  The ladder quarantines once, the capture is taken again,
+    the graphed logits equal the eager step's on the same engine, and a
+    replay fires no fault site."""
+    from repro_torch import vortex
+    from repro_torch.core.hardware import get_hardware
+    from repro_torch.launch.graphs import StepCounters
+    from repro_torch.launch.serve import VortexServer
+    from repro_torch.runtime import faults
+
+    cfg, params = serve_info["cfg"], serve_info["server"].params
+    eng = vortex.Engine(vortex.EngineConfig(
+        backends=(get_hardware("h100_sxm").default_backend,),
+        denylist_persist=False))
+    srv = VortexServer(cfg, max_cache=256, params=params, engine=eng)
+    eager = VortexServer(cfg, max_cache=256, params=params, engine=eng,
+                         graphs=False)
+    rng = np.random.default_rng(71)
+    b, s = 2, 40
+    tok, cache, _ = srv.prefill(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int64))
+
+    def clone(c):
+        return {k: {n: leaf.clone() for n, leaf in e.items()}
+                for k, e in c.items()}
+
+    copy, probe = clone(cache), clone(cache)
+    eager.adopt_cache(copy)
+    eager.adopt_cache(probe)
+    t, pos = tok[:, None], s
+    count = faults.FaultPlan({})
+    with faults.installed(count):
+        eager._decode(probe, t, pos, eager._decode_seen)
+    n_step = count.counts.get("aot_launch", 0)
+    if not n_step:
+        fail("phase 7: a decode step made no engine launch")
+    plan = faults.FaultPlan({"aot_launch": [n_step + 1]})
+    c0 = srv.stats["decode_graph_captures"]
+    try:
+        with faults.installed(plan):
+            got = srv._decode(cache, t, pos, srv._decode_seen)
+            seen = plan.counts["aot_launch"]
+            t2 = got.argmax(-1)[:, None]
+            got2 = srv._decode(cache, t2, pos + 1, srv._decode_seen)
+            replay_seen = plan.counts["aot_launch"] - seen
+        want = eager._decode(copy, t, pos, eager._decode_seen)
+        want2 = eager._decode(copy, t2, pos + 1, eager._decode_seen)
+        graph = srv.graphs.get(srv.graphs.keys()[-1])
+        st = ladder_counts(eng)
+        captures = srv.stats["decode_graph_captures"] - c0
+        print(f"phase 7 decode capture fault ({cfg.name}, b={b}, pos {pos}):"
+              f" fired {plan.fired} of {seen} aot_launch checks (4 x "
+              f"{n_step} + 1: warm-up, capture with the fault, warm-up, "
+              f"capture), {st}, {captures} capture, replay checks "
+              f"{replay_seen}; graphed logits vs eager bit-identical="
+              f"{torch.equal(got, want) and torch.equal(got2, want2)}")
+        if plan.fired != [("aot_launch", n_step + 1)] or \
+                seen != 4 * n_step + 1:
+            fail(f"phase 7: the capture fault did not lead to one "
+                 f"re-capture: fired {plan.fired}, {seen} checks")
+        if st != {"quarantined": 1, "fallbacks": 0} or captures != 1:
+            fail(f"phase 7: expected one quarantine and one capture, got "
+                 f"{st} and {captures}")
+        if replay_seen or StepCounters.ladder_moved(graph.delta):
+            fail("phase 7: a replay fired a fault site or counts a ladder "
+                 "event")
+        if not (torch.equal(got, want) and torch.equal(got2, want2)):
+            fail("phase 7: graphed logits after the ladder differ from the "
+                 "eager step's")
+    finally:
+        srv.release_cache(cache)
+        eager.release_cache(copy)
+        eager.release_cache(probe)
+    for x in (srv, eager):
+        if x.kv_pool.stats()["leases_active"]:
+            fail("phase 7: leases left active")
+    return {"n_step": n_step}
+
+
+def phase_failure_domains(dev, kernels, serve_info: dict, smi: str) -> dict:
+    """Phase 7: the ladder on a gemm, inside a decode capture, then
+    tools/chaos_torch.py for seeds 0-2 in-process."""
+    out = gemm_ladder(dev, kernels, smi)
+    out.update(graph_ladder(serve_info))
+    sys.path.insert(0, str(ROOT / "tools"))
+    import chaos_torch
+
+    for seed in (0, 1, 2):
+        failures = chaos_torch.run(seed, "cuda")
+        free_cuda()
+        if failures:
+            fail(f"phase 7: tools/chaos_torch.py --seed {seed}: {failures}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script runs on an NVIDIA GPU")
@@ -2787,9 +3071,17 @@ def main() -> int:
     errs = {"vortex_gemm": 0.0, "flash_attention_prefill": 0.0,
             "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
 
-    def phase(label: str, fn, *args, done: str = ""):
+    # No denylist from an earlier run on this machine may steer a
+    # selection: the engines' default cache directory is a fresh one.
+    cache_root = tempfile.TemporaryDirectory(prefix="vortex-smoke-")
+    os.environ["VORTEX_CACHE_DIR"] = cache_root.name
+    watch = LadderWatch()
+
+    def phase(label: str, fn, *args, done: str = "", ladder: bool = True):
         t = time.perf_counter()
         out = fn(*args)
+        if ladder:
+            done += ("; " if done else "") + watch.check(f"phase {label}")
         print(f"phase {label}: {done + '; ' if done else ''}wall_s="
               f"{time.perf_counter() - t:.1f}", flush=True)
         return out
@@ -2847,6 +3139,9 @@ def main() -> int:
 
     phase("6b", phase6b, done=f"calibration on the card ok ({ARCHS[1]} "
                               f"served after an idle-slice swap)")
+    phase("7", phase_failure_domains, dev, kernels, serve_info, smi,
+          done="failure domains on the card ok", ladder=False)
+    cache_root.cleanup()
     print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

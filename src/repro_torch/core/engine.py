@@ -19,8 +19,21 @@ CPU lowering, counterpart of the reference's ``impl="xla"``).  PyTorch runs
 eagerly, so the reference's one AOT program per bucket becomes one kernel
 launch per call (and, inside a served decode step, one node of the step's
 CUDA graph: launch/graphs.py).  An unaligned call stages every operand in
-one launch of the staging kernel (kernels/stage.py).  A kernel that fails
-raises: there is no degradation rung in this package yet.
+one launch of the staging kernel (kernels/stage.py).
+
+A candidate that raises at executable build or launch walks the
+degradation ladder (``_degrade``, DESIGN.md §11): it is quarantined, the
+next-best lattice candidate is retried up to ``max_retries`` times, and
+the last rung runs the plain PyTorch versions (``impl="torch"``).  The
+ladder catches what a launch raises synchronously -- a wrapper's
+``ValueError`` for a tile it refuses, a nonzero ``cudaError_t`` returned
+by a kernel's launch, an injected fault (runtime/faults.py).  An
+asynchronous device fault (an illegal address) poisons the CUDA context
+and no rung recovers from it; the hot path adds no synchronize to find
+one.  A kernel library that fails to build (:class:`KernelLibraryError`)
+is no candidate's fault: it propagates with nothing quarantined.
+Quarantines persist through a :class:`~repro_torch.core.denylist.
+DenylistStore` once a lower rung succeeds.
 
 A :class:`LazyBucket` is a bucket-shaped launch output not yet sliced to
 its true extent; a dispatch that receives one at a position its workload
@@ -44,9 +57,11 @@ from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.selector import RuntimeSelector, Selection
 from repro_torch.core.workloads import Workload
 from repro_torch.kernels.stage import StagePlan
+from repro_torch.runtime import faults
 
 __all__ = [
     "DispatchStats",
+    "KernelLibraryError",
     "LazyBucket",
     "OfflineStats",
     "PrecompileError",
@@ -79,6 +94,13 @@ class PrecompileError(RuntimeError):
         )
 
 
+class KernelLibraryError(RuntimeError):
+    """The hand-written kernels' library failed to build or load (no
+    ``nvcc``, a compile error): every candidate would fail alike, so the
+    degradation ladder lets it through instead of quarantining the lattice
+    and falling back to the plain versions for good."""
+
+
 @dataclasses.dataclass
 class DispatchStats:
     """Per-call accounting for the serving hot path, with the reference's
@@ -95,9 +117,13 @@ class DispatchStats:
     NO restage; ``realize_slices`` counts deferred output slices forced by
     a non-engine consumer (``LazyBucket.realize``/``clamp``).  Whole-chain
     boundary traffic is exactly ``stage_copies + unstage_copies +
-    realize_slices``.  ``traced_calls``, ``fallbacks`` and ``quarantined``
-    belong to paths this package does not have (calls traced inside an
-    enclosing jit, the degradation ladder) and stay 0.
+    realize_slices``.  ``traced_calls`` belongs to a path this package
+    does not have (calls traced inside an enclosing jit) and stays 0.
+
+    ``quarantined`` counts candidates the degradation ladder denylisted
+    after a build or launch failure; ``fallbacks`` counts dispatches that
+    exhausted the lattice retries and ran the ``impl="torch"`` rung.  Both
+    are zero on every healthy host.
     """
 
     calls: int = 0
@@ -400,6 +426,8 @@ class _CacheEntry:
     hits: int = 0
 
     def run(self, *args):
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.check("aot_launch")
         return self.fn(*args)
 
 
@@ -415,8 +443,10 @@ class VortexKernel:
     ``table_m_max``/``table_extend_limit`` size the selector's offline
     selection table; ``staging=False`` sends every call to the zero-pad
     reference path; ``staging_pool_cap`` bounds each entry's retained
-    staging-buffer sets.  :class:`repro_torch.vortex.EngineConfig` threads
-    all four through.
+    staging-buffer sets; ``max_retries`` bounds the degradation ladder's
+    re-selections and ``denylist`` (a :class:`~repro_torch.core.denylist.
+    DenylistStore` or None) persists its quarantines.
+    :class:`repro_torch.vortex.EngineConfig` threads all six through.
     """
 
     def __init__(
@@ -434,6 +464,8 @@ class VortexKernel:
         table_extend_limit: int = 1 << 17,
         staging: bool = True,
         staging_pool_cap: int = 4,
+        max_retries: int = 2,
+        denylist=None,
     ):
         if impl not in ("cuda", "torch"):
             raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
@@ -442,6 +474,18 @@ class VortexKernel:
         self._impl = impl
         self._staging = staging
         self._pool_cap = staging_pool_cap
+        self._max_retries = max(int(max_retries), 0)
+        # The degradation ladder's quarantine: string keys of candidates
+        # that failed at build or launch on THIS host, seeded from the
+        # persisted denylist (the calibration cache's fingerprint key) so a
+        # restart never re-fails a known-bad candidate.  Empty on every
+        # healthy host, so the hot path pays one falsy set check.
+        self._denylist = denylist
+        self._sig_key = repr(wl.signature)
+        self._quarantined: set[str] = (
+            set(denylist.get(self._sig_key)) if denylist is not None
+            else set()
+        )
         self.dispatch_stats = DispatchStats()
         t0 = time.perf_counter()
         backends = backends or tuple(hw.backends)
@@ -501,12 +545,18 @@ class VortexKernel:
     # -- executable construction ------------------------------------------
 
     def _build_executable(self, sel: Selection) -> _CacheEntry:
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.check("precompile")
         t0 = time.perf_counter()
         fn = self._wl.build_executable(sel, impl=self._impl)
         if self._impl == "cuda":
             from repro_torch.kernels.build import library
 
-            library()  # nvcc at first use; later entries find it built
+            try:
+                library()  # nvcc at first use; later entries find it built
+            except Exception as e:
+                raise KernelLibraryError(
+                    f"the CUDA kernel library did not build: {e}") from e
         return _CacheEntry(fn=fn, compile_seconds=time.perf_counter() - t0,
                            pool=_StagingPool(self._pool_cap))
 
@@ -574,11 +624,21 @@ class VortexKernel:
         the zero-pad reference path (staging off) and workloads without a
         bucket-shaped output return plain tensors, so chain callers accept
         both.  A call of plain tensors pays one type scan for all this.
+
+        A candidate that raises at build or launch walks the degradation
+        ladder (``_degrade``): the call still returns a correct result
+        whenever any rung works.
         """
         if lazy or LazyBucket in map(type, args):
             return self._call_lazy(args, lazy)
         m = self._wl.dynamic_extent(*args)
-        return self._dispatch(self.selector.select(m), m, args)
+        sel = self._select_healthy(m)
+        try:
+            return self._dispatch(sel, m, args)
+        except KernelLibraryError:
+            raise
+        except Exception as exc:
+            return self._degrade(m, sel, args, False, exc)
 
     def _call_lazy(self, args: tuple, lazy: bool):
         """``__call__`` for handle operands or a ``lazy`` output."""
@@ -596,10 +656,17 @@ class VortexKernel:
             if handles:
                 return self._call_forwarded(args, handles, lazy)
         m = wl.dynamic_extent(*args)
-        return self._dispatch(self.selector.select(m), m, args, lazy)
+        sel = self._select_healthy(m)
+        try:
+            return self._dispatch(sel, m, args, lazy)
+        except KernelLibraryError:
+            raise
+        except Exception as exc:
+            return self._degrade(m, sel, args, lazy, exc)
 
     def _dispatch(self, sel: Selection, m: int, args: tuple,
                   lazy: bool = False):
+        """One dispatch attempt at a fixed Selection (a ladder rung)."""
         wl = self._wl
         entry = self._entry_for(sel, args)
         st = self.dispatch_stats
@@ -647,12 +714,126 @@ class VortexKernel:
             out = entry.run(*staged, *scalars)
         finally:
             # The launch that reads the set is enqueued on this stream; the
-            # pool hands the set only to callers on the same stream.
+            # pool hands the set only to callers on the same stream.  A
+            # launch that raises (a ladder rung) settles the set too.
             entry.pool.release(bufs, device, stream)
         if lazy_out:
             return LazyBucket(out, m, wl.staged_out_axis, st,
                               self._stats_lock)
         return wl.finalize(sel, out, *args)
+
+    # -- degradation ladder (DESIGN.md §11) ---------------------------------
+
+    @staticmethod
+    def _qkey(sel: Selection) -> str:
+        """The quarantine identity of a candidate: what failed is the
+        (bucket, backend, tiling) triple -- the executable the lattice
+        produced -- not the runtime extent that happened to trigger it."""
+        return repr((sel.bucket, sel.backend, sel.strategy.tiles))
+
+    def _select_healthy(self, m: int) -> Selection:
+        """The table/argmin selection, skipping quarantined candidates.
+        The quarantine set is empty on every healthy host, so the hot path
+        pays one falsy check on top of the plain ``select``."""
+        sel = self.selector.select(m)
+        q = self._quarantined
+        if q and self._qkey(sel) in q:
+            healthy = self.selector.select_excluding(m, q, self._qkey)
+            if healthy is not None:
+                return healthy
+        return sel
+
+    def _quarantine(self, sel: Selection) -> bool:
+        """Quarantine ``sel``; True if it was not already quarantined.
+        The check and the add are one step, so two threads failing on one
+        candidate count it once."""
+        key = self._qkey(sel)
+        with self._stats_lock:
+            if key in self._quarantined:
+                return False
+            self._quarantined.add(key)
+            self.dispatch_stats.quarantined += 1
+        return True
+
+    def _unquarantine(self, fresh: list[Selection]) -> None:
+        """Roll back this call's quarantines (``fresh``)."""
+        with self._stats_lock:
+            self.dispatch_stats.quarantined -= len(fresh)
+            for t in fresh:
+                self._quarantined.discard(self._qkey(t))
+
+    def _degrade(
+        self, m: int, sel: Selection, args: tuple, lazy: bool,
+        exc: Exception,
+    ):
+        """Walk the ladder after ``sel`` failed: quarantine it, re-select
+        the next-best lattice candidate excluding quarantined entries,
+        retry up to ``max_retries``, then run the ``impl="torch"`` rung.
+
+        Quarantine keys are persisted to the denylist only once a LOWER
+        rung succeeds -- evidence the failure was candidate-specific rather
+        than a caller error (bad dtypes, shape mismatch) that every
+        candidate would reproduce.  If even the last rung fails, this
+        call's quarantines are rolled back and the last rung's exception
+        propagates from the original one: nothing was learned about the
+        candidates.  A :class:`KernelLibraryError` on a retry rolls back
+        too and propagates as it is.
+        """
+        fresh = [sel] if self._quarantine(sel) else []
+        for _ in range(self._max_retries):
+            nxt = self.selector.select_excluding(
+                m, self._quarantined, self._qkey
+            )
+            if nxt is None:
+                break  # lattice exhausted: straight to the last rung
+            try:
+                out = self._dispatch(nxt, m, args, lazy)
+            except KernelLibraryError:
+                self._unquarantine(fresh)
+                raise
+            except Exception as e:
+                exc = e
+                if self._quarantine(nxt):
+                    fresh.append(nxt)
+                continue
+            self._persist_quarantines(fresh)
+            return out
+        try:
+            out = self._fallback_dispatch(m, args)
+        except Exception as e:
+            self._unquarantine(fresh)
+            raise e from exc
+        self._persist_quarantines(fresh)
+        return out
+
+    def _persist_quarantines(self, fresh: list[Selection]) -> None:
+        if self._denylist is None:
+            return
+        for t in fresh:
+            self._denylist.add(self._sig_key, self._qkey(t))
+
+    def _fallback_dispatch(self, m: int, args: tuple):
+        """The last rung: the plain PyTorch versions (``impl="torch"``) at
+        the analytical selection's bucket, through the zero-pad reference
+        path.  No staging buffers -- nothing the failing rungs shared --
+        and no fault hook, so chaos plans cannot reach it."""
+        wl = self._wl
+        sel = self.selector.select(m)
+        key = (
+            "__torch_fallback__", sel.bucket, sel.strategy.l1,
+            wl.exec_key(*args) if args else (),
+        )
+        entry = self._exec_cache.get(key)
+        if entry is None:
+            entry = _CacheEntry(
+                fn=wl.build_executable(sel, impl="torch"),
+                compile_seconds=0.0, pool=_StagingPool(self._pool_cap))
+            self._exec_cache[key] = entry
+        entry.hits += 1
+        with self._stats_lock:
+            self.dispatch_stats.calls += 1
+            self.dispatch_stats.fallbacks += 1
+        return self._call_padded(sel, entry, args, wl.stage_view(*args))
 
     def _call_forwarded(self, args: tuple, handles: set, lazy: bool):
         """Bucket-to-bucket dispatch: LazyBucket operands hand their raw
@@ -668,6 +849,10 @@ class VortexKernel:
         realizes and the call takes the plain path.  ``consumes_staged``
         positions are call-arg positions; only identity-``stage_view``
         workloads declare any, so view index == arg index throughout.
+
+        The selection skips quarantined candidates (``_select_healthy``;
+        the reference's selects plainly, ROADMAP C9); a forwarded call does
+        not walk the ladder, as in the reference.
         """
         wl = self._wl
         st = self.dispatch_stats
@@ -692,7 +877,7 @@ class VortexKernel:
             # Mixed handle/plain operands whose padded vs true extents the
             # workload refuses to reconcile (attention's q/kv seq match).
             return realize_all()
-        sel = self.selector.select(m_disp)
+        sel = self._select_healthy(m_disp)
         entry = self._entry_for(sel, raw)
         scalars = wl.runtime_scalars(sel, *wl.stage_view(*args))
         shapes = wl.staged_shapes(sel, *view)

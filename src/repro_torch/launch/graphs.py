@@ -30,7 +30,20 @@ delta one captured step counted: the counters read as an eager run's.
 The staging-buffer sets the capture bound stay referenced by the graph, so
 the engine's pool evicting them never frees memory a replay writes.
 
-Nothing falls back: a capture or replay that fails raises.
+The engine's degradation ladder (core/engine.py ``_degrade``) may fire
+inside a warm-up or a capture.  Its events (``quarantined``,
+``fallbacks``) change what the engine serves, not what one step counts:
+they stay counted once, outside the rollback and outside a replay's
+delta, as a quarantine during the reference's AOT trace counts once and
+never per program call.  A capture in which the ladder fired is dropped
+(it holds a failed rung's staging copy and an unsettled selection) and
+the key is warmed up and captured once more, by when the ladder has
+settled on a healthy candidate; a second unsettled capture raises.  A
+replay is not an engine launch, so it fires no fault site.  A quarantine
+drops no graph: a captured graph has launched its candidates on this
+card, as the reference's AOT programs keep what they traced.
+
+Nothing else falls back: a capture or replay that fails raises.
 :func:`capture_graph` is the one call that needs the card; the CPU tests
 replace it with a stub.
 """
@@ -47,6 +60,11 @@ from repro_torch import kernels
 
 __all__ = ["DecodeGraphs", "GraphMemory", "PrefillGraphs", "StepCounters",
            "StepGraph", "StepGraphs", "capture_graph"]
+
+
+# DispatchStats fields the degradation ladder moves: events of the engine,
+# not counts of a step (module docstring).
+LADDER_FIELDS = ("quarantined", "fallbacks")
 
 
 class StepCounters:
@@ -75,6 +93,20 @@ class StepCounters:
             if moved:
                 disp[sig] = moved
         return disp, {k: n - l0[k] for k, n in l1.items() if n != l0[k]}
+
+    @staticmethod
+    def ladder_moved(delta: tuple) -> bool:
+        """True if ``delta`` holds a degradation-ladder event."""
+        return any(f in LADDER_FIELDS
+                   for fields in delta[0].values() for f in fields)
+
+    @staticmethod
+    def without_ladder(delta: tuple) -> tuple:
+        """``delta`` less its degradation-ladder fields."""
+        disp, launches = delta
+        return ({sig: {f: n for f, n in fields.items()
+                       if f not in LADDER_FIELDS}
+                 for sig, fields in disp.items()}, launches)
 
     def add(self, delta: tuple, sign: int = 1) -> None:
         disp, launches = delta
@@ -192,18 +224,25 @@ class StepGraphs:
         before = self.counters.read()
         try:
             with _on_stream(stream):
-                step(*inputs)  # warm-up: executables, scratch, staging
-                warm = self.counters.read()
-                graph, outputs = capture_graph(
-                    lambda: step(*inputs), pool, stream)
-            after = self.counters.read()
+                for _ in range(2):
+                    step(*inputs)  # warm-up: executables, scratch, staging
+                    warm = self.counters.read()
+                    graph, outputs = capture_graph(
+                        lambda: step(*inputs), pool, stream)
+                    delta = StepCounters.diff(warm, self.counters.read())
+                    if not StepCounters.ladder_moved(delta):
+                        break
+                    del graph, outputs  # the ladder fired: capture again
+                else:
+                    raise RuntimeError(
+                        "the degradation ladder fired in two captures of "
+                        "one step: no settled candidate to capture")
         finally:
-            self.counters.add(
-                StepCounters.diff(before, self.counters.read()), sign=-1)
+            self.counters.add(StepCounters.without_ladder(StepCounters.diff(
+                before, self.counters.read())), sign=-1)
         keepalive = [s for k in self.engine.kernels().values()
                      for s in k.staging_sets()]
-        g = StepGraph(graph, inputs, tuple(outputs),
-                      StepCounters.diff(warm, after), keepalive)
+        g = StepGraph(graph, inputs, tuple(outputs), delta, keepalive)
         self._graphs[key] = g
         while len(self._graphs) > self.MAX_GRAPHS:
             self._graphs.popitem(last=False)

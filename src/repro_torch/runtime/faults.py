@@ -1,13 +1,15 @@
 """Deterministic fault injection for chaos tests (a copy of
 src/repro/runtime/faults.py; DESIGN.md §11).
 
-The six sites are the reference's.  This package threads four of them:
-``pool_lease`` (``KVBucketPool.lease``, launch/serve.py),
-``scheduler_step`` (``ContinuousScheduler`` admit and decode launch,
-launch/scheduler.py), ``cache_io`` (``Calibrator.save``/``load``) and
-``calib_measure`` (``Calibrator._measure_bucket``, core/calibrate.py); the
-engine sites (``PENDING``) arrive with the degradation ladder, and until
-then a plan that names one is refused, since it could never fire.
+The six sites are the reference's, and this package threads all of them:
+``precompile`` (``VortexKernel._build_executable``) and ``aot_launch``
+(``_CacheEntry.run``, core/engine.py), ``pool_lease``
+(``KVBucketPool.lease``, launch/serve.py), ``scheduler_step``
+(``ContinuousScheduler`` admit and decode launch, launch/scheduler.py),
+``cache_io`` (``Calibrator.save``/``load``, ``DenylistStore`` I/O) and
+``calib_measure`` (``Calibrator._measure_bucket``, core/calibrate.py).
+A CUDA graph's replay is not an ``_CacheEntry.run`` and fires no site, as
+the reference's traced AOT programs fire none.
 
 A :class:`FaultPlan` names *sites* (fixed hook points threaded through the
 engine, server, scheduler and calibrator) and the exact 1-based occurrence
@@ -46,12 +48,12 @@ SITES = (
     "precompile",      # VortexKernel._build_executable (core/engine.py)
     "aot_launch",      # _CacheEntry.run (core/engine.py)
     "pool_lease",      # KVBucketPool.lease (launch/serve.py)
-    "cache_io",        # Calibrator save/load (core/calibrate.py)
+    "cache_io",        # Calibrator save/load, DenylistStore I/O
     "calib_measure",   # Calibrator._measure_bucket (core/calibrate.py)
     "scheduler_step",  # ContinuousScheduler admit + decode launch
 )
-# Sites no hook of this package checks yet; THREADED are the others.
-PENDING = ("precompile", "aot_launch")
+# Sites no hook of this package checks: none.  THREADED are the others.
+PENDING: tuple[str, ...] = ()
 THREADED = tuple(s for s in SITES if s not in PENDING)
 
 
@@ -75,11 +77,6 @@ class FaultPlan:
                 raise ValueError(
                     f"unknown fault site {site!r}; known: {SITES}"
                 )
-            if site in PENDING:
-                raise ValueError(
-                    f"fault site {site!r} is not threaded in this package "
-                    f"yet; threaded: {THREADED}"
-                )
         self.spec: dict[str, frozenset[int]] = {
             site: frozenset(int(n) for n in occs)
             for site, occs in spec.items()
@@ -95,7 +92,7 @@ class FaultPlan:
         cls,
         seed: int,
         *,
-        sites: Iterable[str] = THREADED,
+        sites: Iterable[str] = SITES,
         rate: float = 0.05,
         horizon: int = 100,
     ) -> "FaultPlan":

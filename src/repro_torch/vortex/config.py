@@ -64,6 +64,13 @@ class EngineConfig:
     * ``calibration_cache_dir`` — where calibrated tables persist (None:
       ``$VORTEX_CACHE_DIR``, else ``~/.cache/vortex``; never inside the
       repo).
+    * ``max_kernel_retries`` — how many next-best lattice candidates the
+      degradation ladder retries after a candidate fails at build or
+      launch, before the ``impl="torch"`` rung (core/engine.py).
+    * ``denylist_persist`` — persist the ladder's quarantines to
+      ``<calibration cache dir>/<fingerprint>.deny.json``
+      (core/denylist.py), so a restarted engine never re-attempts a
+      candidate this host proved bad.
     """
 
     hardware: str = "h100_sxm"
@@ -80,6 +87,8 @@ class EngineConfig:
     calibration_top_k: int = 3
     calibration_budget_s: float = 0.25
     calibration_cache_dir: str | None = None
+    max_kernel_retries: int = 2
+    denylist_persist: bool = True
 
     def __post_init__(self) -> None:
         dev = resolve_device(self.device)
@@ -92,7 +101,8 @@ class EngineConfig:
                 self, "empirical_levels", tuple(self.empirical_levels)
             )
         for name in ("table_m_max", "table_extend_limit",
-                     "precompile_m_max", "staging_pool_cap"):
+                     "precompile_m_max", "staging_pool_cap",
+                     "max_kernel_retries"):
             if getattr(self, name) < 0:
                 raise ValueError(
                     f"{name} must be >= 0, got {getattr(self, name)}"

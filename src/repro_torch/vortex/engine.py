@@ -94,6 +94,9 @@ class Engine:
         # Background calibrator (core/calibrate.py), created on first use
         # when config.calibration != "off".  Guarded by _build_lock.
         self._calibrator = None
+        # The ladder's persistent quarantine (core/denylist.py), created
+        # at the first kernel build when config.denylist_persist is on.
+        self._denylist = None
 
     @property
     def calibrator(self):
@@ -171,6 +174,8 @@ class Engine:
                         table_extend_limit=cfg.table_extend_limit,
                         staging=cfg.staging,
                         staging_pool_cap=cfg.staging_pool_cap,
+                        max_retries=cfg.max_kernel_retries,
+                        denylist=self._denylist_store(),
                     )
                     self._kernels[key] = kern
         if built and self.config.calibration == "eager-warmup":
@@ -182,6 +187,26 @@ class Engine:
             if cal.pending():
                 cal.run()
         return kern
+
+    def _denylist_store(self):
+        """The engine's persistent quarantine store (None when
+        ``config.denylist_persist`` is off).  Built here rather than in
+        core/engine.py so core.engine never imports core.denylist (which
+        imports core.calibrate, which imports core.engine)."""
+        cfg = self.config
+        if not cfg.denylist_persist:
+            return None
+        if self._denylist is None:
+            from repro_torch.core.denylist import DenylistStore
+
+            self._denylist = DenylistStore(
+                self._hw,
+                cfg.backends or tuple(self._hw.backends),
+                cfg.impl,
+                cfg.device,
+                cache_dir=cfg.calibration_cache_dir,
+            )
+        return self._denylist
 
     def compile(
         self, workload: Workload | str, **params: Any

@@ -301,21 +301,86 @@ def test_decode_fault_fails_sharers_loop_stays_serviceable(server):
     _assert_clean(server, sched)
 
 
-@pytest.mark.parametrize("site", faults.PENDING)
-def test_fault_plan_refuses_unthreaded_sites(site):
-    """A plan naming a site no hook of the port checks yet would never
-    fire, so a chaos test on it would pass vacuously: it is refused."""
-    assert site in faults.SITES and site not in faults.THREADED
-    with pytest.raises(ValueError, match="not threaded"):
-        faults.FaultPlan({site: [1]})
+def _fire_precompile_or_launch(tmp_path):
+    """An engine gemm call: the ladder absorbs the fault."""
+    from repro_torch.vortex import Engine
+
+    eng = Engine("tpu_v5e", device="cpu", empirical_levels=(),
+                 denylist_persist=False)
+    x, w = torch.randn(45, 64), torch.randn(64, 64)
+    torch.testing.assert_close(eng.dispatch("gemm", x, w), x @ w)
+    assert eng.stats()["gemm"]["quarantined"] == 1
 
 
-def test_fault_plan_random_draws_threaded_sites_only():
-    assert set(faults.THREADED) == {"pool_lease", "scheduler_step",
-                                    "cache_io", "calib_measure"}
+def _fire_pool_lease(tmp_path):
+    with pytest.raises(faults.InjectedFault):
+        KVBucketPool().lease((1, 2, 3), torch.float32, torch.device("cpu"))
+
+
+def _fire_cache_io(tmp_path):
+    """A denylist save: quiet, counted."""
+    from repro_torch.core.denylist import DenylistStore
+    from repro_torch.core.hardware import get_hardware
+
+    store = DenylistStore(get_hardware("tpu_v5e"), ("mxu",), "torch", "cpu",
+                          cache_dir=str(tmp_path))
+    store.add("sig", "key")
+    assert store.counters["store_rejects"] == 1
+    assert not os.path.exists(store.path())
+
+
+def _fire_calib_measure(tmp_path):
+    from repro_torch.vortex import Engine, EngineConfig
+
+    eng = Engine(EngineConfig(
+        hardware="tpu_v5e", backends=("mxu",), device="cpu",
+        calibration="on-idle", calibration_cache_dir=str(tmp_path)))
+    eng.dispatch("gemm", torch.randn(33, 64), torch.randn(64, 64))
+    cal = eng.calibrator
+    cal.policy = dataclasses.replace(
+        cal.policy, m_max=128, max_buckets=2, min_rounds=2, max_rounds=3,
+        patience=1, top_k=2)
+    cal.run()
+    assert cal.skipped()["gemm"] == "measurement failed"
+
+
+def _fire_scheduler_step(tmp_path):
+    cfg = dataclasses.replace(get_smoke_config("paper-gpt2-124m"),
+                              dtype="float32")
+    srv = VortexServer(cfg, max_cache=MAX_CACHE, device="cpu",
+                       hardware="tpu_v5e")
+    sched = ContinuousScheduler(srv, batch_rows=2)
+    rid = sched.submit(_requests(np.random.default_rng(3), 1, max_new=2)[0])
+    assert isinstance(sched.drain()[rid], RequestError)
+    _assert_clean(srv, sched)
+
+
+_FIRE = {
+    "precompile": _fire_precompile_or_launch,
+    "aot_launch": _fire_precompile_or_launch,
+    "pool_lease": _fire_pool_lease,
+    "cache_io": _fire_cache_io,
+    "calib_measure": _fire_calib_measure,
+    "scheduler_step": _fire_scheduler_step,
+}
+
+
+@pytest.mark.parametrize("site", faults.SITES)
+def test_every_fault_site_fires_in_the_port(site, tmp_path):
+    """Every site of the reference is threaded (``PENDING`` is empty): a
+    plan failing its first occurrence fires there, and the failure lands
+    where the reference's does."""
+    assert faults.PENDING == () and faults.THREADED == faults.SITES
+    plan = faults.FaultPlan({site: [1]})
+    with faults.installed(plan):
+        _FIRE[site](tmp_path)
+    assert plan.fired == [(site, 1)]
+
+
+def test_fault_plan_random_draws_every_site():
     plan = faults.FaultPlan.random(0, rate=0.5, horizon=20)
-    assert set(plan.spec) == set(faults.THREADED)
-    assert any(plan.spec.values())
+    assert set(plan.spec) == set(faults.SITES)
+    assert all(plan.spec.values())
 
 
 @pytest.mark.parametrize("site", ("cache_io", "calib_measure"))
