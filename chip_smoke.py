@@ -183,21 +183,26 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``ContinuousScheduler`` under pool_lease/scheduler_step faults: every
    request resolves, non-faulted tokens equal serial ``generate()``'s,
    0 leases after close).  A gemm call with every precompile and
-   aot_launch occurrence failing takes the ``impl="torch"`` rung (no
-   ``vortex_gemm`` launch, 1 + max_kernel_retries quarantines, within
-   2^-7 of the plain version) and persists its quarantines; a fresh
-   ``Engine`` on the same cache directory loads the denylist and serves
-   the same call with 0 quarantine events and one kernel launch.  A fault
-   aimed at the first launch inside a decode step's capture: the ladder
-   quarantines once, the capture is taken again, the graphed logits equal
-   the eager step's (``graphs=False`` on the same engine) bit for bit,
-   and a replay fires no fault site.  Prints the host µs of a healthy
-   gemm call, of a call that walked one rung and of a call that fell
-   back to the plain version, with the card's name and power limit.
-   Every earlier phase fails unless the ladder never fired on any engine
-   kernel it built (``fallbacks == quarantined == 0``, no plan
-   installed): a quarantine or a fallback there would hide a kernel that
-   fails on the main path.  The script points ``VORTEX_CACHE_DIR`` at a
+   aot_launch occurrence failing raises ``LadderExhaustedError`` after
+   1 + max_kernel_retries hand-written candidates (operands on the card
+   never reach a plain version: no ``vortex_gemm`` launch, no fallback,
+   its quarantines rolled back, no denylist file), and the same call with
+   no plan is right again.  A call whose best candidate fails at launch
+   walks one rung (one quarantine, within 2^-7 of the plain version) and
+   persists it; a fresh ``Engine`` on the same cache directory loads the
+   denylist and serves the same call with 0 quarantine events and one
+   kernel launch.  A fault aimed at the first launch inside a decode
+   step's capture: the ladder quarantines once, the capture is taken
+   again, the graphed logits equal the eager step's (``graphs=False`` on
+   the same engine) bit for bit, and a replay fires no fault site.
+   Prints the host µs of a healthy gemm call, of a call that walked one
+   rung and of a call that exhausted the ladder, with the card's name
+   and power limit.  After every earlier phase, and again after this
+   one, the script fails unless the ladder never fired on any engine
+   kernel built before phase 7 (``fallbacks == quarantined == 0``, no
+   plan installed; running totals, so a server reused by a later phase
+   is held there too): a quarantine there would hide a kernel that fails
+   on the main path.  The script points ``VORTEX_CACHE_DIR`` at a
    temporary directory, so no denylist from an earlier run steers a
    selection.
 8. Print the kernels line (with phase 6's launch counts), then the result
@@ -1594,9 +1599,11 @@ def free_cuda() -> None:
 class LadderWatch:
     """The DispatchStats of every engine kernel built while the script
     runs (servers' engines and those inside the benchmark payload too),
-    to hold each phase before 7 to ``fallbacks == quarantined == 0``:
-    with no fault plan installed the degradation ladder must never fire,
-    or a fallback would hide a kernel that fails on the main path."""
+    kept for the whole run, to hold each phase before 7 to ``fallbacks ==
+    quarantined == 0`` on every kernel built so far: with no fault plan
+    installed the degradation ladder must never fire, or it would hide a
+    kernel that fails on the main path.  A server built in one phase and
+    reused by a later one is held in both."""
 
     def __init__(self):
         from repro_torch.core.engine import VortexKernel
@@ -1610,19 +1617,19 @@ class LadderWatch:
 
         VortexKernel.__init__ = tracked
 
-    def check(self, where: str) -> str:
-        """Fails unless the ladder stayed silent on every kernel built
-        since the last check; then forgets them."""
+    def check(self, where: str, upto: int | None = None) -> str:
+        """Fails unless the ladder stayed silent on every kernel built so
+        far (on the first ``upto`` of them, when given)."""
         from repro_torch.runtime import faults
 
         if faults.ACTIVE is not None:
             fail(f"{where}: a fault plan is installed")
-        loud = [st for st in self.stats if st.fallbacks or st.quarantined]
+        held = self.stats[:upto]
+        loud = [st for st in held if st.fallbacks or st.quarantined]
         if loud:
             fail(f"{where}: the degradation ladder fired with no plan "
                  f"installed: {[st.as_dict() for st in loud]}")
-        n, self.stats = len(self.stats), []
-        return f"ladder silent on {n} engine kernels"
+        return f"ladder silent on the {len(held)} engine kernels held"
 
 
 def phase_gemma2(kernels) -> dict:
@@ -2852,12 +2859,15 @@ def ladder_counts(eng) -> dict:
 
 
 def gemm_ladder(dev, kernels, smi: str) -> dict:
-    """Phase 7: a hammered gemm call takes the impl="torch" rung and
-    persists its quarantines; a fresh engine on the same cache directory
-    loads them and serves with 0 quarantine events; the ladder's µs."""
+    """Phase 7: a hammered gemm call exhausts the hand-written candidates
+    and raises, leaving nothing quarantined or persisted; a call whose
+    best candidate fails walks one rung and persists it; a fresh engine
+    on the same cache directory loads it and serves with 0 quarantine
+    events; the ladder's µs."""
     import glob
 
     from repro_torch import vortex
+    from repro_torch.core.engine import LadderExhaustedError
     from repro_torch.kernels.gemm import vortex_gemm_plain
     from repro_torch.runtime import faults
 
@@ -2872,30 +2882,66 @@ def gemm_ladder(dev, kernels, smi: str) -> dict:
     def launches() -> int:
         return kernels.launch_counts()["vortex_gemm"]
 
+    def deny_files() -> list:
+        return glob.glob(os.path.join(cache, "*.deny.json"))
+
     eng = vortex.Engine(calibration_cache_dir=cache)
+    rungs = 1 + eng.config.max_kernel_retries
     hammer = faults.FaultPlan({"precompile": range(1, 200),
                                "aot_launch": range(1, 200)})
     n0 = launches()
-    with faults.installed(hammer), vortex.use(eng):
-        out = vortex.ops.gemm(a, b)
+    try:
+        with faults.installed(hammer), vortex.use(eng):
+            vortex.ops.gemm(a, b)
+        fail("phase 7: the hammered gemm returned on the card; the ladder "
+             "has no plain-version rung there")
+    except LadderExhaustedError as e:
+        raised = e
     torch.cuda.synchronize()
     st = ladder_counts(eng)
-    rungs = 1 + eng.config.max_kernel_retries
     kern = next(iter(eng.kernels().values()))
-    quarantined = set(kern._quarantined)
-    deny = glob.glob(os.path.join(cache, "*.deny.json"))
     print(f"phase 7 hammered gemm ({LADDER_M}x{d} @ {d}x{d} bf16): fired "
-          f"{len(hammer.fired)}, {st}, vortex_gemm launches "
-          f"{launches() - n0}, denylist files {len(deny)} holding "
-          f"{len(quarantined)} keys")
-    if st != {"quarantined": rungs, "fallbacks": 1} or launches() != n0:
-        fail(f"phase 7: the hammered gemm did not take the impl='torch' "
-             f"rung after {rungs} quarantines: {st}")
-    check("phase 7 hammered gemm (impl='torch' rung)", out, plain,
-          TOL[dt])
-    if len(deny) != 1 or len(quarantined) != rungs:
-        fail(f"phase 7: expected one denylist file of {rungs} keys, got "
-             f"{deny} and {quarantined}")
+          f"{len(hammer.fired)}, raised {type(raised).__name__} from "
+          f"{type(raised.__cause__).__name__}, {st}, vortex_gemm launches "
+          f"{launches() - n0}, quarantine keys left {len(kern._quarantined)}"
+          f", denylist files {len(deny_files())}")
+    if len(hammer.fired) != rungs or \
+            not isinstance(raised.__cause__, faults.InjectedFault):
+        fail(f"phase 7: the hammered gemm did not try {rungs} hand-written "
+             f"candidates: fired {hammer.fired}")
+    if st != {"quarantined": 0, "fallbacks": 0} or launches() != n0 or \
+            kern._quarantined or deny_files():
+        fail(f"phase 7: the exhausted ladder left a trace: {st}, "
+             f"{kern._quarantined}, {deny_files()}")
+    n0 = launches()
+    with vortex.use(eng):
+        out = vortex.ops.gemm(a, b)
+    torch.cuda.synchronize()
+    if launches() - n0 != 1 or ladder_counts(eng)["quarantined"]:
+        fail("phase 7: the gemm after the exhausted ladder did not launch "
+             "its kernel once")
+    check("phase 7 gemm after the exhausted ladder", out, plain, TOL[dt])
+
+    eng1 = vortex.Engine(calibration_cache_dir=cache)
+    one = faults.FaultPlan({"aot_launch": [1]})
+    n0 = launches()
+    with faults.installed(one), vortex.use(eng1):
+        out1 = vortex.ops.gemm(a, b)
+    torch.cuda.synchronize()
+    st1 = ladder_counts(eng1)
+    kern1 = next(iter(eng1.kernels().values()))
+    quarantined = set(kern1._quarantined)
+    print(f"phase 7 gemm with its best candidate failing: fired "
+          f"{one.fired}, {st1}, vortex_gemm launches {launches() - n0}, "
+          f"denylist files {len(deny_files())} holding {len(quarantined)} "
+          f"keys")
+    if st1 != {"quarantined": 1, "fallbacks": 0} or launches() - n0 != 1:
+        fail(f"phase 7: the failed best candidate did not walk one rung: "
+             f"{st1}")
+    check("phase 7 gemm one rung down", out1, plain, TOL[dt])
+    if len(deny_files()) != 1 or len(quarantined) != 1:
+        fail(f"phase 7: expected one denylist file of one key, got "
+             f"{deny_files()} and {quarantined}")
 
     eng2 = vortex.Engine(calibration_cache_dir=cache)
     n0 = launches()
@@ -2909,7 +2955,7 @@ def gemm_ladder(dev, kernels, smi: str) -> dict:
           f"{len(kern2._quarantined)}")
     if st2 != {"quarantined": 0, "fallbacks": 0} or launches() - n0 != 1:
         fail(f"phase 7: the restarted engine re-failed a denylisted "
-             f"candidate or fell back: {st2}")
+             f"candidate: {st2}")
     if kern2._quarantined != quarantined or \
             kern2._qkey(kern2._select_healthy(LADDER_M)) in quarantined:
         fail("phase 7: the restarted engine did not load the denylist")
@@ -2932,22 +2978,27 @@ def gemm_ladder(dev, kernels, smi: str) -> dict:
         reset()
         call()  # builds the next-best candidate's executable
         walked = host_us(call, before=reset)
-    c0 = ladder_counts(eng3)
+    exhausted = []
+
+    def call_down():
+        try:
+            call()
+        except LadderExhaustedError:
+            exhausted.append(1)
+
     down = faults.FaultPlan({"aot_launch": range(1, 1000)})
     with faults.installed(down):
-        reset()
-        call()
-        fallback = host_us(call, before=reset)
-    c1 = ladder_counts(eng3)
-    if c1["fallbacks"] - c0["fallbacks"] != 51:
-        fail(f"phase 7: the timed fallback calls did not all fall back: "
-             f"{c0} -> {c1}")
+        call_down()  # builds the remaining candidates' executables
+        raising = host_us(call_down)
+    if len(exhausted) != 51 or ladder_counts(eng3)["fallbacks"]:
+        fail(f"phase 7: {len(exhausted)} of the 51 down calls exhausted "
+             f"the ladder; {ladder_counts(eng3)}")
     print(f"phase 7 gemm ({LADDER_M}x{d} @ {d}x{d} bf16) host us a call: "
           f"healthy {healthy:.1f}, one rung walked {walked:.1f}, "
-          f"impl='torch' rung after {rungs} failed rungs {fallback:.1f} "
+          f"{rungs} failed rungs then LadderExhaustedError {raising:.1f} "
           f"[median of 50 synchronized calls, host wall-clock] on {smi}")
     return {"healthy_us": healthy, "walked_us": walked,
-            "fallback_us": fallback}
+            "exhausted_us": raising}
 
 
 def graph_ladder(serve_info) -> dict:
@@ -3077,11 +3128,10 @@ def main() -> int:
     os.environ["VORTEX_CACHE_DIR"] = cache_root.name
     watch = LadderWatch()
 
-    def phase(label: str, fn, *args, done: str = "", ladder: bool = True):
+    def phase(label: str, fn, *args, done: str = "", upto=None):
         t = time.perf_counter()
         out = fn(*args)
-        if ladder:
-            done += ("; " if done else "") + watch.check(f"phase {label}")
+        done += ("; " if done else "") + watch.check(f"phase {label}", upto)
         print(f"phase {label}: {done + '; ' if done else ''}wall_s="
               f"{time.perf_counter() - t:.1f}", flush=True)
         return out
@@ -3139,8 +3189,10 @@ def main() -> int:
 
     phase("6b", phase6b, done=f"calibration on the card ok ({ARCHS[1]} "
                               f"served after an idle-slice swap)")
+    # Phase 7 installs plans on engines of its own; the kernels built
+    # before it must stay silent through it.
     phase("7", phase_failure_domains, dev, kernels, serve_info, smi,
-          done="failure domains on the card ok", ladder=False)
+          done="failure domains on the card ok", upto=len(watch.stats))
     cache_root.cleanup()
     print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
     for r in rows:

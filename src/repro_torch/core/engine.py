@@ -22,18 +22,24 @@ CUDA graph: launch/graphs.py).  An unaligned call stages every operand in
 one launch of the staging kernel (kernels/stage.py).
 
 A candidate that raises at executable build or launch walks the
-degradation ladder (``_degrade``, DESIGN.md §11): it is quarantined, the
-next-best lattice candidate is retried up to ``max_retries`` times, and
-the last rung runs the plain PyTorch versions (``impl="torch"``).  The
-ladder catches what a launch raises synchronously -- a wrapper's
-``ValueError`` for a tile it refuses, a nonzero ``cudaError_t`` returned
-by a kernel's launch, an injected fault (runtime/faults.py).  An
-asynchronous device fault (an illegal address) poisons the CUDA context
-and no rung recovers from it; the hot path adds no synchronize to find
-one.  A kernel library that fails to build (:class:`KernelLibraryError`)
-is no candidate's fault: it propagates with nothing quarantined.
-Quarantines persist through a :class:`~repro_torch.core.denylist.
-DenylistStore` once a lower rung succeeds.
+degradation ladder (``_degrade``, DESIGN.md §11): it is quarantined and
+the next-best lattice candidate is retried up to ``max_retries`` times.
+For CPU operands the last rung runs the plain PyTorch versions
+(``impl="torch"``), as the reference's last rung does.  Operands on the
+card never reach a plain version: there the ladder ends with the last
+hand-written candidate, and when that fails too the call raises
+:class:`LadderExhaustedError` (ROADMAP C10).  The ladder catches what a
+launch raises synchronously -- a wrapper's ``ValueError`` for a tile it
+refuses, a nonzero ``cudaError_t`` returned by a kernel's launch, an
+injected fault (runtime/faults.py).  An asynchronous device fault (an
+illegal address) poisons the CUDA context and no rung recovers from it;
+the hot path adds no synchronize to find one.  Two errors are no
+candidate's fault and propagate with nothing quarantined: a kernel
+library that fails to build (:class:`KernelLibraryError`) and operands a
+wrapper refuses whatever the tile (``kernels.gemm.OperandError``: a
+stride, dtype, device or shape the kernels do not take).  Quarantines
+persist through a :class:`~repro_torch.core.denylist.DenylistStore` once
+a lower rung succeeds.
 
 A :class:`LazyBucket` is a bucket-shaped launch output not yet sliced to
 its true extent; a dispatch that receives one at a position its workload
@@ -56,12 +62,14 @@ from repro_torch.core.candidates import generate_lattice
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.selector import RuntimeSelector, Selection
 from repro_torch.core.workloads import Workload
+from repro_torch.kernels.gemm import OperandError
 from repro_torch.kernels.stage import StagePlan
 from repro_torch.runtime import faults
 
 __all__ = [
     "DispatchStats",
     "KernelLibraryError",
+    "LadderExhaustedError",
     "LazyBucket",
     "OfflineStats",
     "PrecompileError",
@@ -101,6 +109,21 @@ class KernelLibraryError(RuntimeError):
     and falling back to the plain versions for good."""
 
 
+class LadderExhaustedError(RuntimeError):
+    """Every hand-written candidate the degradation ladder tried for a
+    call on the card failed.  The card has no plain-version rung, so the
+    call raises; its quarantines are rolled back and nothing persists."""
+
+
+# Errors the ladder lets through untouched: no candidate is at fault.
+_NOT_A_CANDIDATE = (KernelLibraryError, OperandError)
+
+
+def _on_card(args: tuple) -> bool:
+    """True if any operand lies on a CUDA device (no plain-version rung)."""
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+
+
 @dataclasses.dataclass
 class DispatchStats:
     """Per-call accounting for the serving hot path, with the reference's
@@ -121,9 +144,10 @@ class DispatchStats:
     does not have (calls traced inside an enclosing jit) and stays 0.
 
     ``quarantined`` counts candidates the degradation ladder denylisted
-    after a build or launch failure; ``fallbacks`` counts dispatches that
-    exhausted the lattice retries and ran the ``impl="torch"`` rung.  Both
-    are zero on every healthy host.
+    after a build or launch failure; ``fallbacks`` counts dispatches of
+    CPU operands that exhausted the lattice retries and ran the
+    ``impl="torch"`` rung (operands on the card have no such rung, so
+    there it stays 0).  Both are zero on every healthy host.
     """
 
     calls: int = 0
@@ -422,7 +446,7 @@ class _CacheEntry:
 
     fn: Callable
     compile_seconds: float
-    pool: _StagingPool
+    pool: _StagingPool | None  # None: the plain rung, which stages nothing
     hits: int = 0
 
     def run(self, *args):
@@ -635,7 +659,7 @@ class VortexKernel:
         sel = self._select_healthy(m)
         try:
             return self._dispatch(sel, m, args)
-        except KernelLibraryError:
+        except _NOT_A_CANDIDATE:
             raise
         except Exception as exc:
             return self._degrade(m, sel, args, False, exc)
@@ -659,7 +683,7 @@ class VortexKernel:
         sel = self._select_healthy(m)
         try:
             return self._dispatch(sel, m, args, lazy)
-        except KernelLibraryError:
+        except _NOT_A_CANDIDATE:
             raise
         except Exception as exc:
             return self._degrade(m, sel, args, lazy, exc)
@@ -768,16 +792,20 @@ class VortexKernel:
     ):
         """Walk the ladder after ``sel`` failed: quarantine it, re-select
         the next-best lattice candidate excluding quarantined entries,
-        retry up to ``max_retries``, then run the ``impl="torch"`` rung.
+        retry up to ``max_retries``, then, for CPU operands only, run the
+        ``impl="torch"`` rung.
 
         Quarantine keys are persisted to the denylist only once a LOWER
         rung succeeds -- evidence the failure was candidate-specific rather
-        than a caller error (bad dtypes, shape mismatch) that every
-        candidate would reproduce.  If even the last rung fails, this
-        call's quarantines are rolled back and the last rung's exception
-        propagates from the original one: nothing was learned about the
-        candidates.  A :class:`KernelLibraryError` on a retry rolls back
-        too and propagates as it is.
+        than a caller error that every candidate would reproduce.  If the
+        last rung fails too, this call's quarantines are rolled back and
+        the last rung's exception propagates from the original one:
+        nothing was learned about the candidates.  On the card the last
+        rung is the last hand-written candidate: when it fails, the
+        quarantines are rolled back likewise and
+        :class:`LadderExhaustedError` propagates from the last failure.
+        A :class:`KernelLibraryError` or an ``OperandError`` on a retry
+        rolls back too and propagates as it is.
         """
         fresh = [sel] if self._quarantine(sel) else []
         for _ in range(self._max_retries):
@@ -788,7 +816,7 @@ class VortexKernel:
                 break  # lattice exhausted: straight to the last rung
             try:
                 out = self._dispatch(nxt, m, args, lazy)
-            except KernelLibraryError:
+            except _NOT_A_CANDIDATE:
                 self._unquarantine(fresh)
                 raise
             except Exception as e:
@@ -798,6 +826,13 @@ class VortexKernel:
                 continue
             self._persist_quarantines(fresh)
             return out
+        if _on_card(args):
+            self._unquarantine(fresh)
+            raise LadderExhaustedError(
+                f"{self._wl.kind}: every hand-written candidate the ladder "
+                f"tried (at most 1 + {self._max_retries}) failed at build "
+                f"or launch; operands on the card have no plain-version "
+                f"rung") from exc
         try:
             out = self._fallback_dispatch(m, args)
         except Exception as e:
@@ -813,10 +848,11 @@ class VortexKernel:
             self._denylist.add(self._sig_key, self._qkey(t))
 
     def _fallback_dispatch(self, m: int, args: tuple):
-        """The last rung: the plain PyTorch versions (``impl="torch"``) at
-        the analytical selection's bucket, through the zero-pad reference
-        path.  No staging buffers -- nothing the failing rungs shared --
-        and no fault hook, so chaos plans cannot reach it."""
+        """The last rung for CPU operands: the plain PyTorch versions
+        (``impl="torch"``) at the analytical selection's bucket, through
+        the zero-pad reference path.  No staging buffers -- nothing the
+        failing rungs shared -- and no fault hook, so chaos plans cannot
+        reach it."""
         wl = self._wl
         sel = self.selector.select(m)
         key = (
@@ -827,7 +863,7 @@ class VortexKernel:
         if entry is None:
             entry = _CacheEntry(
                 fn=wl.build_executable(sel, impl="torch"),
-                compile_seconds=0.0, pool=_StagingPool(self._pool_cap))
+                compile_seconds=0.0, pool=None)
             self._exec_cache[key] = entry
         entry.hits += 1
         with self._stats_lock:
@@ -939,7 +975,7 @@ class VortexKernel:
     def staging_sets(self) -> list[_BufferSet]:
         """Every pooled staging-buffer set of every executable entry."""
         return [s for e in list(self._exec_cache.values())
-                for s in e.pool.retained]
+                if e.pool is not None for s in e.pool.retained]
 
     def _call_padded(self, sel, entry, args, view) -> torch.Tensor:
         """The zero-pad reference path: the same executable and extent

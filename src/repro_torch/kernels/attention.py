@@ -34,7 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.gemm import BACKENDS, SMEM_PER_BLOCK, validate_blocks
+from repro_torch.kernels.gemm import (BACKENDS, SMEM_PER_BLOCK, OperandError,
+                                      validate_blocks)
 from repro_torch.kernels.ref import ref_attention
 
 __all__ = [
@@ -300,15 +301,15 @@ def flash_attention(
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(
+        raise OperandError(
             f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do not form a (GQA) attention call"
         )
     validate_blocks("flash_attention", block_q=block_q, block_k=block_k)
     if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window={window} must be >= 1")
+        raise OperandError(f"flash_attention: window={window} must be >= 1")
     if softcap is not None and not softcap > 0:
-        raise ValueError(f"flash_attention: softcap={softcap} must be > 0")
+        raise OperandError(f"flash_attention: softcap={softcap} must be > 0")
     form = attention_form(sq, block_q)
     plan = check_attention_backend(form, backend, block_q, block_k, d)
     if q.device.type == "cpu":
@@ -317,16 +318,17 @@ def flash_attention(
             softcap=softcap,
         )
     if q.device.type != "cuda" or not (k.device == v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must lie on one CUDA device")
+        raise OperandError(
+            "flash_attention: q, k, v must lie on one CUDA device")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
-        raise TypeError(
+        raise OperandError(
             f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}; the "
             "kernel takes float32 or bfloat16 for all three"
         )
     if d > _MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head_dim {d} > {_MAX_HEAD_DIM}")
+        raise OperandError(f"flash_attention: head_dim {d} > {_MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+        raise OperandError("flash_attention: q, k, v must be contiguous")
     kv = skv if kv_len is None else kv_len
     off = 0 if q_offset is None else q_offset
     info = None

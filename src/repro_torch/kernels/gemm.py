@@ -50,6 +50,14 @@ _TC_VARIANTS = frozenset({
 })
 
 
+class OperandError(ValueError, TypeError):
+    """A wrapper refuses the operands themselves -- a shape, stride, dtype
+    or device its kernel does not take -- whatever the tile.  Such a call
+    fails alike on every candidate, so the engine's degradation ladder
+    lets it through with nothing quarantined (core/engine.py).  It is a
+    ``ValueError`` and a ``TypeError``, as the wrappers' checks were."""
+
+
 def validate_blocks(kind: str, **blocks: int) -> None:
     """Reject block sizes the kernel could not honour (never clamp)."""
     for name, blk in blocks.items():
@@ -203,7 +211,8 @@ def vortex_gemm(
     M, K = a.shape
     K2, N = b.shape
     if K != K2:
-        raise ValueError(f"vortex_gemm: inner dims differ: {a.shape} @ {b.shape}")
+        raise OperandError(
+            f"vortex_gemm: inner dims differ: {a.shape} @ {b.shape}")
     validate_blocks(
         "vortex_gemm", block_m=block_m, block_n=block_n, block_k=block_k
     )
@@ -212,19 +221,20 @@ def vortex_gemm(
     if a.device.type == "cpu":
         return vortex_gemm_plain(a, b, m_true, out_dtype)
     if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(
+        raise OperandError(
             f"vortex_gemm: operands on {a.device} and {b.device}; the kernel "
             "takes two tensors on one CUDA device"
         )
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
-        raise TypeError(
+        raise OperandError(
             f"vortex_gemm: dtypes {a.dtype}, {b.dtype}; the kernel takes "
             "float32 or bfloat16 for both"
         )
     if out_dtype is not None and out_dtype != a.dtype:
-        raise TypeError("vortex_gemm: the kernel writes the operands' dtype")
+        raise OperandError(
+            "vortex_gemm: the kernel writes the operands' dtype")
     if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("vortex_gemm: operands must be contiguous")
+        raise OperandError("vortex_gemm: operands must be contiguous")
     path = kernel_path(plan, a.dtype)
     # grid y: column blocks on the tensor-core path, row blocks on the other.
     y_blocks = -(-N // block_n) if path == "tensor_core" else -(-M // block_m)

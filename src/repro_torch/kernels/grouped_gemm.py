@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.gemm import check_backend, kernel_path, validate_blocks
+from repro_torch.kernels.gemm import (OperandError, check_backend, kernel_path,
+                                      validate_blocks)
 from repro_torch.kernels.ref import ref_grouped_gemm
 
 __all__ = ["vortex_grouped_gemm", "vortex_grouped_gemm_plain", "LAUNCHES"]
@@ -70,7 +71,7 @@ def vortex_grouped_gemm(
     G, C, K = x.shape
     E, K2, N = w.shape
     if K != K2 or E < 1 or G % E:
-        raise ValueError(
+        raise OperandError(
             f"vortex_grouped_gemm: x {tuple(x.shape)} and w {tuple(w.shape)} "
             "need equal K and a group count that is a multiple of E"
         )
@@ -83,12 +84,12 @@ def vortex_grouped_gemm(
     if x.device.type == "cpu":
         return vortex_grouped_gemm_plain(x, w, counts)
     if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(
+        raise OperandError(
             f"vortex_grouped_gemm: operands on {x.device} and {w.device}; the "
             "kernel takes x and w on one CUDA device"
         )
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
-        raise TypeError(
+        raise OperandError(
             f"vortex_grouped_gemm: dtypes {x.dtype}, {w.dtype}; the kernel "
             "takes float32 or bfloat16 for both"
         )
@@ -99,7 +100,7 @@ def vortex_grouped_gemm(
         )
     cnt = torch.as_tensor(counts, device=x.device)
     if cnt.numel() != G or cnt.is_floating_point():
-        raise ValueError(
+        raise OperandError(
             f"vortex_grouped_gemm: counts must hold {G} integers, got "
             f"{tuple(cnt.shape)} {cnt.dtype}"
         )

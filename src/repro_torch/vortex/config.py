@@ -66,7 +66,8 @@ class EngineConfig:
       repo).
     * ``max_kernel_retries`` — how many next-best lattice candidates the
       degradation ladder retries after a candidate fails at build or
-      launch, before the ``impl="torch"`` rung (core/engine.py).
+      launch, before the ``impl="torch"`` rung for CPU operands, or
+      ``LadderExhaustedError`` for operands on the card (core/engine.py).
     * ``denylist_persist`` — persist the ladder's quarantines to
       ``<calibration cache dir>/<fingerprint>.deny.json``
       (core/denylist.py), so a restarted engine never re-attempts a

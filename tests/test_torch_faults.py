@@ -14,8 +14,13 @@ port (mirrors tests/test_faults.py; DESIGN.md §11), on the CPU.
   within 1e-5 of the output's largest magnitude (float32: the two
   lowerings accumulate in different orders).  ``FaultPlan.random``
   draws the reference's spec.
-* What only the port has: a kernel library that fails to build
-  propagates with nothing quarantined or persisted; a forwarded call
+* What only the port has: a kernel library that fails to build, and
+  operands a wrapper refuses whatever the tile (``OperandError``: a
+  stride, dtype, device or shape), propagate with nothing quarantined or
+  persisted; operands on the card have no ``impl="torch"`` rung, so an
+  exhausted ladder raises ``LadderExhaustedError`` with its quarantines
+  rolled back (ROADMAP C10; on the CPU through a stubbed ``_on_card``,
+  on the card in a ``cuda`` case); a forwarded call
   skips a quarantined candidate where the reference relaunches it
   (ROADMAP C9); the ladder inside a CUDA graph's warm-up and capture
   (the stub capture of tests/test_torch_graphs.py, whose replay fires no
@@ -484,6 +489,119 @@ def test_a_failed_library_build_propagates_unquarantined(plan, tmp_path,
     assert kern.dispatch_stats.fallbacks == 0
     assert not kern._quarantined
     assert store.counters["saves"] == 0 and not os.listdir(tmp_path)
+
+
+def _strided_refusing_gemm(monkeypatch):
+    """Make gemm executables refuse strided operands as the CUDA wrapper
+    does (kernels/gemm.py), on the CPU."""
+    from repro_torch.kernels.gemm import OperandError
+
+    real = GemmWorkload.build_executable
+
+    def build_executable(self, sel, *, impl):
+        fn = real(self, sel, impl=impl)
+
+        def strict(*args):
+            if not all(a.is_contiguous() for a in args
+                       if isinstance(a, torch.Tensor)):
+                raise OperandError("vortex_gemm: operands must be contiguous")
+            return fn(*args)
+
+        return strict
+
+    monkeypatch.setattr(GemmWorkload, "build_executable", build_executable)
+
+
+@pytest.mark.parametrize("m", (45, 64))  # unaligned (A staged), aligned
+def test_a_refused_operand_propagates_unquarantined(m, cache_dir,
+                                                    monkeypatch):
+    """A strided weight reaches every candidate alike: the wrapper's
+    OperandError leaves the ladder at once, with no retry, no quarantine,
+    no fallback and no denylist file."""
+    from repro_torch.kernels.gemm import OperandError
+
+    _strided_refusing_gemm(monkeypatch)
+    eng = _engine("tpu_v5e", denylist_persist=True)
+    x, w = _arr((m, 64)), _arr((64, 64))
+    torch.testing.assert_close(eng.dispatch("gemm", x, w), x @ w,
+                               rtol=2e-4, atol=1e-5)
+    plan = faults.FaultPlan({})
+    with faults.installed(plan):
+        with pytest.raises(OperandError, match="contiguous"):
+            eng.dispatch("gemm", x, w.t())
+    assert plan.counts.get("aot_launch") == 1  # one rung tried, no retry
+    kern = next(iter(eng.kernels().values()))
+    st = eng.stats()["gemm"]
+    assert st["quarantined"] == 0 and st["fallbacks"] == 0
+    assert not kern._quarantined and not _deny_files(cache_dir)
+
+
+@pytest.mark.parametrize("case", ("gemm", "grouped_gemm", "attention"))
+def test_wrappers_refuse_operands_with_an_operand_error(case):
+    """The wrappers' operand checks raise OperandError on every device
+    where they run first (shapes), and it is still a ValueError and a
+    TypeError for callers that caught those."""
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.kernels.gemm import OperandError, vortex_gemm
+    from repro_torch.kernels.grouped_gemm import vortex_grouped_gemm
+
+    call = {
+        "gemm": lambda: vortex_gemm(_arr((4, 8)), _arr((9, 4))),
+        "grouped_gemm": lambda: vortex_grouped_gemm(
+            _arr((2, 4, 8)), _arr((1, 9, 4)), [4, 4]),
+        "attention": lambda: flash_attention(
+            _arr((1, 3, 4, 8)), _arr((1, 2, 4, 8)), _arr((1, 2, 4, 8)),
+            block_q=4, block_k=4),
+    }[case]
+    with pytest.raises(OperandError) as ei:
+        call()
+    assert isinstance(ei.value, ValueError) and isinstance(ei.value,
+                                                           TypeError)
+
+
+def test_an_exhausted_ladder_on_the_card_raises_and_rolls_back(
+        cache_dir, monkeypatch):
+    """ROADMAP C10: operands on the card never reach a plain version.
+    The ladder tries 1 + max_kernel_retries hand-written candidates, then
+    raises LadderExhaustedError from the last failure, with this call's
+    quarantines rolled back and nothing persisted; the call succeeds
+    once the fault clears.  (``_on_card`` stubbed: the operands here lie
+    on the CPU.)"""
+    monkeypatch.setattr(engine_mod, "_on_card", lambda args: True)
+    eng = _engine(denylist_persist=True)
+    x, w = _arr((45, 64)), _arr((64, 64))
+    plan = faults.FaultPlan(HAMMER)
+    with faults.installed(plan):
+        with pytest.raises(engine_mod.LadderExhaustedError) as ei:
+            eng.dispatch("gemm", x, w)
+    assert isinstance(ei.value.__cause__, faults.InjectedFault)
+    assert len(plan.fired) == 1 + eng.config.max_kernel_retries
+    kern = next(iter(eng.kernels().values()))
+    st = eng.stats()["gemm"]
+    assert st["quarantined"] == 0 and st["fallbacks"] == 0
+    assert not kern._quarantined and not _deny_files(cache_dir)
+    assert not any(k[0] == "__torch_fallback__" for k in kern._exec_cache)
+    torch.testing.assert_close(eng.dispatch("gemm", x, w), x @ w,
+                               rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_an_exhausted_ladder_raises_on_the_card(tmp_path):
+    """The same on the card, through the hand-written kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels)")
+    eng = Engine(calibration_cache_dir=str(tmp_path))
+    x = torch.randn(100, 768, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(768, 768, device="cuda", dtype=torch.bfloat16)
+    with faults.installed(faults.FaultPlan(HAMMER)):
+        with pytest.raises(engine_mod.LadderExhaustedError):
+            eng.dispatch("gemm", x, w)
+    st = eng.stats()["gemm"]
+    assert st["quarantined"] == 0 and st["fallbacks"] == 0
+    assert not _deny_files(str(tmp_path))
+    ref = x.float() @ w.float()
+    got = eng.dispatch("gemm", x, w).float()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 2.0 ** -7
 
 
 def _spy_selections(kern, log):

@@ -6,14 +6,20 @@ Two phases with the reference's gates; any gate failure exits 1:
   A. ENGINE LADDER -- a gemm dispatch stream over 6 seeded extents on a
      fresh Engine under precompile/aot_launch faults.  Gates: every
      output matches its reference, at least one fault fired and at least
-     one degradation rung ran (a quarantined retry or the impl="torch"
-     rung).  On the card: ``vortex.ops.gemm`` in bfloat16 at
-     K = N = 768 through the hand-written kernels, held against a float32
-     ``torch.matmul`` of the same bf16 operands within BF16_TOL of its
-     largest magnitude (one bf16 ulp of the final cast: the rungs
-     accumulate in different orders, so the outputs are not
-     bit-identical).  On the CPU: the reference's 64 x 64 float32 stream
-     on the host_cpu lattice, within 1e-5 of the no-fault run.
+     one degradation rung ran (a quarantined retry, the impl="torch"
+     rung, or on the card an exhausted ladder).  On the card:
+     ``vortex.ops.gemm`` in bfloat16 at K = N = 768 through the
+     hand-written kernels, held against a float32 ``torch.matmul`` of the
+     same bf16 operands within BF16_TOL of its largest magnitude (one
+     bf16 ulp of the final cast: the rungs accumulate in different
+     orders, so the outputs are not bit-identical).  The card has no
+     impl="torch" rung, so a call whose 1 + max_kernel_retries candidates
+     all fail raises LadderExhaustedError: that is its gate's one allowed
+     exception, only where exactly that many faults fired inside the
+     call, and the call is dispatched again after the plan, with no
+     quarantine left behind, and must match.  On the CPU: the
+     reference's 64 x 64 float32 stream on the host_cpu lattice, within
+     1e-5 of the no-fault run; every call must return.
   B. SERVING ISOLATION -- paper-gpt2-124m behind ContinuousScheduler under
      pool_lease/scheduler_step faults, against a no-fault serial
      ``generate()`` on the same server.  Gates: every submitted request
@@ -63,6 +69,7 @@ class Gates:
 
 def phase_a_engine(seed: int, device: torch.device, gate: Gates) -> dict:
     """Kernel degradation ladder under build/launch faults."""
+    from repro_torch.core.engine import LadderExhaustedError
     from repro_torch.vortex import Engine
 
     print(f"phase A: engine ladder (seed={seed}, device={device})")
@@ -96,21 +103,44 @@ def phase_a_engine(seed: int, device: torch.device, gate: Gates) -> dict:
         seed, sites=("precompile", "aot_launch"), rate=0.3, horizon=40
     )
     eng = engine()
+    retries = eng.config.max_kernel_retries
+    # exhausted: call index -> (faults fired in it, quarantines it left)
+    got, exhausted = [], {}
+
+    def quarantined() -> int:
+        return eng.stats().get("gemm", {}).get("quarantined", 0)
+
     with faults.installed(plan):
-        try:
-            got = run_stream(eng)
-        except Exception as exc:  # the ladder must absorb every injection
-            gate(False, f"no unhandled exception from dispatch ({exc!r})")
-            return {}
+        for i, x in enumerate(xs):
+            before, q0 = len(plan.fired), quarantined()
+            try:
+                got.append(eng.dispatch("gemm", x, w))
+            except LadderExhaustedError:
+                exhausted[i] = (len(plan.fired) - before, quarantined() - q0)
+                got.append(None)
+            except Exception as exc:  # the ladder must absorb the rest
+                gate(False, f"no unhandled exception from dispatch "
+                            f"({exc!r})")
+                return {}
     stats = eng.stats()["gemm"]
-    rungs = stats["quarantined"] + stats["fallbacks"]
+    rungs = stats["quarantined"] + stats["fallbacks"] + len(exhausted)
     print(
         f"  extents {extents}; plan fired {len(plan.fired)} fault(s) "
         f"{plan.fired}; quarantined={stats['quarantined']} "
-        f"fallbacks={stats['fallbacks']}"
+        f"fallbacks={stats['fallbacks']} exhausted calls "
+        f"{sorted(exhausted)}"
     )
     gate(len(plan.fired) >= 1, "fault plan fired at least once")
     gate(rungs >= 1, "at least one degradation rung exercised")
+    if exhausted:
+        gate(device.type == "cuda"
+             and all(n == 1 + retries for n, _ in exhausted.values()),
+             f"a call raised LadderExhaustedError only on the card, after "
+             f"1 + {retries} injected faults inside it")
+        gate(all(q == 0 for _, q in exhausted.values()),
+             "an exhausted call rolled back its quarantines")
+        for i in exhausted:  # no plan now: the kernels serve the call
+            got[i] = eng.dispatch("gemm", xs[i], w)
     if device.type == "cuda":
         errs = [float((g.float() - r).abs().max() / r.abs().max())
                 for g, r in zip(got, ref)]
@@ -121,7 +151,7 @@ def phase_a_engine(seed: int, device: torch.device, gate: Gates) -> dict:
         gate(all(torch.allclose(g, r, atol=1e-5) for g, r in zip(got, ref)),
              "faulted outputs allclose to no-fault reference")
     return {"fired": list(plan.fired), "quarantined": stats["quarantined"],
-            "fallbacks": stats["fallbacks"]}
+            "fallbacks": stats["fallbacks"], "exhausted": sorted(exhausted)}
 
 
 def phase_b_serving(seed: int, device: torch.device, gate: Gates) -> dict:
