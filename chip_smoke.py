@@ -109,6 +109,31 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    of the plain version; two chained ``generate()`` runs, every decode
    step one replay; then gemma2-9b at full width with 2 layers through
    the chain (window 4096, softcaps 50/30, d = 256).
+4j. MLA and Mamba: deepseek-v2-236b (MLA, 2 shared and 160 routed
+   experts top-6; 2 of 60 layers), falcon-mamba-7b (64 Mamba layers,
+   full depth) and jamba-v0.1-52b (one 8-layer group: 7 Mamba layers and
+   1 attention layer, 4 MoE layers of 16 experts top-2), each at full
+   width, bf16, seeded init drawn on the card, max_cache 512, through
+   serial ``generate()`` with graphs on: 4 requests of 1-2 rows, prompts
+   of 16-256 tokens that fall short of their seq bucket, max_new 8.
+   Fails unless the graphed tokens equal an eager server's
+   (``graphs=False``, the same weights) bit for bit, every prefill and
+   decode step is one graph replay, jamba's attention launches (1 a
+   forward) take the tensor-core prefill and split-kv decode paths, the
+   grouped GEMM launches 3 times per MoE layer per forward on the
+   tensor cores, and the C11 check passes: a 37-token prompt's prefill
+   padded to its 64-row bucket against its exact-length prefill (no-drop
+   MoE capacity), the first Mamba layer's state within 2^-7 in bf16, the
+   whole model's logits and Mamba state within 5e-2 in bf16 (deepseek,
+   jamba) or within 1e-5 on a float32 copy of the weights (falcon-mamba,
+   whose 64 random-weight layers grow the two lengths' bf16 rounding
+   differences past 5e-2).  Rows for the grouped GEMM at deepseek's and
+   jamba's shapes and for jamba's attention, each held against its plain
+   version first.  Prints the device time per call of the plain-torch
+   code the new mixers run on the card (MLA's prefill
+   ``chunked_attention`` and absorbed decode, the Mamba chunk scan and a
+   Mamba layer's prefill and decode), each architecture's prefill and
+   decode step in CUDA-event ms and its peak_gb.
 5. Time each kernel at the main path's shapes and selected strategy
    beside its plain version, its bound and one PyTorch library call
    computing the same function (device time per call from torch.profiler);
@@ -1747,6 +1772,361 @@ def phase_gemma2_f32(kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4j: MLA and Mamba (deepseek-v2, falcon-mamba, jamba)
+# ---------------------------------------------------------------------------
+
+# (arch, layers served: None = full depth).  jamba's pattern is 8 layers
+# long (one attention layer, four MoE layers), so one group is the least.
+MLA_MAMBA = (("deepseek-v2-236b", 2), ("falcon-mamba-7b", None),
+             ("jamba-v0.1-52b", 8))
+MLA_MAMBA_MAX_NEW = 8
+C11_PROMPT = 37  # unaligned: served in a 64-row seq bucket
+# Held whole in float32 (a copy of the served weights): bf16 rounding
+# differences between two sequence lengths grow through 64 random-weight
+# Mamba layers past LOGIT_TOL, while each layer's state agrees.
+C11_WHOLE_F32 = ("falcon-mamba-7b",)
+
+
+def unaligned_requests(rng, cfg, server, n: int) -> list:
+    """``n`` requests of 1-2 rows whose prompts (16-256 tokens) each fall
+    short of their seq bucket, with max_new 8."""
+    from repro_torch.launch.serve import Request
+
+    reqs = []
+    while len(reqs) < n:
+        b, s = int(rng.integers(1, 3)), int(rng.integers(16, 257))
+        if server.seq_bucket(s) == s:
+            continue
+        reqs.append(Request(
+            tokens=rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
+            max_new=MLA_MAMBA_MAX_NEW))
+    return reqs
+
+
+def state_leaves(cache: dict) -> torch.Tensor:
+    """Every Mamba state leaf of a cache, flattened into one f32 vector."""
+    return torch.cat([leaf.float().flatten() for e in cache.values()
+                      for name, leaf in e.items() if name in ("conv", "ssm")])
+
+
+def c11_prefills(server, cfg, params, toks: np.ndarray) -> dict:
+    """The prefill of ``toks`` at its exact length, padded to its seq
+    bucket with ``last = s - 1``, and padded with ``last`` on the bucket's
+    last row (the pad scanned into the state, as the reference does):
+    ``{name: (logits, cache)}``."""
+    from repro_torch.models.model import prefill_step
+
+    b, s = toks.shape
+    sp = server.seq_bucket(s)
+    padded = torch.zeros((b, sp), dtype=torch.int64)
+    padded[:, :s] = torch.from_numpy(toks)
+    padded = padded.to(server.device)
+    out = {}
+    with server.engine.use():
+        for name, t, last in (("exact", padded[:, :s], s - 1),
+                              ("padded", padded, s - 1),
+                              ("pad_scanned", padded, sp - 1)):
+            logits, cache, _ = prefill_step(
+                cfg, params, t, cache_len=server.kv_bucket(sp), last=last)
+            out[name] = (logits[:, :cfg.vocab], cache)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_c11(server, cfg, toks: np.ndarray, whole_f32: bool) -> dict:
+    """C11 on the card: the prefill of ``toks`` padded to its seq bucket
+    with ``last = s - 1`` against the prefill of the s real rows.  MoE
+    layers run at a no-drop capacity here (the capacity follows the token
+    count, so a drop would legitimately differ between the two lengths).
+
+    * bf16, the served weights: the first Mamba layer's conv and ssm state
+      within TOL[bf16] (2^-7), where a pad scanned into the state (the
+      reference's behaviour, shown beside it) is off by about 1.
+    * The whole model: the next-token logits and every Mamba layer's
+      state within LOGIT_TOL in bf16; with ``whole_f32`` (falcon-mamba's
+      64 layers, through which bf16 rounding differences of the two
+      lengths grow past LOGIT_TOL) within TOL[f32] on a float32 copy of
+      the served weights."""
+    import dataclasses
+
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    out = c11_prefills(server, cfg, server.params, toks)
+    mamba = [f"pos{i}" for i, sp_ in enumerate(cfg.pattern)
+             if sp_.mixer == "mamba"]
+    res = {"s": toks.shape[1], "sp": server.seq_bucket(toks.shape[1])}
+    checks = []
+    for name in ("padded", "pad_scanned"):
+        _, res[f"{name}_logit_rel"] = rel_err(out[name][0], out["exact"][0])
+        if mamba:
+            first = [(out[name][1][mamba[0]][k][0], out["exact"][1][mamba[0]]
+                      [k][0]) for k in ("conv", "ssm")]
+            res[f"{name}_layer0_state_rel"] = max(rel_err(a, e)[1]
+                                                  for a, e in first)
+            _, res[f"{name}_state_rel"] = rel_err(
+                state_leaves(out[name][1]), state_leaves(out["exact"][1]))
+    if mamba:
+        checks.append(("padded_layer0_state_rel", TOL[torch.bfloat16]))
+    if whole_f32:
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = {k: ({kk: ({k3: v3.float() for k3, v3 in vv.items()}
+                         if isinstance(vv, dict) else vv.float())
+                    for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.float()) for k, v in server.params.items()}
+        out32 = c11_prefills(server, f32, p32, toks)
+        del p32
+        _, res["f32_padded_logit_rel"] = rel_err(out32["padded"][0],
+                                                 out32["exact"][0])
+        _, res["f32_padded_state_rel"] = rel_err(
+            state_leaves(out32["padded"][1]), state_leaves(out32["exact"][1]))
+        del out32
+        checks += [("f32_padded_logit_rel", TOL[torch.float32]),
+                   ("f32_padded_state_rel", TOL[torch.float32])]
+    else:
+        checks.append(("padded_logit_rel", LOGIT_TOL))
+        if mamba:
+            checks.append(("padded_state_rel", LOGIT_TOL))
+    del out
+    print(f"phase 4j: {cfg.name} C11 prefill of {res['s']} real rows in a "
+          f"{res['sp']}-row bucket vs the exact-length prefill: "
+          + " ".join(f"{k}={v:.4g}" for k, v in res.items()
+                     if k.endswith("rel"))
+          + "; checked: " + ", ".join(f"{k} <= {tol:.3g}"
+                                      for k, tol in checks))
+    for key, tol in checks:
+        if not res[key] <= tol:
+            fail(f"phase 4j: {cfg.name} {key} {res[key]} > {tol}: the "
+                 f"padded prefill's state is not the exact prefill's")
+    return res
+
+
+def plain_mla_mamba_times(dev, cfg, server, bp: int, sp: int, kvb: int,
+                          kv_len: int, smi: str) -> dict:
+    """Device time per call of the plain-torch code the new mixers run on
+    the card, at the shapes the served requests gave it: MLA's prefill
+    ``chunked_attention`` and one absorbed decode step of one layer, the
+    Mamba chunk scan and one Mamba layer's prefill and decode."""
+    from repro_torch.kernels.ref import chunked_attention
+    from repro_torch.models.layers import (
+        ATTN_CHUNK,
+        _ssm_chunk_scan,
+        mamba_forward,
+        mla_forward,
+    )
+    from repro_torch.models.model import _slice, make_cache
+
+    dt = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(9)
+    times = {}
+    x = torch.randn(bp, sp, cfg.d_model, generator=g, device=dev).to(dt)
+    xd = x[:, :1].contiguous()
+    pos = torch.full((bp,), kv_len - 1, dtype=torch.int32, device=dev)
+    if cfg.mla is not None:
+        m, H = cfg.mla, cfg.n_heads
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        q, k = (torch.randn(bp, H, sp, qk, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn(bp, H, sp, m.v_head_dim, generator=g,
+                        device=dev).to(dt)
+        times[f"mla chunked_attention q=({bp},{H},{sp},{qk}) "
+              f"v dim {m.v_head_dim}"] = device_ms(
+            lambda: chunked_attention(q, k, v, causal=True, chunk=ATTN_CHUNK),
+            iters=20)
+        p = _slice(server.params["pos0"], 0)["mla"]
+        cache = _slice(make_cache(cfg, bp, kvb, dev)["pos0"], 0)
+        times[f"mla absorbed decode (one layer) b={bp} cache={kvb}"] = \
+            device_ms(lambda: mla_forward(
+                p, xd, cfg, mode="decode", positions=pos.reshape(bp, 1),
+                cache=cache, pos=pos), iters=20)
+    if cfg.ssm is not None:
+        s_ = cfg.ssm
+        i = next(i for i, spec in enumerate(cfg.pattern)
+                 if spec.mixer == "mamba")
+        p = _slice(server.params[f"pos{i}"], 0)["mamba"]
+        L = min(cfg.scan_chunk, sp)
+        a = torch.rand(bp, L, s_.d_inner, s_.d_state, generator=g,
+                       device=dev)
+        bx = torch.randn(bp, L, s_.d_inner, s_.d_state, generator=g,
+                         device=dev)
+        h0 = torch.zeros(bp, s_.d_inner, s_.d_state, device=dev)
+        times[f"mamba _ssm_chunk_scan ({bp},{L},{s_.d_inner},{s_.d_state}) "
+              f"f32"] = device_ms(lambda: _ssm_chunk_scan(a, bx, h0),
+                                  iters=10)
+        last = torch.full((1,), sp - 1, dtype=torch.long, device=dev)
+        times[f"mamba layer prefill x=({bp},{sp},{cfg.d_model})"] = \
+            device_ms(lambda: mamba_forward(p, x, cfg, mode="prefill",
+                                            last=last), iters=10)
+        state = _slice(make_cache(cfg, bp, kvb, dev)[f"pos{i}"], 0)
+        times[f"mamba layer decode b={bp}"] = device_ms(
+            lambda: mamba_forward(p, xd, cfg, mode="decode", cache=state),
+            iters=20)
+    for what, ms in times.items():
+        print(f"phase 4j: plain torch on the card, {cfg.name} {what}: "
+              f"device_ms={ms:.4f} [torch.profiler device time] on {smi}")
+    del x, xd
+    return times
+
+
+def step_ms(server, toks: np.ndarray, n: int = 10) -> tuple[float, float]:
+    """CUDA-event ms of one "aot" prefill (lease, graph replay, first
+    token) and of one graphed decode step against its cache, each the
+    mean of ``n`` calls after the key's first."""
+    b, s = toks.shape
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    tok, cache, kvb = server.prefill(toks)
+    server.release_cache(cache)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        tok, cache, kvb = server.prefill(toks)
+        server.release_cache(cache)
+    end.record()
+    torch.cuda.synchronize()
+    prefill = start.elapsed_time(end) / n
+    tok, cache, kvb = server.prefill(toks)
+    try:
+        t = tok[:, None]
+        server._decode(cache, t, s, server._decode_seen, kvb)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            server._decode(cache, t, s, server._decode_seen, kvb)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        server.release_cache(cache)
+    return prefill, start.elapsed_time(end) / n
+
+
+def phase_mla_mamba(dev, kernels, errs, smi: str) -> dict:
+    """Phase 4j: deepseek-v2 (MLA, 2 shared + 160 routed experts; 2 of 60
+    layers), falcon-mamba-7b (64 Mamba layers, full depth) and jamba-v0.1
+    (one 8-layer group: 7 Mamba and 1 attention layer, 4 MoE layers), each
+    at full width through serial ``generate()`` with graphs on, bf16,
+    seeded init drawn on the card."""
+    import dataclasses
+
+    from repro_torch.launch.serve import VortexServer
+    from repro_torch.models.registry import get_config
+
+    rows, info = [], {}
+    for arch, n_layers in MLA_MAMBA:
+        full = get_config(arch)
+        cfg = (full if n_layers is None
+               else dataclasses.replace(full, n_layers=n_layers))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = VortexServer(cfg, max_cache=512, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eager = VortexServer(cfg, max_cache=512, params=server.params,
+                             graphs=False)
+        n_moe = cfg.n_groups * sum(sp.mlp == "moe" for sp in cfg.pattern)
+        n_attn = cfg.n_groups * sum(sp.mixer == "attn" for sp in cfg.pattern)
+        print(f"server: {cfg.name} ({cfg.n_layers} of {full.n_layers} "
+              f"layers) d_model={cfg.d_model} pattern="
+              f"{[(sp.mixer, sp.mlp) for sp in cfg.pattern]} moe={cfg.moe} "
+              f"mla={cfg.mla} ssm={cfg.ssm} vocab={cfg.vocab} "
+              f"params_gb={param_bytes(server.params) / 1e9:.2f} "
+              f"init_s={init_s:.2f}")
+        reqs = unaligned_requests(np.random.default_rng(40), cfg, server, 4)
+        steps = sum(r.max_new - 1 for r in reqs)
+        per_form = {"prefill": 0, "decode": 0, "prefill_forwards": 0,
+                    "decode_forwards": 0, "per_forward": set()}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with grouped_launches_by_form(kernels, server, per_form):
+            outs = [server.generate(r) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        want = [eager.generate(r) for r in reqs]
+        st = server.engine_dispatch_stats()
+        ds = st["decode_step"]
+        print(f"phase 4j: {cfg.name} requests="
+              f"{[r.tokens.shape for r in reqs]} seq buckets="
+              f"{[server.seq_bucket(r.tokens.shape[1]) for r in reqs]} "
+              f"wall_s={wall:.3f} decode_steps={ds['launches']} "
+              f"stats={server.stats} kernel_launches={counts}")
+        for i, (got, exp) in enumerate(zip(outs, want)):
+            r = reqs[i]
+            if got.shape != (r.tokens.shape[0], r.max_new) or not (
+                    (got >= 0) & (got < cfg.vocab)).all():
+                fail(f"phase 4j: {cfg.name} request {i}: tokens {got}")
+            if not np.array_equal(got, exp):
+                fail(f"phase 4j: {cfg.name} request {i}: graphed tokens "
+                     f"{got.tolist()} != eager {exp.tolist()}")
+        if ds["launches"] != steps or ds["padded_calls"] != 0:
+            fail(f"phase 4j: {cfg.name} {ds['launches']} decode steps for "
+                 f"{steps} tokens")
+        if (server.stats["decode_graph_replays"] != steps
+                or server.stats["prefill_graph_replays"] != len(reqs)):
+            fail(f"phase 4j: {cfg.name} expected one graph replay per "
+                 f"prefill and per decode step: {server.stats}")
+        if st["kv_pool"]["leases_active"] != 0:
+            fail(f"phase 4j: {cfg.name} kv pool leases leaked")
+        all_tensor_core(counts, f"phase 4j {cfg.name}")
+        if (counts["flash_attention_prefill"] != n_attn * len(reqs)
+                or counts["flash_attention_decode"] != n_attn * steps):
+            fail(f"phase 4j: {cfg.name} expected {n_attn} attention "
+                 f"launches per forward: {counts}")
+        per_layer = 3 * n_moe
+        if (per_form["prefill"] != per_layer * len(reqs)
+                or per_form["decode"] != per_layer * steps
+                or counts["vortex_grouped_gemm"]
+                != per_layer * (len(reqs) + steps)):
+            fail(f"phase 4j: {cfg.name} expected {per_layer} grouped-GEMM "
+                 f"launches per forward, got {per_form}")
+        if counts["vortex_gemm"]:
+            fail(f"phase 4j: {cfg.name} launched the GEMM kernel outside "
+                 f"the chain")
+        print(f"phase 4j: {cfg.name} graphed tokens equal eager tokens for "
+              f"{len(reqs)} requests ({sum(o.size for o in outs)} tokens); "
+              f"{steps} decode steps, each one replay; attention launches "
+              f"prefill={counts['flash_attention_prefill']} decode="
+              f"{counts['flash_attention_decode']}; grouped launches "
+              f"prefill={per_form['prefill']} decode={per_form['decode']}; "
+              f"mean dropped_frac={server.mean_dropped_frac():.6f}")
+        res = {"cfg": cfg, "counts": counts, "per_form": per_form,
+               "wall_s": wall, "tokens": sum(o.size for o in outs),
+               "init_s": init_s}
+        res["c11"] = check_c11(server, cfg, np.random.default_rng(41)
+                               .integers(0, cfg.vocab, (1, C11_PROMPT)),
+                               whole_f32=arch in C11_WHOLE_F32)
+        big = max(reqs, key=lambda q: q.tokens.size)
+        bp = server.batch_bucket(big.tokens.shape[0])
+        sp = server.seq_bucket(big.tokens.shape[1])
+        kv_len = big.tokens.shape[1] + big.max_new - 1
+        kvb = server.kv_bucket(sp)
+        if kv_len > kvb:
+            kvb = server._grown_kv_bucket(kvb, kv_len)
+        res["prefill_ms"], res["decode_ms"] = step_ms(server, big.tokens)
+        res["plain_ms"] = plain_mla_mamba_times(dev, cfg, server, bp, sp,
+                                                kvb, kv_len, smi)
+        shape = dict(cfg=cfg, engine=server.engine, server=server, bp=bp,
+                     sp=sp, kvb=kvb, kv_len=kv_len, counts=counts,
+                     per_form=per_form)
+        g = torch.Generator().manual_seed(11)
+        if n_moe:
+            rows += grouped_rows(dev, shape, errs, g, f", {cfg.name}",
+                                 gw=torch.Generator(dev).manual_seed(12))
+        if n_attn:
+            rows += attention_rows(dev, shape, errs, g, f", {cfg.name}")
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"phase 4j: {cfg.name} prefill (b={big.tokens.shape[0]}, "
+              f"s={big.tokens.shape[1]}) at ({bp}, {sp}): "
+              f"{res['prefill_ms']:.3f} ms; one decode step after it: "
+              f"{res['decode_ms']:.3f} ms [CUDA events]; peak_gb="
+              f"{res['peak_gb']:.2f} on {smi}")
+        info[arch] = res
+        del server, eager, shape
+        free_cuda()
+    info["rows"] = rows
+    return info
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -2132,37 +2512,33 @@ def routed_counts(g, bp: int, s: int, E: int, k: int, C: int) -> list[int]:
     return [min(c, C) for c in counts]
 
 
-def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
-    """Rows 3 (grouped GEMM, prefill and decode forms, at the shapes the
-    granite server gave the kernel) and 4 (conv2d at conv2_x, b = 8)."""
-    import torch.nn.functional as F
-
+def grouped_rows(dev, moe_info, errs, g, tag: str = "", gw=None) -> list:
+    """Rows for the grouped GEMM's prefill and decode forms at the shapes
+    an MoE server gave the kernel (its first projection), each held
+    against the plain version first.  The routing counts draw from ``g``,
+    the operands from ``gw`` (default ``g``; a generator on the card
+    draws a large expert stack there)."""
     from repro_torch.core.workloads import GroupedGemmWorkload
-    from repro_torch.kernels.conv import (
-        conv_weight_matrix,
-        im2col,
-        vortex_conv2d,
-    )
-    from repro_torch.kernels.gemm import vortex_gemm_plain
     from repro_torch.kernels.grouped_gemm import (
         vortex_grouped_gemm,
         vortex_grouped_gemm_plain,
     )
     from repro_torch.models.layers import moe_capacity
 
+    gw = g if gw is None else gw
     dt = torch.bfloat16
-    g = torch.Generator().manual_seed(4)
     rows = []
-    cfg, server = moe_info["cfg"], moe_info["server"]
+    cfg, engine = moe_info["cfg"], moe_info["engine"]
     E, k, fe, d = (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
                    cfg.d_model)
     bp, sp = moe_info["bp"], moe_info["sp"]
     G, r = E * bp, bp
     # The first projection (w_in: K = d_model, N = d_ff_expert); w_gate is
     # the same call and w_out its transpose in shape.
-    kern = server.engine.kernel_for(
+    kern = engine.kernel_for(
         GroupedGemmWorkload(C=None, G=G, E=E, N=fe, K=d))
-    w = (torch.randn(E, d, fe, generator=g) * E ** -0.5).to(dev, dt)
+    w = (torch.randn(E, d, fe, generator=gw, device=gw.device)
+         * E ** -0.5).to(dev, dt)
     for form, s in (("prefill", sp), ("decode", 1)):
         C = moe_capacity(cfg, s)
         sel = kern.select(C)
@@ -2170,7 +2546,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
         bm, bn, bk = sel.strategy.l1
         be = sel.strategy.backend
         counts = routed_counts(g, bp, s, E, k, C)
-        x = torch.randn(G, cp, d, generator=g).to(dev, dt)
+        x = torch.randn(G, cp, d, generator=gw, device=gw.device).to(dev, dt)
         for i, n in enumerate(counts):
             x[i, n:] = float("nan")  # staged routing pad
         cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
@@ -2181,9 +2557,9 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
             return vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
                                        block_k=bk, backend=be)
 
-        err = check(f"vortex_grouped_gemm {form} at the main path's shape",
-                    kernel_call(), vortex_grouped_gemm_plain(x, w, cnt),
-                    TOL[dt])
+        err = check(f"vortex_grouped_gemm {form}{tag} at the main path's "
+                    f"shape", kernel_call(),
+                    vortex_grouped_gemm_plain(x, w, cnt), TOL[dt])
         errs["vortex_grouped_gemm"] = max(errs["vortex_grouped_gemm"], err)
         valid = sum(counts)
         used = sum(1 for e in range(E) if any(counts[e * r:(e + 1) * r]))
@@ -2191,20 +2567,40 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
         bnd, by = bound_ms(nbytes, 2.0 * valid * d * fe, dt)
         rows.append(timed(
             {
-                "name": f"vortex_grouped_gemm ({form})", "route": "cuda",
+                "name": f"vortex_grouped_gemm ({form}{tag})", "route": "cuda",
                 "source": "src/repro_torch/csrc/grouped_gemm.cu",
                 "replaces": "src/repro/kernels/grouped_gemm.py:95",
                 "launches": moe_info["per_form"][form],
                 "max_abs_err": errs["vortex_grouped_gemm"],
                 "bound_ms": bnd, "bound_by": by,
-                "shape": f"x=({G},{cp},{d}) w=({E},{d},{fe}) C={C} "
-                         f"rows={valid} experts={used} "
+                "shape": f"{cfg.name} x=({G},{cp},{d}) w=({E},{d},{fe}) "
+                         f"C={C} rows={valid} experts={used} "
                          f"blocks=({bm},{bn},{bk}) {be} bf16",
             },
             ms=kernel_call,
             plain_ms=lambda: vortex_grouped_gemm_plain(x, w, cnt),
             library_ms=lambda: torch.bmm(xm, w),
         ))
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
+    """Rows 3 (grouped GEMM, prefill and decode forms, at the shapes the
+    granite server gave the kernel) and 4 (conv2d at conv2_x, b = 8)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv import (
+        conv_weight_matrix,
+        im2col,
+        vortex_conv2d,
+    )
+    from repro_torch.kernels.gemm import vortex_gemm_plain
+
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(4)
+    rows = grouped_rows(dev, dict(moe_info, engine=moe_info["server"].engine),
+                        errs, g)
 
     name, b, hw = conv_info["name"], conv_info["b"], conv_info["hw"]
     cin, cout, stride = conv_info["cin"], conv_info["cout"], conv_info["stride"]
@@ -3167,6 +3563,10 @@ def main() -> int:
                             f"ok")
     phase("4f", phase_gemma2_f32, kernels,
           done="float32 scheduler tokens equal serial generate() ok")
+    mm_info = phase("4j", phase_mla_mamba, dev, kernels, errs, smi,
+                    done="MLA and Mamba served at full width: graphed "
+                         "tokens equal eager ones, padded and exact "
+                         "prefills agree")
 
     def phase5():
         rows = phase_time(dev, gemm_info, serve_info, errs)
@@ -3176,7 +3576,7 @@ def main() -> int:
         rows += dense_attention_rows(g2_info, dense_info, errs)
         rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
         rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
-        return rows
+        return rows + mm_info["rows"]
 
     rows = phase("5", phase5, done="kernels timed")
     bench_info = phase("6", phase_bench, kernels, smi,

@@ -54,6 +54,10 @@ def ref_grouped_gemm(
 
 
 def _as_i32(x, device) -> torch.Tensor:
+    if isinstance(x, int):
+        # A fill on the device, not a host-to-device copy: the plain
+        # versions run inside captured CUDA graphs (MLA's prefill).
+        return torch.full((), x, dtype=torch.int32, device=device)
     return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 

@@ -22,8 +22,12 @@ Capturing a key first runs the step once eagerly on the capture stream
 (which builds the engine's executables and selections and allocates the
 kernels' per-stream scratch and staging sets outside the capture), then
 captures it.  Both steps are idempotent -- a decode step writes the same
-k/v row at the same ``pos``, a prefill the same cache rows -- so the
-warm-up leaves the cache as the replay that follows it does.  The host
+k/v (ckv/k_rope) row at the same ``pos``, a prefill the same cache rows
+and the whole Mamba state -- so the warm-up leaves the cache as the replay
+that follows it does.  A Mamba decode step is not: it advances the
+``conv``/``ssm`` state it reads.  Those leaves (``state``) are copied
+before the warm-up and put back after it and after the capture, so the
+replay that follows advances them once, as one eager step does.  The host
 counters the warm-up and the capture advanced (the engine's DispatchStats,
 the kernels' launch counters) are rolled back, and each replay adds the
 delta one captured step counted: the counters read as an eager run's.
@@ -208,9 +212,12 @@ class StepGraphs:
     def _fill(inputs: tuple, *values) -> None:
         raise NotImplementedError
 
-    def capture(self, key: tuple, step: Callable, *values) -> StepGraph:
+    def capture(self, key: tuple, step: Callable, *values,
+                state=()) -> StepGraph:
         """Warm up and capture ``step`` for ``key`` with static inputs
-        holding ``values``; the counters end as they began."""
+        holding ``values``; the counters end as they began, and so do the
+        tensors in ``state`` (ones the step updates from their own
+        contents)."""
         stream, pool = self.memory.ready()
         inputs = self._statics(*values)
         # A calibration slice on another thread (CalibrationDaemon) would
@@ -218,17 +225,26 @@ class StepGraphs:
         # back below: the capture holds the calibrator's lock.
         cal = getattr(self.engine, "calibrator", None)
         with cal.lock if cal is not None else contextlib.nullcontext():
-            return self._capture(key, step, inputs, stream, pool)
+            return self._capture(key, step, inputs, stream, pool, state)
 
-    def _capture(self, key, step, inputs, stream, pool) -> StepGraph:
+    def _capture(self, key, step, inputs, stream, pool,
+                 state) -> StepGraph:
         before = self.counters.read()
         try:
             with _on_stream(stream):
+                saved = [t.clone() for t in state]
+
+                def restore():
+                    for t, s in zip(state, saved):
+                        t.copy_(s)
+
                 for _ in range(2):
                     step(*inputs)  # warm-up: executables, scratch, staging
+                    restore()
                     warm = self.counters.read()
                     graph, outputs = capture_graph(
                         lambda: step(*inputs), pool, stream)
+                    restore()
                     delta = StepCounters.diff(warm, self.counters.read())
                     if not StepCounters.ladder_moved(delta):
                         break

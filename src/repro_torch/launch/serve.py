@@ -23,8 +23,8 @@ the reference's knob ``prefill="aot" | "chained"``:
     output a bucket-shaped :class:`~repro_torch.core.engine.LazyBucket`
     that the next dispatch consumes directly (``prefill_chained``), at a
     seq bucket where the whole chain is aligned (``chain_seq_bucket``).
-    An architecture the chain does not serve (MoE) runs the ``"aot"``
-    program, and ``stats["chained_prefills"]`` does not move.
+    An architecture the chain does not serve (MoE, MLA, Mamba) runs the
+    ``"aot"`` program, and ``stats["chained_prefills"]`` does not move.
 
 On the card a decode step is ONE replay of a CUDA graph captured per
 (form, batch bucket, kv bucket, cache), the counterpart of the
@@ -44,7 +44,16 @@ as its dynamic extent; ``mean_dropped_frac`` reports the capacity drops.
 
 Unlike the reference, the first generated token is the argmax at the last
 REAL prompt position (s - 1), not at the last padded position of the
-sequence bucket, in both prefill programs (ROADMAP C1).
+sequence bucket, in both prefill programs (ROADMAP C1), and a Mamba
+layer's state is that of row s - 1, not of the bucket's last pad row
+(ROADMAP C11).
+
+Besides attention's k/v, the cache holds MLA's ``ckv``/``k_rope`` (a
+sequence axis, grown like k/v, leased zeroed: MLA's absorbed decode
+multiplies masked rows by 0, so their tails must be finite) and Mamba's
+``conv``/``ssm`` state (no sequence axis: never grown, written whole by
+the prefill).  These families run the serial ``generate()``; the
+continuous-batching scheduler refuses them, as the reference's does.
 
 Continuous batching (launch/scheduler.py) drives the same server through
 :meth:`VortexServer.prefill` (one request's prefill, its cache leased) and
@@ -87,6 +96,7 @@ from repro_torch.models.layers import (
     norm,
 )
 from repro_torch.models.model import (
+    CACHE_SEQ_AXIS,
     _slice,
     abstract_cache,
     decode_step,
@@ -180,6 +190,10 @@ class KVBucketPool:
     from the free list or a fresh allocation — a non-zero
     ``leases_active`` at idle is a leak.
 
+    ``zero=True`` zeroes a parked buffer in place before handing it out
+    (the reference allocates fresh zeros instead): the address stays the
+    one a captured graph binds.
+
     A lease pops the most recently parked buffer of its key, so a set of
     leaves leased in order and released in REVERSE order comes back leaf
     for leaf on the next lease of the same shapes: the stable addresses a
@@ -204,9 +218,11 @@ class KVBucketPool:
     def _key(shape, dtype, device, tag: str = "") -> tuple:
         return (tuple(shape), dtype, str(device), tag)
 
-    def lease(self, shape, dtype, device, tag: str = "") -> torch.Tensor:
+    def lease(self, shape, dtype, device, tag: str = "", *,
+              zero: bool = False) -> torch.Tensor:
         """One bucket-shaped buffer: a parked one when available (stale
-        contents — read it through a kv_len mask), else fresh zeros."""
+        contents — read it through a kv_len mask — or zeroed in place with
+        ``zero``), else fresh zeros."""
         if faults.ACTIVE is not None:
             faults.ACTIVE.check("pool_lease")
         key = self._key(shape, dtype, device, tag)
@@ -222,6 +238,8 @@ class KVBucketPool:
             self.leases_peak = max(self.leases_peak, self.leases_active)
         if buf is None:
             buf = torch.zeros(tuple(shape), dtype=dtype, device=device)
+        elif zero:
+            buf.zero_()
         return buf
 
     def adopt(self, n: int) -> None:
@@ -284,6 +302,13 @@ class VortexServer:
     (``prefill_buckets`` is the reference's ``prefill_compiles``).
     """
 
+    # The head width of the kv-bucket source of a model with no attention
+    # layer (MLA and Mamba decode inline, never through the workload).
+    KV_BUCKET_HEAD_DIM = 128
+    # Cache leaves a lease hands out zeroed: MLA's absorbed decode masks
+    # scores but multiplies the masked rows' values by 0.
+    _LEASE_ZEROED = ("ckv", "k_rope")
+
     def __init__(
         self,
         cfg,
@@ -331,9 +356,15 @@ class VortexServer:
             GemmWorkload(M=None, N=cfg.d_model, K=cfg.d_model)
         ))
         # The cache dim's bucket source: the decode-attention workload's kv
-        # buckets (== the kv buckets prefill attention streams).
+        # buckets (== the kv buckets prefill attention streams) at the
+        # attention layers' head width.  With no attention layer the
+        # width is a fixed one: falcon-mamba's resolved head_dim is its
+        # whole d_model, whose lattice is empty on the H100 (ROADMAP C12).
+        kv_hd = (cfg.resolved_head_dim
+                 if any(spec.mixer == "attn" for spec in cfg.pattern)
+                 else self.KV_BUCKET_HEAD_DIM)
         self._decode_op = CompiledOp(engine, engine.kernel_for(
-            DecodeAttentionWorkload(seq=None, head_dim=cfg.resolved_head_dim)
+            DecodeAttentionWorkload(seq=None, head_dim=kv_hd)
         ))
         self.kv_pool = KVBucketPool()
         # First use of a (batch, seq) / (batch, kv) bucket vs repeat use;
@@ -444,7 +475,7 @@ class VortexServer:
         leaf at a time and settled on failure: a fault partway
         (``pool_lease`` injection, out of memory) must not strand the
         leaves already checked out.  Stale contents: every read goes
-        through the kv_len mask."""
+        through the kv_len mask, but MLA's leaves come zeroed."""
         spec = abstract_cache(self.cfg, batch, cache_len)
         tag = self._tag(shared)
         cache: dict = {}
@@ -453,8 +484,9 @@ class VortexServer:
             for key, entry in spec.items():
                 got = {}
                 for name, leaf in entry.items():
-                    buf = self.kv_pool.lease(leaf.shape, leaf.dtype,
-                                             self.device, tag)
+                    buf = self.kv_pool.lease(
+                        leaf.shape, leaf.dtype, self.device, tag,
+                        zero=name in self._LEASE_ZEROED)
                     leased.append(buf)
                     got[name] = buf
                 cache[key] = got
@@ -474,34 +506,52 @@ class VortexServer:
 
     def _grow_cache(self, cache: dict, new_len: int, *,
                     shared: bool = False) -> dict:
-        """Copy the cache into ``new_len``-long leased bucket buffers (one
-        in-place copy of the valid extent per leaf, only at bucket
-        transitions), then release the outgrown leaves.  Two-phase: a
-        failure mid-grow releases the partial new set and leaves ``cache``
-        untouched for the caller's settling ``finally``."""
+        """Copy every leaf with a sequence axis (``CACHE_SEQ_AXIS``) into a
+        ``new_len``-long leased bucket buffer (one in-place copy of the
+        valid extent per leaf, only at bucket transitions), then release
+        the outgrown leaves; Mamba state passes through as it is.
+        Two-phase: a failure mid-grow releases the partial new set and
+        leaves ``cache`` untouched for the caller's settling ``finally``."""
         tag = self._tag(shared)
         new_leases: list[torch.Tensor] = []
+        old: list[torch.Tensor] = []
         out: dict = {}
         try:
             for key, entry in cache.items():
                 grown = {}
                 for name, leaf in entry.items():
+                    ax = CACHE_SEQ_AXIS.get(name)
+                    if ax is None or leaf.shape[ax] >= new_len:
+                        grown[name] = leaf
+                        continue
                     shape = list(leaf.shape)
-                    shape[3] = new_len
-                    buf = self.kv_pool.lease(shape, leaf.dtype, leaf.device,
-                                             tag)
+                    shape[ax] = new_len
+                    buf = self.kv_pool.lease(
+                        shape, leaf.dtype, leaf.device, tag,
+                        zero=name in self._LEASE_ZEROED)
                     new_leases.append(buf)
-                    buf[:, :, :, :leaf.shape[3]].copy_(leaf)
+                    buf.narrow(ax, 0, leaf.shape[ax]).copy_(leaf)
                     grown[name] = buf
+                    old.append(leaf)
                 out[key] = grown
         except BaseException:
             for buf in reversed(new_leases):
                 self.kv_pool.release(buf, tag)
             raise
-        n_old = sum(1 for _ in self._cache_leaves(cache))
-        self.release_cache(cache, shared=shared)
-        self.decode_stats.stage_copies += n_old
+        for leaf in reversed(old):
+            self.kv_pool.release(leaf, tag)
+        self.decode_stats.stage_copies += len(old)
         return out
+
+    @staticmethod
+    def _cache_len(cache: dict) -> int:
+        """The length of a cache's leaves that have a sequence axis."""
+        for entry in cache.values():
+            for name, leaf in entry.items():
+                if name in CACHE_SEQ_AXIS:
+                    return leaf.shape[CACHE_SEQ_AXIS[name]]
+        raise ValueError("the cache has no leaf with a sequence axis: "
+                         "pass its kv bucket")
 
     # -- warmup -------------------------------------------------------------
 
@@ -528,19 +578,20 @@ class VortexServer:
         m_max = self.max_cache if m_max is None else min(m_max, self.max_cache)
         hd = cfg.resolved_head_dim
         H, KV = cfg.n_heads, cfg.n_kv_heads
+        attn_specs = [spec for spec in cfg.pattern if spec.mixer == "attn"]
         attn = {
             eng.kernel_for(AttentionWorkload(
                 seq=None, head_dim=hd, causal=True, window=spec.window,
                 softcap=cfg.attn_softcap,
             ))
-            for spec in cfg.pattern
+            for spec in attn_specs
         }
         dec = {
             eng.kernel_for(DecodeAttentionWorkload(
                 seq=None, head_dim=hd, causal=True, window=spec.window,
                 softcap=cfg.attn_softcap,
             ))
-            for spec in cfg.pattern
+            for spec in attn_specs
         }
         bps = [1]
         while bps[-1] < pow2_bucket(max_batch):
@@ -583,22 +634,23 @@ class VortexServer:
                 for kvb in self.decode_buckets(m_max=m_max, max_new=max_new):
                     cache = self.lease_cache(bp, kvb)
                     try:
-                        if self.graphs.get(self._graph_key(cache, bp, 0)) \
-                                is None:
-                            self._capture(cache, tokens, 0)
+                        if self.graphs.get(
+                                self._graph_key(cache, bp, 0, kvb)) is None:
+                            self._capture(cache, tokens, 0, kvb)
                     finally:
                         self.release_cache(cache)
                 if self._chained():
                     continue
                 for sp in self.seq_buckets(m_max):
-                    cache = self.lease_cache(bp, self.kv_bucket(sp))
+                    kvb = self.kv_bucket(sp)
+                    cache = self.lease_cache(bp, kvb)
                     try:
                         if self.prefill_graphs.get(
                                 self._prefill_key(cache, bp, sp)) is None:
                             self._capture_prefill(
                                 cache, torch.zeros((bp, sp),
                                                    dtype=torch.int64),
-                                sp - 1)
+                                sp - 1, kvb)
                     finally:
                         self.release_cache(cache)
         return built() - before
@@ -878,7 +930,8 @@ class VortexServer:
                 logits, dropped, cache = self._prefill_eager(
                     None, toks.to(self.device), s - 1, kvb)
             else:
-                logits, dropped = self._prefill_graphed(out, toks, s - 1)
+                logits, dropped = self._prefill_graphed(out, toks, s - 1,
+                                                        kvb)
                 cache = out
         except BaseException:
             if out is not None:
@@ -909,9 +962,9 @@ class VortexServer:
         return (bp, sp, tuple(leaf.data_ptr()
                               for leaf in self._cache_leaves(cache)))
 
-    def _capture_prefill(self, cache: dict, tokens: torch.Tensor, last: int):
+    def _capture_prefill(self, cache: dict, tokens: torch.Tensor, last: int,
+                         kvb: int):
         bp, sp = tokens.shape
-        kvb = next(self._cache_leaves(cache)).shape[3]
         g = self.prefill_graphs.capture(
             self._prefill_key(cache, bp, sp),
             lambda t, i: self._prefill_eager(cache, t, i, kvb)[:2],
@@ -921,15 +974,18 @@ class VortexServer:
         return g
 
     def _prefill_graphed(self, cache: dict, tokens: torch.Tensor,
-                         last: int):
+                         last: int, kvb: int | None = None):
         """The ``"aot"`` prefill as one replay of the (bp, sp, cache)
         graph, captured at the key's first use: ``(first-token logits,
         dropped_frac)``, the graph's static outputs (read them before the
-        next replay)."""
+        next replay).  ``kvb`` is the cache's length (default: its
+        sequence-axis leaves')."""
         bp, sp = tokens.shape
         g = self.prefill_graphs.get(self._prefill_key(cache, bp, sp))
         if g is None:
-            g = self._capture_prefill(cache, tokens, last)
+            if kvb is None:
+                kvb = self._cache_len(cache)
+            g = self._capture_prefill(cache, tokens, last, kvb)
         out = self.prefill_graphs.replay(g, tokens, last)
         self.stats["prefill_graph_replays"] += 1
         return out
@@ -947,21 +1003,25 @@ class VortexServer:
         (bp, kvb, this cache)."""
         return self._decode(cache, tokens, pos, self._decode_vec_seen)
 
-    def _decode(self, cache: dict, tokens: torch.Tensor, pos, seen: set):
-        """One decode step of every row (``pos`` an int or (bp,)),
-        counted on ``seen``'s (bp, kvb) keys; returns the logits, a tensor
-        the caller owns.  With graphs on the step is one replay of the
-        key's graph, captured at the key's first step."""
+    def _decode(self, cache: dict, tokens: torch.Tensor, pos, seen: set,
+                kvb: int | None = None):
+        """One decode step of every row (``pos`` an int or (bp,)) against
+        a cache of length ``kvb`` (default: its sequence-axis leaves'; a
+        Mamba-only cache has none), counted on ``seen``'s (bp, kvb) keys;
+        returns the logits, a tensor the caller owns.  With graphs on the
+        step is one replay of the key's graph, captured at the key's first
+        step."""
         bp = tokens.shape[0]
-        kvb = next(self._cache_leaves(cache)).shape[3]
+        if kvb is None:
+            kvb = self._cache_len(cache)
         self._note(seen, (bp, kvb), "decode_buckets", "decode_bucket_hits")
         if self.graphs is None:
             logits, dropped = self._step(cache, tokens, pos)
         else:
-            key = self._graph_key(cache, bp, pos)
+            key = self._graph_key(cache, bp, pos, kvb)
             g = self.graphs.get(key)
             if g is None:
-                g = self._capture(cache, tokens, pos)
+                g = self._capture(cache, tokens, pos, kvb)
             logits, dropped = self.graphs.replay(g, tokens, pos)
             self.stats["decode_graph_replays"] += 1
             logits = logits.clone()  # never hand out the static output
@@ -976,18 +1036,24 @@ class VortexServer:
             )
         return logits, stats["dropped_frac"]
 
-    def _graph_key(self, cache: dict, bp: int, pos) -> tuple:
+    def _graph_key(self, cache: dict, bp: int, pos,
+                   kvb: int | None = None) -> tuple:
         """(form, bp, kvb, every cache leaf's address): a graph replays
         only against the cache it captured."""
-        leaves = list(self._cache_leaves(cache))
         form = "vector" if torch.is_tensor(pos) else "scalar"
-        return (form, bp, leaves[0].shape[3],
-                tuple(leaf.data_ptr() for leaf in leaves))
+        if kvb is None:
+            kvb = self._cache_len(cache)
+        return (form, bp, kvb, tuple(leaf.data_ptr()
+                                     for leaf in self._cache_leaves(cache)))
 
-    def _capture(self, cache: dict, tokens: torch.Tensor, pos):
+    def _capture(self, cache: dict, tokens: torch.Tensor, pos, kvb: int):
+        # A Mamba step advances its state: the warm-up's update is undone
+        # before the capture, so the replay advances it once.
+        state = [leaf for entry in cache.values()
+                 for name, leaf in entry.items() if name in ("conv", "ssm")]
         g = self.graphs.capture(
-            self._graph_key(cache, tokens.shape[0], pos),
-            lambda t, p: self._step(cache, t, p), tokens, pos,
+            self._graph_key(cache, tokens.shape[0], pos, kvb),
+            lambda t, p: self._step(cache, t, p), tokens, pos, state=state,
         )
         self.stats["decode_graph_captures"] += 1
         return g
@@ -1016,7 +1082,7 @@ class VortexServer:
                 else:
                     st.aligned_calls += 1
                 logits = self._decode(cache, tok[:, None], pos,
-                                      self._decode_seen)
+                                      self._decode_seen, kvb)
                 st.launches += 1
                 tok = logits.argmax(-1)
                 out.append(tok.cpu().numpy())

@@ -1,7 +1,8 @@
-"""The attention-decoder layers (counterpart of src/repro/models/layers.py).
+"""The decoder layers (counterpart of src/repro/models/layers.py).
 
-Attention, dense MLPs and top-k routed MoE.  Every mixer/MLP is a plain
-function ``(params, x, ...) -> y`` on tensors, in two modes:
+Attention, multi-head latent attention (MLA), the Mamba-1 selective SSM,
+dense MLPs and top-k routed MoE.  Every mixer/MLP is a plain function
+``(params, x, ...) -> y`` on tensors, in two modes:
 
   * ``prefill`` — the full (bucket-padded) sequence, emitting a decode cache
     of length ``cache_len``,
@@ -20,6 +21,12 @@ dense projections are plain matmuls, as the JAX package leaves them to XLA,
 except in the lazy handle chain (``block_forward_lazy``, the server's
 ``prefill="chained"``), where every projection is an engine ``gemm``
 dispatch.
+
+MLA's prefill attention (naive form, through the inline
+``chunked_attention``), its absorbed decode and the whole Mamba mixer are
+plain torch on every device, as the reference leaves them to inline XLA.
+A Mamba prefill leaves the state of the last REAL prompt token, where the
+reference scans the bucket pad into it (ROADMAP C11).
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ __all__ = [
     "rope_tables",
     "apply_rope",
     "attn_forward",
+    "mla_forward",
+    "mamba_forward",
     "mlp_forward",
     "lazy_matmul",
     "attn_forward_lazy",
@@ -278,6 +287,227 @@ def attn_forward(
         }
     y = _merge_heads(out) @ p["wo"]
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _rope_at(positions: torch.Tensor, dim: int, theta: float):
+    """RoPE tables lifted to (rows, 1, seq, dim/2): ``positions`` (s,) in
+    prefill, (b, 1) in decode (each row at its own position)."""
+    cos, sin = rope_tables(positions, dim, theta)
+    if positions.ndim == 2:
+        return cos[:, None], sin[:, None]
+    return cos[None, None], sin[None, None]
+
+
+def mla_forward(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    mode: str,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+    pos: torch.Tensor | None = None,
+    cache_len: int = 0,
+) -> tuple[torch.Tensor, dict]:
+    """Multi-head latent attention (src/repro/models/layers.py:511-620).
+
+    Prefill runs the naive (decompressed) form: q/k width nope + rope, v
+    width ``v_head_dim``, through the inline ``chunked_attention``, and
+    emits the ``ckv`` (b, cache_len, kv_lora) and ``k_rope``
+    (b, cache_len, rope) leaves zero-padded past s.  Decode runs the
+    absorbed form in f32 against those leaves: the new row lands at each
+    row's ``pos`` in place, and key rows past ``pos`` are score-masked
+    (``arange(S) <= pos``).  The value contraction multiplies masked rows
+    by an exact 0, so the leaves' tails must be finite: the server leases
+    them zeroed.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, dv, c = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                           m.kv_lora_rank)
+    scale = (nope + rope_d) ** -0.5
+
+    cq = rmsnorm(x @ p["wdq"], p["q_norm"])
+    q = (cq @ p["wuq"]).reshape(b, s, H, nope + rope_d).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv_full = x @ p["wdkv"]  # (b, s, kv_lora + rope)
+    c_kv = rmsnorm(ckv_full[..., :c], p["kv_norm"])
+    k_rope = ckv_full[..., c:][:, None]  # (b, 1, s, rope)
+    cos, sin = _rope_at(positions, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+
+    if mode == "decode":
+        if cache is None or pos is None:
+            raise ValueError("decode needs a cache and a position")
+        rows = torch.arange(b, device=pos.device)
+        at = pos.long()
+        ckv_c, kr_c = cache["ckv"], cache["k_rope"]
+        ckv_c[rows, at] = c_kv[:, 0].to(ckv_c.dtype)
+        kr_c[rows, at] = k_rope[:, 0, 0].to(kr_c.dtype)
+        # score_h(t) = (W_uk_h^T q_nope_h) . c_t + q_rope_h . kr_t
+        wuk = p["wuk"].reshape(c, H, nope).float()
+        q_abs = torch.einsum("bhqn,chn->bhqc", q_nope.float(), wuk)
+        ckv_f = ckv_c.float()
+        sc = (torch.einsum("bhqc,bkc->bhqk", q_abs, ckv_f)
+              + torch.einsum("bhqr,bkr->bhqk", q_rope.float(),
+                             kr_c.float())) * scale
+        S = ckv_c.shape[1]
+        mask = torch.arange(S, device=x.device)[None] <= pos[:, None]
+        sc = torch.where(mask[:, None, None], sc, -1e30)
+        pr = torch.softmax(sc, dim=-1)
+        out_c = torch.einsum("bhqk,bkc->bhqc", pr, ckv_f)
+        wuv = p["wuv"].reshape(c, H, dv).float()
+        out = torch.einsum("bhqc,chv->bhqv", out_c, wuv).to(x.dtype)
+        new_cache = cache
+    elif mode == "prefill":
+        k_nope = (c_kv @ p["wuk"]).reshape(b, s, H, nope).transpose(1, 2)
+        v = (c_kv @ p["wuv"]).reshape(b, s, H, dv).transpose(1, 2)
+        qh = torch.cat([q_nope, q_rope], dim=-1)
+        kh = torch.cat([k_nope, k_rope.expand(b, H, s, rope_d)], dim=-1)
+        out = chunked_attention(qh, kh, v, causal=True, chunk=ATTN_CHUNK)
+        pad = cache_len - s
+        new_cache = {
+            "ckv": F.pad(c_kv, (0, 0, 0, pad)),
+            "k_rope": F.pad(k_rope[:, 0], (0, 0, 0, pad)),
+        }
+    else:
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    y = _merge_heads(out) @ p["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective SSM (falcon-mamba, jamba)
+# ---------------------------------------------------------------------------
+
+
+def _ssm_chunk_scan(
+    a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The linear recurrence h_t = a_t * h_{t-1} + bx_t over one chunk.
+
+    a, bx: (b, L, di, ds) float32; h0: (b, di, ds).  Returns ``(h_all,
+    h_last)``.  A log-depth doubling scan over the chunk axis with the
+    reference's associative combine ``(a_l a_r, b_l a_r + b_r)``
+    (``jax.lax.associative_scan``, src/repro/models/layers.py:628-645):
+    ceil(log2 L) steps, each combining every position with the one
+    ``off`` before it.  Products of the decays stay within one chunk, so
+    none underflows the way a ``cumprod`` closed form does.
+    """
+    L = a.shape[1]
+    off = 1
+    while off < L:
+        bx = torch.cat([bx[:, :off], bx[:, :-off] * a[:, off:] + bx[:, off:]],
+                       dim=1)
+        a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+        off *= 2
+    h_all = a * h0[:, None] + bx
+    return h_all, h_all[:, -1]
+
+
+def mamba_forward(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    mode: str,
+    cache: dict | None = None,
+    last: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Mamba-1 (src/repro/models/layers.py:648-758): in_proj -> causal
+    depthwise conv -> selective scan -> gate.
+
+    Prefill scans chunks of ``cfg.scan_chunk`` in a Python loop and emits
+    the ``conv`` (b, d_conv - 1, d_inner) and ``ssm`` (b, d_inner, d_state,
+    float32) state of row ``last``, the last real prompt token (a (1,)
+    integer tensor, or None for the last row): ``dt`` is 0 past it, so
+    ``a = 1`` and ``bx = 0`` there and the state passes the bucket pad
+    unchanged, and the conv state is input rows last - d_conv + 2 ..
+    last, zero-filled before row 0.  Both are tensor indexing, so a
+    captured prefill replayed at another ``last`` leaves that row's state.
+    Decode takes exactly one token and updates ``conv`` and ``ssm`` in
+    place.
+    """
+    ssm = cfg.ssm
+    b, s, d = x.shape
+    di, ds, dc = ssm.d_inner, ssm.d_state, ssm.d_conv
+    dtr = ssm.dt_rank or d // 16
+    dev = x.device
+
+    xz = x @ p["in_proj"]
+    x_in, z = xz[..., :di], xz[..., di:]
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        if s != 1:
+            # The conv window below holds exactly one new token; with s > 1
+            # it would write a mis-sized conv state back into the cache.
+            raise ValueError(
+                "mamba_forward(mode='decode') consumes one token per step; "
+                f"got s={s}. Feed multi-token input through mode='prefill' "
+                "(which rebuilds the conv state from the tail) instead."
+            )
+        window = torch.cat([cache["conv"], x_in], dim=1)  # (b, dc, di)
+        xc = torch.einsum("bkd,kd->bd", window.float(),
+                          p["conv_w"].float()) + p["conv_b"]
+        xc = F.silu(xc)[:, None]  # (b, 1, di), float32 as the reference's
+        new_conv = window[:, 1:]
+    elif mode == "prefill":
+        xt = F.pad(x_in.float().transpose(1, 2), (dc - 1, 0))
+        xc = F.conv1d(xt, p["conv_w"].float().t()[:, None, :], groups=di)
+        xc = F.silu(xc.transpose(1, 2) + p["conv_b"]).to(x.dtype)
+        if last is None:
+            last = torch.full((1,), s - 1, dtype=torch.long, device=dev)
+        idx = last.reshape(()) - (dc - 2) + torch.arange(dc - 1, device=dev)
+        rows = x_in.index_select(1, idx.clamp(min=0))
+        new_conv = torch.where((idx >= 0)[None, :, None], rows, 0)
+    else:
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+
+    proj = xc.to(x.dtype) @ p["x_proj"]  # (b, s, dtr + 2*ds)
+    dt_r = proj[..., :dtr]
+    B = proj[..., dtr:dtr + ds].float()
+    C = proj[..., dtr + ds:].float()
+    dt = F.softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])  # (b, s, di)
+    A = -torch.exp(p["A_log"].float())  # (di, ds)
+    xcf = xc.float()
+
+    if mode == "decode":
+        a = torch.exp(dt[:, 0, :, None] * A)
+        bx = (dt[:, 0] * xcf[:, 0])[..., None] * B[:, 0][:, None, :]
+        h = a * cache["ssm"] + bx
+        y = (torch.einsum("bds,bs->bd", h, C[:, 0])
+             + p["D"] * xcf[:, 0])[:, None]
+        cache["ssm"].copy_(h)
+        cache["conv"].copy_(new_conv)
+        new_cache = cache
+    else:
+        # Pad rows past ``last`` leave the state as it is (C11).
+        real = torch.arange(s, device=dev) <= last.reshape(())
+        dt = torch.where(real[None, :, None], dt, 0.0)
+        chunk = min(cfg.scan_chunk, s)
+        h = torch.zeros((b, di, ds), dtype=torch.float32, device=dev)
+        ys = []
+        for c0 in range(0, s, chunk):
+            dt_c, x_c = dt[:, c0:c0 + chunk], xcf[:, c0:c0 + chunk]
+            a = torch.exp(dt_c[..., None] * A)  # (b, L, di, ds)
+            bx = (dt_c * x_c)[..., None] * B[:, c0:c0 + chunk, None, :]
+            h_all, h = _ssm_chunk_scan(a, bx, h)
+            ys.append(torch.einsum("blds,bls->bld", h_all,
+                                   C[:, c0:c0 + chunk]))
+        y = torch.cat(ys, dim=1) + p["D"] * xcf
+        new_cache = {"conv": new_conv, "ssm": h}
+
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The attention decoder, dense or MoE (counterpart of
+"""The decoder, dense, MoE, MLA, SSM or hybrid (counterpart of
 src/repro/models/model.py).
 
 A model is ``n_groups`` repetitions of a layer ``pattern``; parameters and
@@ -8,7 +8,9 @@ and the forward pass is a Python loop over groups (the reference's
 
 Entry points:
   * :func:`make_cache`  — a zeroed decode cache (:func:`abstract_cache`:
-    its shapes and dtypes as meta tensors),
+    its shapes and dtypes as meta tensors), one leaf set per mixer:
+    attention ``k``/``v``, MLA ``ckv``/``k_rope``, Mamba ``conv``/``ssm``
+    (:data:`CACHE_SEQ_AXIS` names the leaves that have a sequence axis),
   * :func:`forward`     — logits for prefill/decode,
   * :func:`prefill_step` / :func:`decode_step` — the serving steps (the
     reference's train/step.py:137-165 folded in).  ``prefill_step`` takes
@@ -26,9 +28,11 @@ import math
 
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
     attn_forward,
+    mamba_forward,
+    mla_forward,
     mlp_forward,
     moe_forward,
     norm,
@@ -36,25 +40,53 @@ from repro_torch.models.layers import (
 
 __all__ = [
     "make_cache", "abstract_cache", "forward", "prefill_step", "decode_step",
+    "CACHE_SEQ_AXIS",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# The cache-length axis of each leaf that has one (leaves carry the leading
+# stacked-groups axis); Mamba's ``conv`` and ``ssm`` state has none.
+CACHE_SEQ_AXIS = {"k": 3, "v": 3, "ckv": 2, "k_rope": 2}
+
+
+def _cache_entry_defs(
+    cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: int
+) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) per cache leaf of one pattern position, without the
+    groups axis (src/repro/models/model.py:48-72)."""
+    dt = _DTYPES[cfg.dtype]
+    if spec.mixer == "attn":
+        shape = (batch, cfg.n_kv_heads, cache_len, cfg.resolved_head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {
+            "ckv": ((batch, cache_len, m.kv_lora_rank), dt),
+            "k_rope": ((batch, cache_len, m.qk_rope_dim), dt),
+        }
+    if spec.mixer == "mamba":
+        s = cfg.ssm
+        return {
+            "conv": ((batch, s.d_conv - 1, s.d_inner), dt),
+            "ssm": ((batch, s.d_inner, s.d_state), torch.float32),
+        }
+    raise ValueError(f"unknown mixer {spec.mixer!r}")
 
 
 def make_cache(
     cfg: ModelConfig, batch: int, cache_len: int, device="cuda"
 ) -> dict:
-    """Zeroed decode cache; leaves (G, b, kv_heads, cache_len, head_dim)."""
-    shape = (
-        cfg.n_groups, batch, cfg.n_kv_heads, cache_len, cfg.resolved_head_dim
-    )
-    dt = _DTYPES[cfg.dtype]
+    """Zeroed decode cache: per pattern position, its mixer's leaves with
+    a leading groups axis (:func:`_cache_entry_defs`)."""
+    G = cfg.n_groups
     return {
         f"pos{p}": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
+            name: torch.zeros((G,) + shape, dtype=dt, device=device)
+            for name, (shape, dt) in _cache_entry_defs(
+                cfg, spec, batch, cache_len).items()
         }
-        for p in range(len(cfg.pattern))
+        for p, spec in enumerate(cfg.pattern)
     }
 
 
@@ -74,14 +106,17 @@ def _hidden(
     pos: int | torch.Tensor | None,
     cache_len: int,
     out_cache: dict | None = None,
+    last: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Embedding through the final norm: (hidden (b, s, d), cache,
     moe_stats).  ``moe_stats`` holds the mean ``dropped_frac`` over the
     MoE layers (a device scalar; 0 without MoE layers) and ``topi``, each
     MoE layer's (b, s, k) expert choices in layer order.  A prefill with
     ``out_cache`` (a :func:`make_cache`-shaped tree) writes each layer's
-    k/v into its first s rows in place and returns it; the rows past s
-    keep what they held (every decode read is kv_len-masked)."""
+    k/v (ckv/k_rope) into its first s rows in place, and its Mamba state
+    whole, and returns it; the rows past s keep what they held (every
+    decode read is masked past ``pos``).  ``last`` ((1,) integer tensor)
+    is the prefill's last real row, whose state the Mamba layers keep."""
     if not cfg.use_rope:
         raise NotImplementedError(
             f"{cfg.name}: absolute positions are not ported yet"
@@ -109,15 +144,29 @@ def _hidden(
             p = _slice(params[f"pos{i}"], g)
             c = _slice(cache[f"pos{i}"], g) if mode == "decode" else None
             h = norm(x, p["norm_mixer"], cfg)
-            y, nc = attn_forward(
-                p["attn"], h, cfg, spec, mode=mode, positions=positions,
-                cache=c, pos=pos,
-                cache_len=s if out_cache is not None else cache_len,
-            )
-            if out_cache is not None:
-                for name in ("k", "v"):
-                    out_cache[f"pos{i}"][name][g, :, :, :s].copy_(nc[name])
+            clen = s if out_cache is not None else cache_len
+            if spec.mixer == "attn":
+                y, nc = attn_forward(
+                    p["attn"], h, cfg, spec, mode=mode, positions=positions,
+                    cache=c, pos=pos, cache_len=clen,
+                )
+            elif spec.mixer == "mla":
+                y, nc = mla_forward(
+                    p["mla"], h, cfg, mode=mode, positions=positions,
+                    cache=c, pos=pos, cache_len=clen,
+                )
             else:
+                y, nc = mamba_forward(
+                    p["mamba"], h, cfg, mode=mode, cache=c, last=last,
+                )
+            if out_cache is not None:
+                for name, leaf in nc.items():
+                    dst = out_cache[f"pos{i}"][name][g]
+                    ax = CACHE_SEQ_AXIS.get(name)
+                    if ax is not None:
+                        dst = dst.narrow(ax - 1, 0, s)
+                    dst.copy_(leaf)
+            elif mode != "decode":
                 new_layers[i].append(nc)
             x = x + y
             if spec.mlp == "dense":
@@ -137,7 +186,7 @@ def _hidden(
         new_cache = {
             f"pos{i}": {
                 name: torch.stack([nc[name] for nc in new_layers[i]])
-                for name in ("k", "v")
+                for name in new_layers[i][0]
             }
             for i in range(n_pos)
         }
@@ -207,18 +256,19 @@ def prefill_step(
     """Prefill a bucket-padded batch: ``(logits at row last (b, vocab),
     cache, moe_stats)`` (``moe_stats`` as :func:`forward` returns it).
     ``last`` is the index of the last real prompt token (s - 1), so the
-    bucket's pad positions never pick the first token: an int, or a (1,)
-    integer device tensor that a captured prefill (launch/graphs.py)
-    refills before each replay.  Both read the row with one
-    ``index_select``, so the two give the same bits.  ``out_cache``
-    (``cache_len`` long) receives the cache in place instead of fresh
-    zero-padded leaves."""
+    bucket's pad positions never pick the first token, nor reach a Mamba
+    layer's state: an int, or a (1,) integer device tensor that a
+    captured prefill (launch/graphs.py) refills before each replay.  Both
+    read the row with one ``index_select``, so the two give the same bits.
+    ``out_cache`` (``cache_len`` long) receives the cache in place instead
+    of fresh zero-padded leaves."""
+    if not torch.is_tensor(last):
+        last = torch.full((1,), last, dtype=torch.long,
+                          device=params["embed"].device)
     x, cache, stats = _hidden(
         cfg, params, tokens, mode="prefill", cache=None, pos=None,
-        cache_len=cache_len, out_cache=out_cache,
+        cache_len=cache_len, out_cache=out_cache, last=last,
     )
-    if not torch.is_tensor(last):
-        last = torch.full((1,), last, dtype=torch.long, device=x.device)
     x_last = x.index_select(1, last.reshape(1)).squeeze(1)
     return _head(cfg, params, x_last), cache, stats
 

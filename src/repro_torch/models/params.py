@@ -1,14 +1,17 @@
 """Parameter schema, seeded init, and the bridge from the JAX package.
 
-The schema mirrors src/repro/models/params.py for the attention decoder
-with dense or MoE MLPs: a nested dict of :class:`ParamDef` whose per-layer
-leaves are stacked over ``n_groups`` (the reference's scan layout), so a
-parameter tree of one package maps onto the other's leaf for leaf.
+The schema mirrors src/repro/models/params.py for decoders whose mixers
+are attention, MLA or Mamba, with dense, MoE or no MLPs: a nested dict of
+:class:`ParamDef` whose per-layer leaves are stacked over ``n_groups``
+(the reference's scan layout), so a parameter tree of one package maps
+onto the other's leaf for leaf.
 
 * :func:`init_params` draws the weights from an explicit
   :class:`torch.Generator`, one leaf at a time on the generator's device
   (normal, std = fan_in^-1/2, as the reference, save that an expert
-  stack's fan-in is its input width, not the expert count).
+  stack's fan-in is its input width, not the expert count).  ``zeros``,
+  ``ones`` and ``ssm_a`` (Mamba's A_log = log(1..d_state) over d_inner)
+  leaves are constants, as in the reference.
   The draws differ from ``jax.random``'s; cross-package tests carry the
   reference's own weights over with :func:`params_from_numpy` instead.
 * :func:`params_from_numpy` takes the reference ``init_params`` tree as
@@ -42,7 +45,7 @@ class ParamDef:
     """Declarative definition of one parameter tensor."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a
     dtype: str = "bfloat16"
     scale_axis: int = 0  # fan-in axis for the normal init scale
 
@@ -61,6 +64,48 @@ def _attn_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
         "wk": ParamDef((d, kvdim), dtype=dt),
         "wv": ParamDef((d, kvdim), dtype=dt),
         "wo": ParamDef((qdim, d), dtype=dt),
+    }
+
+
+def _mla_schema(cfg: ModelConfig) -> Schema:
+    m = cfg.mla
+    if m is None:
+        raise ValueError(f"{cfg.name}: an 'mla' layer needs cfg.mla")
+    d, h = cfg.d_model, cfg.n_heads
+    dt = cfg.dtype
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wdq": ParamDef((d, m.q_lora_rank), dtype=dt),
+        "wuq": ParamDef((m.q_lora_rank, h * qk), dtype=dt),
+        "q_norm": ParamDef((m.q_lora_rank,), init="ones", dtype=dt),
+        "wdkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_dim), dtype=dt),
+        "kv_norm": ParamDef((m.kv_lora_rank,), init="ones", dtype=dt),
+        "wuk": ParamDef((m.kv_lora_rank, h * m.qk_nope_dim), dtype=dt),
+        "wuv": ParamDef((m.kv_lora_rank, h * m.v_head_dim), dtype=dt),
+        "wo": ParamDef((h * m.v_head_dim, d), dtype=dt),
+    }
+
+
+def _mamba_schema(cfg: ModelConfig) -> Schema:
+    s = cfg.ssm
+    if s is None:
+        raise ValueError(f"{cfg.name}: a 'mamba' layer needs cfg.ssm")
+    d = cfg.d_model
+    dtr = s.dt_rank or d // 16
+    dt = cfg.dtype
+    return {
+        "in_proj": ParamDef((d, 2 * s.d_inner), dtype=dt),
+        "conv_w": ParamDef((s.d_conv, s.d_inner), dtype=dt),
+        "conv_b": ParamDef((s.d_inner,), init="zeros", dtype=dt),
+        "x_proj": ParamDef((s.d_inner, dtr + 2 * s.d_state), dtype=dt),
+        "dt_proj": ParamDef((dtr, s.d_inner), dtype=dt),
+        "dt_bias": ParamDef((s.d_inner,), init="zeros", dtype=dt),
+        # A_log/D stay f32: the recurrence decay must not round to 1.0 in
+        # bf16.
+        "A_log": ParamDef((s.d_inner, s.d_state), init="ssm_a",
+                          dtype="float32"),
+        "D": ParamDef((s.d_inner,), init="ones", dtype="float32"),
+        "out_proj": ParamDef((s.d_inner, d), dtype=dt),
     }
 
 
@@ -103,16 +148,18 @@ def _moe_schema(cfg: ModelConfig) -> Schema:
 
 
 def _layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"layer {spec} is not ported yet: this package runs attention "
-            "mixers with dense or MoE MLPs"
-        )
     dt = cfg.dtype
     s: Schema = {
         "norm_mixer": ParamDef((cfg.d_model,), init="ones", dtype=dt),
-        "attn": _attn_schema(cfg, spec),
     }
+    if spec.mixer == "attn":
+        s["attn"] = _attn_schema(cfg, spec)
+    elif spec.mixer == "mla":
+        s["mla"] = _mla_schema(cfg)
+    elif spec.mixer == "mamba":
+        s["mamba"] = _mamba_schema(cfg)
+    else:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.mlp != "none":
         s["norm_mlp"] = ParamDef((cfg.d_model,), init="ones", dtype=dt)
         if spec.mlp == "dense":
@@ -184,13 +231,23 @@ def init_params(
     ``device`` before the next leaf is drawn.  The transient f32 draw is
     the only extra memory, so a 9B-parameter model never sits whole in f32
     anywhere.  A CPU generator gives the same weights on every device; a
-    CUDA generator draws on the card (other numbers from the same seed)."""
+    CUDA generator draws on the card (other numbers from the same seed).
+    Constant leaves draw nothing."""
     schema = model_schema(cfg)
     drawn: dict[str, torch.Tensor] = {}
     for path, d in _leaves(schema):
         dtype = _DTYPES[d.dtype]
-        if d.init == "ones":
+        if d.init == "zeros":
+            t = torch.zeros(d.shape, dtype=dtype, device=device)
+        elif d.init == "ones":
             t = torch.ones(d.shape, dtype=dtype, device=device)
+        elif d.init == "ssm_a":
+            # Mamba's S4D-real init: A = -(1..d_state), broadcast over
+            # d_inner, stored as its log (taken in float64: correctly
+            # rounded; XLA's float32 log is off by an ulp at some n).
+            a = torch.arange(1, d.shape[-1] + 1, dtype=torch.float64,
+                             device=device)
+            t = torch.log(a).expand(d.shape).to(dtype).contiguous()
         else:
             fan_in = d.shape[d.scale_axis]
             std = 1.0 / math.sqrt(max(fan_in, 1))

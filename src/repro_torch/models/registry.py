@@ -19,6 +19,9 @@ _MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)

@@ -29,7 +29,9 @@ rolls back whatever the step's wrappers counted).  Against that stub:
   leaves, so its decode steps replay too.
 
 The ``cuda`` cases hold the real graphs against the eager steps on the
-card.
+card, also for the MLA and Mamba smoke models (deepseek-v2, falcon-mamba,
+jamba), whose decode steps write ckv/k_rope rows and advance the Mamba
+state.
 """
 import dataclasses
 
@@ -516,3 +518,27 @@ def test_graphed_logits_bit_identical_to_eager_on_the_card():
         t = a.argmax(-1)[:, None]
     assert graphed.stats["decode_graph_replays"] == 10
     graphed.release_cache(cache)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "arch", ["deepseek-v2-236b", "falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_mla_and_mamba_graphed_tokens_equal_eager_on_the_card(arch):
+    """Graphed prefills and decode steps (the Mamba state carried by each
+    replay, ckv/k_rope rows written in place) give the eager server's
+    tokens, through a growth of the kv bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from repro_torch.models.registry import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    graphed = VortexServer(cfg, max_cache=256, seed=0)
+    eager = VortexServer(cfg, max_cache=256, params=graphed.params,
+                         graphs=False)
+    rng = np.random.default_rng(16)
+    for b, s in ((1, 13), (2, 125)):
+        req = _req(rng, b, s, 6, cfg)
+        np.testing.assert_array_equal(graphed.generate(req),
+                                      eager.generate(req))
+    assert graphed.stats["decode_graph_replays"] == 10
+    assert graphed.stats["prefill_graph_replays"] == 2
