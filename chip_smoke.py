@@ -134,6 +134,32 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``chunked_attention`` and absorbed decode, the Mamba chunk scan and a
    Mamba layer's prefill and decode), each architecture's prefill and
    decode step in CUDA-event ms and its peak_gb.
+4k. The encoder, cross-attention and the vision prefix: whisper-small
+   at full width and depth (12 encoder layers over 1500 frames, 12
+   decoder layers with cross-attention, sinusoidal positions, tied head;
+   max_cache 512) and internvl2-26b at full width with 2 of its 48 layers
+   (48/8 heads of 128, a 256-row vision prefix; max_cache 1024), bf16,
+   seeded init drawn on the card, the frontends fed zeros as the
+   reference's stub does, through serial ``generate()`` with graphs on:
+   4 requests each, short of their seq bucket (whisper 1-4 rows, prompts
+   3-40, max_new 16; internvl2 1-2 rows, prompts 257-400, max_new 8).
+   Fails unless the graphed tokens equal an eager server's bit for bit,
+   every prefill and decode step is one graph replay, each prefill makes
+   one non-causal B2 launch per encoder layer and one causal launch per
+   decoder layer and each decode step one split-kv launch per decoder
+   layer (the engine's per-form counts, and the kernels' counters),
+   every launch takes the tensor-core or split-kv path, the first-token
+   logits agree with ``impl="torch"`` on the same weights within
+   LOGIT_TOL, the encoder's B2 call at 1500 frames agrees with the inline
+   ``chunked_attention`` within 2^-6, and a 100-token internvl2 prompt
+   raises ``VisionPrefixError`` (C13) with the pool's ledger unmoved.
+   Prints the device time per call of the plain-torch code the new
+   modules run (the sinusoids, one layer's cross K/V projection, the
+   cross-attention of a prefill and of a decode step, the whole encoder,
+   the vision-prefix overwrite), each model's prefill and decode step in
+   CUDA-event ms and its peak_gb.  Rows for B2 at the encoder's shape
+   (non-causal, SDPA without a mask as its library call), whisper's
+   decoder and internvl2's (GQA group 6).
 5. Time each kernel at the main path's shapes and selected strategy
    beside its plain version, its bound and one PyTorch library call
    computing the same function (device time per call from torch.profiler);
@@ -2127,6 +2153,362 @@ def phase_mla_mamba(dev, kernels, errs, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4k: the encoder, cross-attention and the vision prefix (whisper-small,
+# internvl2-26b)
+# ---------------------------------------------------------------------------
+
+# (arch, layers served: None = full depth, max_cache, requests' rows,
+# prompt lengths, max_new).  internvl2's prompts hold its 256 image rows
+# and then text.
+ENC_VLM = (("whisper-small", None, 512, (1, 4), (3, 40), 16),
+           ("internvl2-26b", 2, 1024, (1, 2), (257, 400), 8))
+C13_PROMPT = 100  # shorter than internvl2's 256-row vision prefix
+
+
+def b2_launches(server) -> dict:
+    """The engine's B2 launches per form: non-causal prefill (whisper's
+    encoder), causal prefill and decode (graph replays add theirs)."""
+    out = {"noncausal": 0, "causal": 0, "decode": 0}
+    for k in server.engine.kernels().values():
+        wl = k.workload
+        if wl.kind == "attention":
+            out["causal" if wl.causal else "noncausal"] += \
+                k.dispatch_stats.launches
+        elif wl.kind == "decode_attention":
+            out["decode"] += k.dispatch_stats.launches
+    return out
+
+
+def short_requests(rng, cfg, server, n: int, rows, prompts, max_new):
+    """``n`` requests whose prompts each fall short of their seq bucket."""
+    from repro_torch.launch.serve import Request
+
+    reqs = []
+    while len(reqs) < n:
+        b = int(rng.integers(rows[0], rows[1] + 1))
+        s = int(rng.integers(prompts[0], prompts[1] + 1))
+        if server.seq_bucket(s) == s:
+            continue
+        reqs.append(Request(
+            tokens=rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
+            max_new=max_new))
+    return reqs
+
+
+def first_logits(server, cfg, toks: np.ndarray) -> torch.Tensor:
+    """The "aot" prefill's first-token logits of ``toks`` (rows, vocab),
+    eagerly, with the server's zero frontend inputs."""
+    from repro_torch.models.model import prefill_step
+
+    b, s = toks.shape
+    bp, sp = server.batch_bucket(b), server.seq_bucket(s)
+    padded = torch.zeros((bp, sp), dtype=torch.int64)
+    padded[:b, :s] = torch.from_numpy(toks)
+    with server.engine.use():
+        logits, _, _ = prefill_step(
+            cfg, server.params, padded.to(server.device),
+            cache_len=server.kv_bucket(sp), last=s - 1,
+            **server._frontend(bp))
+    return logits[:b, :cfg.vocab]
+
+
+def encoder_b2_check(dev, server, cfg, bp: int) -> float:
+    """The encoder's B2 call (non-causal, ``encoder_seq`` frames staged
+    into their bucket) against the inline ``chunked_attention``."""
+    from repro_torch.kernels.ref import chunked_attention
+    from repro_torch.models.layers import ATTN_CHUNK
+
+    g = torch.Generator(dev).manual_seed(13)
+    n, hd = cfg.encoder_seq, cfg.resolved_head_dim
+    q = torch.randn(bp, cfg.n_heads, n, hd, generator=g, device=dev)
+    k, v = (torch.randn(bp, cfg.n_kv_heads, n, hd, generator=g, device=dev)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    with server.engine.use():
+        out = server.engine.dispatch("attention", q, k, v, causal=False,
+                                     window=None, softcap=cfg.attn_softcap)
+    return check(f"phase 4k: {cfg.name} encoder B2 (non-causal, {n} frames) "
+                 f"vs chunked_attention", out,
+                 chunked_attention(q, k, v, causal=False, chunk=ATTN_CHUNK),
+                 ATTN_TOL[torch.bfloat16])
+
+
+def plain_encoder_vision_times(dev, cfg, server, bp: int, sp: int,
+                               smi: str) -> dict:
+    """Device time per call of the plain-torch code the new modules run
+    on the card, at the served shapes: whisper's sinusoidal positions, one
+    layer's cross K/V projection of ``encoder_out`` (recomputed at every
+    step), its cross-attention in a prefill and in a decode step, and the
+    whole encoder (its B2 launches included); internvl2's vision-prefix
+    overwrite."""
+    from repro_torch.kernels.ref import chunked_attention
+    from repro_torch.models.layers import ATTN_CHUNK, sinusoid
+    from repro_torch.models.model import _encode, _slice
+
+    dt = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(14)
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    times = {}
+    if cfg.encoder_decoder:
+        n = cfg.encoder_seq
+        ap = _slice(server.params["pos0"], 0)["attn"]
+        eo = torch.randn(bp, n, d, generator=g, device=dev).to(dt)
+        pos = torch.full((bp,), sp, dtype=torch.int32, device=dev)
+        times[f"sinusoid decode positions ({bp},1,{d})"] = device_ms(
+            lambda: sinusoid(pos.reshape(bp, 1), d))
+        times[f"sinusoid prefill positions ({sp},{d})"] = device_ms(
+            lambda: sinusoid(torch.arange(sp, device=dev), d))
+        times[f"cross K/V projection (one layer) encoder_out=({bp},{n},{d})"] \
+            = device_ms(lambda: (eo @ ap["xk"], eo @ ap["xv"]))
+        kx, vx = (torch.randn(bp, cfg.n_kv_heads, n, hd, generator=g,
+                              device=dev).to(dt) for _ in range(2))
+        for rows in (1, sp):
+            qx = torch.randn(bp, H, rows, hd, generator=g, device=dev).to(dt)
+            times[f"cross chunked_attention q=({bp},{H},{rows},{hd}) over "
+                  f"{n} frames"] = device_ms(
+                lambda qx=qx: chunked_attention(qx, kx, vx, causal=False,
+                                                chunk=ATTN_CHUNK), iters=20)
+        frames = torch.zeros(bp, n, d, dtype=dt, device=dev)
+
+        def encode():
+            with server.engine.use():
+                return _encode(cfg, server.params, frames)
+
+        times[f"encoder ({cfg.n_encoder_layers} layers, B2 included) "
+              f"frames=({bp},{n},{d})"] = device_ms(encode, iters=10)
+    if cfg.vision_prefix:
+        nv = cfg.vision_prefix
+        x = torch.randn(bp, sp, d, generator=g, device=dev).to(dt)
+        ve = torch.zeros(bp, nv, d, dtype=dt, device=dev)
+        times[f"vision-prefix overwrite x=({bp},{sp},{d}) prefix {nv}"] = \
+            device_ms(lambda: torch.cat([ve, x[:, nv:]], dim=1))
+    for what, ms in times.items():
+        print(f"phase 4k: plain torch on the card, {cfg.name} {what}: "
+              f"device_ms={ms:.4f} [torch.profiler device time] on {smi}")
+    return times
+
+
+def encoder_row(dev, info: dict, errs: dict, g) -> dict:
+    """Row 2j: whisper's encoder self-attention as the engine launches it,
+    non-causal, ``encoder_seq`` frames in their bucket (kv_len masks the
+    pad).  The bound counts the real frames: q, K, V read and the output
+    written once, every query over every key."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.workloads import AttentionWorkload
+    from repro_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    dt = torch.bfloat16
+    cfg, server, bp = info["cfg"], info["server"], info["bp"]
+    H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    n = cfg.encoder_seq
+    sel = server.engine.kernel_for(AttentionWorkload(
+        seq=None, head_dim=hd, causal=False,
+        softcap=cfg.attn_softcap)).select(n)
+    sq = sel.bucket[0]
+    m1, _, k1 = sel.strategy.l1
+    be = sel.strategy.backend
+    q = torch.randn(bp, H, sq, hd, generator=g).to(dev, dt)
+    k, v = (torch.randn(bp, hkv, sq, hd, generator=g).to(dev, dt)
+            for _ in range(2))
+    qn, kn, vn = (t[:, :, :n].contiguous() for t in (q, k, v))
+
+    def enc():
+        return flash_attention(q, k, v, n, block_q=m1, block_k=k1,
+                               backend=be, causal=False)
+
+    err = check("flash_attention prefill, whisper encoder (non-causal) at "
+                "the main path's shape", enc(),
+                flash_attention_plain(q, k, v, n, causal=False),
+                ATTN_TOL[dt])
+    errs["flash_attention_prefill"] = max(errs["flash_attention_prefill"],
+                                          err)
+    nbytes = 2 * (2 * bp * H * n * hd + 2 * bp * hkv * n * hd)
+    bnd, by = bound_ms(nbytes, 4.0 * hd * bp * H * n * n, dt)
+    return timed(
+        {
+            "name": f"flash_attention (prefill, {cfg.name} encoder, "
+                    f"non-causal)",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/attention_tc.cu"
+            if be == "tensor_core" else "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention.py:125",
+            "launches": info["b2"]["noncausal"],
+            "max_abs_err": errs["flash_attention_prefill"],
+            "bound_ms": bnd, "bound_by": by,
+            "shape": f"{cfg.name} encoder q=({bp},{H},{sq},{hd}) kv heads "
+                     f"{hkv} kv_len={n} blocks=({m1},{k1}) {be} "
+                     f"non-causal bf16",
+        },
+        ms=enc,
+        plain_ms=lambda: flash_attention_plain(q, k, v, n, causal=False),
+        library_ms=lambda: F.scaled_dot_product_attention(qn, kn, vn),
+    )
+
+
+def phase_encoder_vision(dev, kernels, errs, smi: str) -> dict:
+    """Phase 4k: whisper-small (full width and depth: 12 encoder and 12
+    decoder layers) and internvl2-26b (full width, 2 of 48 layers), bf16,
+    seeded init drawn on the card, through serial ``generate()`` with
+    graphs on."""
+    import dataclasses
+
+    from repro_torch.launch.serve import (
+        Request,
+        VisionPrefixError,
+        VortexServer,
+    )
+    from repro_torch.models.registry import get_config
+
+    rows, info = [], {}
+    for arch, n_layers, max_cache, rws, prompts, max_new in ENC_VLM:
+        full = get_config(arch)
+        cfg = (full if n_layers is None
+               else dataclasses.replace(full, n_layers=n_layers))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = VortexServer(cfg, max_cache=max_cache, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eager = VortexServer(cfg, max_cache=max_cache, params=server.params,
+                             graphs=False)
+        enc = (f", {cfg.n_encoder_layers} encoder layers over "
+               f"{cfg.encoder_seq} frames" if cfg.encoder_decoder else "")
+        print(f"server: {cfg.name} ({cfg.n_layers} of {full.n_layers} "
+              f"layers{enc}) d_model={cfg.d_model} heads={cfg.n_heads}/"
+              f"{cfg.n_kv_heads}x{cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab} vision_prefix={cfg.vision_prefix} "
+              f"rope={cfg.use_rope} params_gb="
+              f"{param_bytes(server.params) / 1e9:.2f} init_s={init_s:.2f}")
+        reqs = short_requests(np.random.default_rng(50), cfg, server, 4,
+                              rws, prompts, max_new)
+        steps = sum(r.max_new - 1 for r in reqs)
+        n_enc = cfg.n_encoder_layers if cfg.encoder_decoder else 0
+        kernels.reset_launch_counts()
+        b2_0 = b2_launches(server)
+        t0 = time.perf_counter()
+        outs = [server.generate(r) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        b2 = {k: n - b2_0[k] for k, n in b2_launches(server).items()}
+        want = [eager.generate(r) for r in reqs]
+        st = server.engine_dispatch_stats()
+        ds = st["decode_step"]
+        print(f"phase 4k: {cfg.name} requests="
+              f"{[r.tokens.shape for r in reqs]} seq buckets="
+              f"{[server.seq_bucket(r.tokens.shape[1]) for r in reqs]} "
+              f"wall_s={wall:.3f} decode_steps={ds['launches']} "
+              f"stats={server.stats} kernel_launches={counts} b2={b2}")
+        for i, (got, exp) in enumerate(zip(outs, want)):
+            r = reqs[i]
+            if got.shape != (r.tokens.shape[0], r.max_new) or not (
+                    (got >= 0) & (got < cfg.vocab)).all():
+                fail(f"phase 4k: {cfg.name} request {i}: tokens {got}")
+            if not np.array_equal(got, exp):
+                fail(f"phase 4k: {cfg.name} request {i}: graphed tokens "
+                     f"{got.tolist()} != eager {exp.tolist()}")
+        if ds["launches"] != steps or ds["padded_calls"] != 0:
+            fail(f"phase 4k: {cfg.name} {ds['launches']} decode steps for "
+                 f"{steps} tokens")
+        if (server.stats["decode_graph_replays"] != steps
+                or server.stats["prefill_graph_replays"] != len(reqs)):
+            fail(f"phase 4k: {cfg.name} expected one graph replay per "
+                 f"prefill and per decode step: {server.stats}")
+        if st["kv_pool"]["leases_active"] != 0:
+            fail(f"phase 4k: {cfg.name} kv pool leases leaked")
+        all_tensor_core(counts, f"phase 4k {cfg.name}")
+        per_prefill = {"noncausal": n_enc, "causal": cfg.n_layers}
+        if (b2 != {"noncausal": n_enc * len(reqs),
+                   "causal": cfg.n_layers * len(reqs),
+                   "decode": cfg.n_layers * steps}
+                or counts["flash_attention_prefill"]
+                != (n_enc + cfg.n_layers) * len(reqs)
+                or counts["flash_attention_decode"] != cfg.n_layers * steps):
+            fail(f"phase 4k: {cfg.name} expected {per_prefill} prefill "
+                 f"launches a prefill and {cfg.n_layers} decode launches a "
+                 f"step: engine {b2}, kernels {counts}")
+        if counts["vortex_gemm"] or counts["vortex_grouped_gemm"]:
+            fail(f"phase 4k: {cfg.name} launched a GEMM kernel: {counts}")
+        print(f"phase 4k: {cfg.name} graphed tokens equal eager tokens for "
+              f"{len(reqs)} requests ({sum(o.size for o in outs)} tokens); "
+              f"{steps} decode steps, each one replay; B2 launches per "
+              f"prefill: non-causal {b2['noncausal'] // len(reqs)}, causal "
+              f"{b2['causal'] // len(reqs)}; split-kv decode launches per "
+              f"step: {b2['decode'] // steps}")
+        res = {"cfg": cfg, "counts": counts, "b2": b2, "wall_s": wall,
+               "tokens": sum(o.size for o in outs), "init_s": init_s}
+
+        # First-token logits against the plain forward on the same weights.
+        plain = VortexServer(cfg, max_cache=max_cache, params=server.params,
+                             impl="torch", graphs=False)
+        r = reqs[0]
+        _, res["logit_rel"] = rel_err(first_logits(server, cfg, r.tokens),
+                                      first_logits(plain, cfg, r.tokens))
+        torch.cuda.synchronize()
+        print(f"phase 4k: {cfg.name} first-token logits of a "
+              f"{r.tokens.shape} prompt vs impl=torch: rel="
+              f"{res['logit_rel']:.4g} (tolerance {LOGIT_TOL}, bf16)")
+        if not res["logit_rel"] <= LOGIT_TOL:
+            fail(f"phase 4k: {cfg.name} first-token logits disagree with "
+                 f"impl='torch': {res['logit_rel']}")
+        del plain
+
+        big = max(reqs, key=lambda q: q.tokens.size)
+        bp = server.batch_bucket(big.tokens.shape[0])
+        sp = server.seq_bucket(big.tokens.shape[1])
+        kv_len = big.tokens.shape[1] + big.max_new - 1
+        kvb = server.kv_bucket(sp)
+        if kv_len > kvb:
+            kvb = server._grown_kv_bucket(kvb, kv_len)
+        if cfg.encoder_decoder:
+            res["encoder_b2_err"] = encoder_b2_check(dev, server, cfg, bp)
+        if cfg.vision_prefix:
+            pool0 = server.kv_pool.stats()
+            short = Request(tokens=np.random.default_rng(51).integers(
+                0, cfg.vocab, (1, C13_PROMPT)).astype(np.int64), max_new=4)
+            try:
+                server.generate(short)
+                fail(f"phase 4k: {cfg.name} served a {C13_PROMPT}-token "
+                     f"prompt under its {cfg.vision_prefix}-row prefix")
+            except VisionPrefixError as e:
+                print(f"phase 4k: C13 {cfg.name} refused a {C13_PROMPT}-"
+                      f"token prompt: {e}")
+            if server.kv_pool.stats() != pool0:
+                fail(f"phase 4k: {cfg.name} the C13 refusal moved the pool: "
+                     f"{pool0} -> {server.kv_pool.stats()}")
+        res["prefill_ms"], res["decode_ms"] = step_ms(server, big.tokens)
+        res["plain_ms"] = plain_encoder_vision_times(dev, cfg, server, bp,
+                                                     sp, smi)
+        shape = dict(cfg=cfg, engine=server.engine, server=server, bp=bp,
+                     sp=sp, kvb=kvb, kv_len=kv_len, counts=counts, b2=b2)
+        g = torch.Generator().manual_seed(15)
+        if cfg.encoder_decoder:
+            rows.append(encoder_row(dev, shape, errs, g))
+        # Rows for the decoder's causal prefill and decode: their launches
+        # are the engine's per form (the kernel counters sum both prefill
+        # forms).
+        rows += attention_rows(dev, dict(shape, counts={
+            "flash_attention_prefill": b2["causal"],
+            "flash_attention_decode": b2["decode"]}), errs, g,
+            f", {cfg.name}")
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"phase 4k: {cfg.name} prefill (b={big.tokens.shape[0]}, "
+              f"s={big.tokens.shape[1]}) at ({bp}, {sp}): "
+              f"{res['prefill_ms']:.3f} ms; one decode step after it: "
+              f"{res['decode_ms']:.3f} ms [CUDA events]; peak_gb="
+              f"{res['peak_gb']:.2f} on {smi}")
+        info[arch] = res
+        del server, eager, shape
+        free_cuda()
+    info["rows"] = rows
+    return info
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -3567,6 +3949,10 @@ def main() -> int:
                     done="MLA and Mamba served at full width: graphed "
                          "tokens equal eager ones, padded and exact "
                          "prefills agree")
+    ev_info = phase("4k", phase_encoder_vision, dev, kernels, errs, smi,
+                    done="whisper-small and internvl2-26b served at full "
+                         "width: graphed tokens equal eager ones, logits "
+                         "agree with impl=torch, C13 refused")
 
     def phase5():
         rows = phase_time(dev, gemm_info, serve_info, errs)
@@ -3576,7 +3962,7 @@ def main() -> int:
         rows += dense_attention_rows(g2_info, dense_info, errs)
         rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
         rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
-        return rows + mm_info["rows"]
+        return rows + mm_info["rows"] + ev_info["rows"]
 
     rows = phase("5", phase5, done="kernels timed")
     bench_info = phase("6", phase_bench, kernels, smi,

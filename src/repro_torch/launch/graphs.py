@@ -22,9 +22,10 @@ Capturing a key first runs the step once eagerly on the capture stream
 (which builds the engine's executables and selections and allocates the
 kernels' per-stream scratch and staging sets outside the capture), then
 captures it.  Both steps are idempotent -- a decode step writes the same
-k/v (ckv/k_rope) row at the same ``pos``, a prefill the same cache rows
-and the whole Mamba state -- so the warm-up leaves the cache as the replay
-that follows it does.  A Mamba decode step is not: it advances the
+k/v (ckv/k_rope) row at the same ``pos``, a prefill the same cache rows,
+the whole Mamba state and the whole ``encoder_out`` (which decode steps
+only read, at the address the graph binds) -- so the warm-up leaves the
+cache as the replay that follows it does.  A Mamba decode step is not: it advances the
 ``conv``/``ssm`` state it reads.  Those leaves (``state``) are copied
 before the warm-up and put back after it and after the capture, so the
 replay that follows advances them once, as one eager step does.  The host

@@ -52,8 +52,14 @@ Besides attention's k/v, the cache holds MLA's ``ckv``/``k_rope`` (a
 sequence axis, grown like k/v, leased zeroed: MLA's absorbed decode
 multiplies masked rows by 0, so their tails must be finite) and Mamba's
 ``conv``/``ssm`` state (no sequence axis: never grown, written whole by
-the prefill).  These families run the serial ``generate()``; the
-continuous-batching scheduler refuses them, as the reference's does.
+the prefill), and whisper's ``encoder_out`` (a bare leaf, leased like the
+others, written whole by the prefill, read by every decode step's
+cross-attention, never grown).  The frontends are stubs fed zeros, as in
+the reference: whisper's encoder frames, internvl2's patch embeddings; a
+prompt shorter than the vision prefix is refused
+(:class:`VisionPrefixError`).  These families run the serial
+``generate()``; the continuous-batching scheduler refuses them, as the
+reference's does.
 
 Continuous batching (launch/scheduler.py) drives the same server through
 :meth:`VortexServer.prefill` (one request's prefill, its cache leased) and
@@ -67,6 +73,7 @@ failure domains use the typed errors here (:class:`RequestError`,
 ``python -m repro_torch.launch.serve --arch paper-gpt2-124m --requests 8``
 ``python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --requests 8``
 ``python -m repro_torch.launch.serve --prefill chained --requests 8``
+``python -m repro_torch.launch.serve --arch whisper-small --requests 8``
 """
 from __future__ import annotations
 
@@ -94,6 +101,7 @@ from repro_torch.models.layers import (
     lazy_matmul,
     moe_capacity,
     norm,
+    sinusoid,
 )
 from repro_torch.models.model import (
     CACHE_SEQ_AXIS,
@@ -115,6 +123,7 @@ __all__ = [
     "QueueFullError",
     "DeadlineExceeded",
     "CacheOverflowError",
+    "VisionPrefixError",
 ]
 
 
@@ -122,6 +131,14 @@ class CacheOverflowError(ValueError):
     """The request cannot fit ``max_cache`` even after growth — refused up
     front, before any prefill work, by both admission paths: the serial
     ``generate()`` and the scheduler's ``submit()``."""
+
+
+class VisionPrefixError(ValueError):
+    """The prompt is shorter than the model's vision prefix: refused before
+    any prefill work (ROADMAP C13).  The prefix's patch embeddings
+    overwrite the first ``vision_prefix`` positions, so a shorter prompt
+    holds no text, and the reference's forward breaks on a seq bucket
+    shorter than the prefix."""
 
 
 class QueueFullError(RuntimeError):
@@ -401,6 +418,8 @@ class VortexServer:
         # (a device scalar, read only by mean_dropped_frac) and the count.
         self._dropped_sum = torch.zeros((), device=self.device)
         self._moe_forwards = 0
+        # The frontend stubs' zero inputs, per batch bucket (_frontend).
+        self._frontend_cache: dict[int, dict] = {}
 
     # -- engine-owned bucketing ---------------------------------------------
 
@@ -457,8 +476,13 @@ class VortexServer:
 
     @staticmethod
     def _cache_leaves(cache: dict):
+        """Every leaf of a cache, in its order: each pattern position's
+        dict of leaves, and the bare ``encoder_out`` leaf."""
         for entry in cache.values():
-            yield from entry.values()
+            if isinstance(entry, dict):
+                yield from entry.values()
+            else:
+                yield entry
 
     def _tag(self, shared: bool) -> str:
         # With graphs on, the scheduler's shared cache parks apart (see
@@ -475,21 +499,24 @@ class VortexServer:
         leaf at a time and settled on failure: a fault partway
         (``pool_lease`` injection, out of memory) must not strand the
         leaves already checked out.  Stale contents: every read goes
-        through the kv_len mask, but MLA's leaves come zeroed."""
+        through the kv_len mask, but MLA's leaves come zeroed, and the
+        prefill writes ``encoder_out`` whole."""
         spec = abstract_cache(self.cfg, batch, cache_len)
         tag = self._tag(shared)
         cache: dict = {}
         leased: list[torch.Tensor] = []
+
+        def lease(name, leaf):
+            buf = self.kv_pool.lease(leaf.shape, leaf.dtype, self.device, tag,
+                                     zero=name in self._LEASE_ZEROED)
+            leased.append(buf)
+            return buf
+
         try:
             for key, entry in spec.items():
-                got = {}
-                for name, leaf in entry.items():
-                    buf = self.kv_pool.lease(
-                        leaf.shape, leaf.dtype, self.device, tag,
-                        zero=name in self._LEASE_ZEROED)
-                    leased.append(buf)
-                    got[name] = buf
-                cache[key] = got
+                cache[key] = (
+                    {name: lease(name, leaf) for name, leaf in entry.items()}
+                    if isinstance(entry, dict) else lease(key, entry))
         except BaseException:
             for buf in reversed(leased):
                 self.kv_pool.release(buf, tag)
@@ -509,7 +536,8 @@ class VortexServer:
         """Copy every leaf with a sequence axis (``CACHE_SEQ_AXIS``) into a
         ``new_len``-long leased bucket buffer (one in-place copy of the
         valid extent per leaf, only at bucket transitions), then release
-        the outgrown leaves; Mamba state passes through as it is.
+        the outgrown leaves; Mamba state and ``encoder_out`` pass through
+        as they are (src/repro/launch/serve.py:537-539).
         Two-phase: a failure mid-grow releases the partial new set and
         leaves ``cache`` untouched for the caller's settling ``finally``."""
         tag = self._tag(shared)
@@ -518,6 +546,9 @@ class VortexServer:
         out: dict = {}
         try:
             for key, entry in cache.items():
+                if not isinstance(entry, dict):  # encoder_out
+                    out[key] = entry
+                    continue
                 grown = {}
                 for name, leaf in entry.items():
                     ax = CACHE_SEQ_AXIS.get(name)
@@ -547,6 +578,8 @@ class VortexServer:
     def _cache_len(cache: dict) -> int:
         """The length of a cache's leaves that have a sequence axis."""
         for entry in cache.values():
+            if not isinstance(entry, dict):  # encoder_out
+                continue
             for name, leaf in entry.items():
                 if name in CACHE_SEQ_AXIS:
                     return leaf.shape[CACHE_SEQ_AXIS[name]]
@@ -562,18 +595,20 @@ class VortexServer:
         """Build, before traffic, every executable the requests up to
         ``max_batch``/``m_max``/``max_new`` can reach (and, on the card,
         the kernel library itself): prefill attention over the seq
-        buckets, decode attention over the kv buckets and, for an MoE
+        buckets, an encoder's non-causal attention at ``encoder_seq``,
+        decode attention over the kv buckets and, for an MoE
         model, the grouped-GEMM capacity buckets that the seq buckets and
         decode (s = 1) imply, per batch bucket.  With graphs on and
         ``capture``, also capture the scalar-form decode graph of every
         reachable (batch bucket, kv bucket) (``generate()``'s) and, where
         the ``"aot"`` program serves the prefills, the prefill graph of
         every reachable (batch bucket, seq bucket) -- as the reference
-        AOT-compiles both -- each against a cache leased from the pool and
-        parked again, so that a later request of that shape leases the
-        same leaves and replays it (a large model passes
-        ``capture=False``: every parked cache stays allocated).  Returns
-        the number of executables built."""
+        AOT-compiles both, save the seq buckets shorter than a vision
+        prefix, which no prompt reaches (ROADMAP C13) -- each against a
+        cache leased from the pool and parked again, so that a later
+        request of that shape leases the same leaves and replays it (a
+        large model passes ``capture=False``: every parked cache stays
+        allocated).  Returns the number of executables built."""
         cfg, eng = self.cfg, self.engine
         m_max = self.max_cache if m_max is None else min(m_max, self.max_cache)
         hd = cfg.resolved_head_dim
@@ -593,6 +628,12 @@ class VortexServer:
             ))
             for spec in attn_specs
         }
+        enc = set()
+        if cfg.encoder_decoder:
+            enc = {eng.kernel_for(AttentionWorkload(
+                seq=None, head_dim=hd, causal=False, window=None,
+                softcap=cfg.attn_softcap,
+            ))}
         bps = [1]
         while bps[-1] < pow2_bucket(max_batch):
             bps.append(2 * bps[-1])
@@ -615,7 +656,8 @@ class VortexServer:
             return torch.empty(shape, device="meta")
 
         def built() -> int:
-            return sum(k.cache_info["entries"] for k in attn | dec | grouped)
+            return sum(k.cache_info["entries"]
+                       for k in attn | dec | enc | grouped)
 
         before = built()
         for bp in bps:
@@ -625,6 +667,9 @@ class VortexServer:
             for k in dec:
                 k.precompile(m_kv, meta(bp, H, 1, hd), meta(bp, KV, 1, hd),
                              meta(bp, KV, 1, hd), 1)
+            for k in enc:
+                k.precompile(cfg.encoder_seq, meta(bp, H, 1, hd),
+                             meta(bp, KV, 1, hd), meta(bp, KV, 1, hd))
         for k in grouped:
             k.precompile(c_max)
         if capture and self.graphs is not None:
@@ -642,6 +687,8 @@ class VortexServer:
                 if self._chained():
                     continue
                 for sp in self.seq_buckets(m_max):
+                    if sp < cfg.vision_prefix:
+                        continue
                     kvb = self.kv_bucket(sp)
                     cache = self.lease_cache(bp, kvb)
                     try:
@@ -788,16 +835,14 @@ class VortexServer:
         cfg = self.cfg
         eng = self.engine
         lazy = not eager
-        if not cfg.use_rope:
-            raise NotImplementedError(
-                f"{cfg.name}: absolute positions are not ported yet"
-            )
 
         # Pre-block embedding, as the model's forward does it.
         x = self.params["embed"][tokens]
         if cfg.embed_scale:
             x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
         positions = torch.arange(sp, device=x.device)
+        if not cfg.use_rope:
+            x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
 
         if lazy:
             x = LazyBucket(x, sp, 1)
@@ -887,10 +932,24 @@ class VortexServer:
             self._dropped_sum += dropped_frac
             self._moe_forwards += 1
 
+    def _check_prompt(self, s: int, where: str = "") -> None:
+        """Raise :class:`VisionPrefixError` for a prompt of ``s`` tokens
+        shorter than the vision prefix."""
+        nv = self.cfg.vision_prefix
+        if s < nv:
+            raise VisionPrefixError(
+                f"{where}prompt_len {s} < vision_prefix {nv}: the prompt "
+                f"must hold the {nv} image positions the patch embeddings "
+                "overwrite"
+            )
+
     def check_fits(self, req: Request, where: str = "") -> None:
         """Raise :class:`CacheOverflowError` when ``req`` cannot fit
-        ``max_cache`` even after growth (before any prefill work)."""
+        ``max_cache`` even after growth, and :class:`VisionPrefixError`
+        when its prompt is shorter than the vision prefix (both before
+        any prefill work)."""
         s = req.tokens.shape[1]
+        self._check_prompt(s, where)
         if s + req.max_new - 1 > self.max_cache:
             raise CacheOverflowError(
                 f"{where}prompt_len {s} + max_new {req.max_new} needs "
@@ -906,8 +965,10 @@ class VortexServer:
         length.  Runs the chain (``prefill="chained"`` on an architecture
         it serves, at ``chain_seq_bucket``), else the ``"aot"`` program at
         ``seq_bucket``: one graph replay with graphs on, the eager forward
-        with graphs off."""
+        with graphs off.  A prompt shorter than the vision prefix raises
+        :class:`VisionPrefixError` before any work."""
         b, s = tokens.shape
+        self._check_prompt(s)
         bp = self.batch_bucket(b)
         chained = self._chained()
         sp = self.chain_seq_bucket(s, bp) if chained else self.seq_bucket(s)
@@ -953,9 +1014,31 @@ class VortexServer:
         with self.engine.use():
             logits, cache, stats = prefill_step(
                 self.cfg, self.params, tokens, cache_len=kvb, last=last,
-                out_cache=cache,
+                out_cache=cache, **self._frontend(tokens.shape[0]),
             )
         return logits, stats["dropped_frac"], cache
+
+    def _frontend(self, bp: int) -> dict:
+        """The frontend stubs' inputs for a batch bucket, as the
+        reference's ``_make_batch`` feeds them (src/repro/launch/
+        serve.py:382-398): zero frame embeddings (bp, encoder_seq, d) for
+        an encoder-decoder, zero patch embeddings (bp, vision_prefix, d)
+        for a VLM.  Made once per bucket; nothing writes them."""
+        got = self._frontend_cache.get(bp)
+        if got is None:
+            cfg = self.cfg
+            dt = self.params["embed"].dtype
+            got = {}
+            if cfg.encoder_decoder:
+                got["encoder_frames"] = torch.zeros(
+                    (bp, cfg.encoder_seq, cfg.d_model), dtype=dt,
+                    device=self.device)
+            if cfg.vision_prefix:
+                got["vision_embeds"] = torch.zeros(
+                    (bp, cfg.vision_prefix, cfg.d_model), dtype=dt,
+                    device=self.device)
+            self._frontend_cache[bp] = got
+        return got
 
     def _prefill_key(self, cache: dict, bp: int, sp: int) -> tuple:
         """(bp, sp, every cache leaf's address)."""
@@ -965,6 +1048,7 @@ class VortexServer:
     def _capture_prefill(self, cache: dict, tokens: torch.Tensor, last: int,
                          kvb: int):
         bp, sp = tokens.shape
+        self._frontend(bp)  # the stubs' zeros exist before the capture
         g = self.prefill_graphs.capture(
             self._prefill_key(cache, bp, sp),
             lambda t, i: self._prefill_eager(cache, t, i, kvb)[:2],
@@ -1049,7 +1133,7 @@ class VortexServer:
     def _capture(self, cache: dict, tokens: torch.Tensor, pos, kvb: int):
         # A Mamba step advances its state: the warm-up's update is undone
         # before the capture, so the replay advances it once.
-        state = [leaf for entry in cache.values()
+        state = [leaf for entry in cache.values() if isinstance(entry, dict)
                  for name, leaf in entry.items() if name in ("conv", "ssm")]
         g = self.graphs.capture(
             self._graph_key(cache, tokens.shape[0], pos, kvb),
@@ -1109,19 +1193,22 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # Prompt lengths: 4-64 tokens, or a vision prefix and up to 60 more.
+    lo = max(4, cfg.vision_prefix)
+    hi = lo + 60
     server = VortexServer(
-        cfg, max_cache=256, seed=args.seed, device=args.device,
+        cfg, max_cache=max(256, 2 * hi), seed=args.seed, device=args.device,
         prefill=args.prefill,
     )
     if args.warmup:
-        n = server.warmup(max_batch=8, m_max=64, max_new=args.max_new)
+        n = server.warmup(max_batch=8, m_max=hi, max_new=args.max_new)
         print(f"warmup: {n} executables built")
     rng = np.random.default_rng(args.seed)
 
     t0 = time.perf_counter()
     for i in range(args.requests):
         b = int(rng.integers(1, 9))
-        s = int(rng.integers(4, 65))
+        s = int(rng.integers(lo, hi + 1))
         req = Request(
             tokens=rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
             max_new=args.max_new,

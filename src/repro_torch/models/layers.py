@@ -22,9 +22,11 @@ except in the lazy handle chain (``block_forward_lazy``, the server's
 ``prefill="chained"``), where every projection is an engine ``gemm``
 dispatch.
 
-MLA's prefill attention (naive form, through the inline
-``chunked_attention``), its absorbed decode and the whole Mamba mixer are
-plain torch on every device, as the reference leaves them to inline XLA.
+Whisper's encoder attention (non-causal) goes through the engine too.
+Cross-attention (through the inline ``chunked_attention``), MLA's prefill
+attention (naive form, the same), its absorbed decode and the whole Mamba
+mixer are plain torch on every device, as the reference leaves them to
+inline XLA.
 A Mamba prefill leaves the state of the last REAL prompt token, where the
 reference scans the bucket pad into it (ROADMAP C11).
 """
@@ -45,6 +47,7 @@ __all__ = [
     "layernorm",
     "norm",
     "rope_tables",
+    "sinusoid",
     "apply_rope",
     "attn_forward",
     "mla_forward",
@@ -97,6 +100,19 @@ def rope_tables(
     )
     ang = positions.float()[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
+
+
+def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper's absolute positions: (..., dim) f32, the sines of
+    ``dim/2`` frequencies then their cosines (concatenated, not
+    interleaved; src/repro/models/model.py:271-286)."""
+    half = dim // 2
+    freq = 10000.0 ** (
+        -torch.arange(half, dtype=torch.float32, device=positions.device)
+        / half
+    )
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def apply_rope(
@@ -218,16 +234,29 @@ def attn_forward(
     cache: dict | None = None,
     pos: torch.Tensor | None = None,
     cache_len: int = 0,
+    causal: bool = True,
+    encoder_out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """GQA attention with RoPE, sliding window and logit softcap.
+    """GQA attention with RoPE, sliding window, logit softcap and
+    cross-attention.
 
     ``positions`` are the RoPE positions: ``(s,)`` in prefill, ``(b, 1)``
     in decode.  ``pos`` is the (b,) decode position of each row.
+    ``causal=False`` is whisper's encoder (src/repro/models/model.py:
+    205-228); under a session it dispatches through the engine like every
+    prefill attention, as the reference routes it (src/repro/models/
+    layers.py:460-475).
 
     Returns ``(y, cache)``: in prefill the emitted k/v are padded to
     ``cache_len``; in decode the new token's k/v row is written INTO
     ``cache`` in place (the counterpart of the reference's
     ``dynamic_update_slice``) and the same dict comes back.
+
+    With ``spec.cross_attn`` the layer then attends, non-causally, from
+    ``norm(x + y)`` to ``encoder_out`` (b, encoder_seq, d), whose K/V it
+    projects anew at every call, as the reference does (:493-502).  ``x``
+    there is this function's input, the mixer's NORMED input, not the
+    residual stream: the reference's quirk, kept.
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
@@ -272,12 +301,12 @@ def attn_forward(
             # Dynamic-seq serving path: the session engine selects
             # (block_q, block_k) from the scored lattice for this seq.
             out = engine.dispatch(
-                "attention", q, k, v, causal=True, window=spec.window,
+                "attention", q, k, v, causal=causal, window=spec.window,
                 softcap=cfg.attn_softcap,
             )
         else:
             out = chunked_attention(
-                q, k, v, causal=True, window=spec.window,
+                q, k, v, causal=causal, window=spec.window,
                 softcap=cfg.attn_softcap, chunk=ATTN_CHUNK,
             )
         pad = cache_len - s
@@ -286,6 +315,16 @@ def attn_forward(
             "v": F.pad(v, (0, 0, 0, pad)) if pad else v,
         }
     y = _merge_heads(out) @ p["wo"]
+
+    if spec.cross_attn:
+        if encoder_out is None:
+            raise ValueError("a cross-attention layer needs encoder_out")
+        xn = norm(x + y, p["norm_x"], cfg)
+        qx = _split_heads(xn @ p["xq"], H)
+        kx = _split_heads(encoder_out @ p["xk"], KV)
+        vx = _split_heads(encoder_out @ p["xv"], KV)
+        ox = chunked_attention(qx, kx, vx, causal=False, chunk=ATTN_CHUNK)
+        y = y + _merge_heads(ox) @ p["xo"]
     return y, new_cache
 
 

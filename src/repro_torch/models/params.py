@@ -1,7 +1,8 @@
 """Parameter schema, seeded init, and the bridge from the JAX package.
 
-The schema mirrors src/repro/models/params.py for decoders whose mixers
-are attention, MLA or Mamba, with dense, MoE or no MLPs: a nested dict of
+The schema mirrors src/repro/models/params.py for models whose mixers
+are attention (with cross-attention in whisper's decoder), MLA or Mamba,
+with dense, MoE or no MLPs, and whisper's encoder stack: a nested dict of
 :class:`ParamDef` whose per-layer leaves are stacked over ``n_groups``
 (the reference's scan layout), so a parameter tree of one package maps
 onto the other's leaf for leaf.
@@ -54,17 +55,26 @@ Schema = dict[str, Any]  # nested dict of ParamDef
 
 
 def _attn_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
-    if spec.cross_attn:
-        raise NotImplementedError("cross-attention is not ported yet")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     qdim, kvdim = cfg.n_heads * hd, cfg.n_kv_heads * hd
     dt = cfg.dtype
-    return {
+    s: Schema = {
         "wq": ParamDef((d, qdim), dtype=dt),
         "wk": ParamDef((d, kvdim), dtype=dt),
         "wv": ParamDef((d, kvdim), dtype=dt),
         "wo": ParamDef((qdim, d), dtype=dt),
     }
+    if spec.cross_attn:
+        # Whisper's decoder attends to the encoder output after its
+        # self-attention (src/repro/models/params.py:68-76).
+        s.update({
+            "xq": ParamDef((d, qdim), dtype=dt),
+            "xk": ParamDef((d, kvdim), dtype=dt),
+            "xv": ParamDef((d, kvdim), dtype=dt),
+            "xo": ParamDef((qdim, d), dtype=dt),
+            "norm_x": ParamDef((d,), init="ones", dtype=dt),
+        })
+    return s
 
 
 def _mla_schema(cfg: ModelConfig) -> Schema:
@@ -184,9 +194,9 @@ def _stack(schema: Schema, n: int) -> Schema:
 
 
 def model_schema(cfg: ModelConfig) -> Schema:
-    """Full parameter schema for one architecture."""
-    if cfg.encoder_decoder or cfg.vision_prefix:
-        raise NotImplementedError(f"{cfg.name}: not ported yet")
+    """Full parameter schema for one architecture: with
+    ``encoder_decoder``, an ``encoder`` subtree of ``n_encoder_layers``
+    stacked attention + dense-MLP layers and their final norm."""
     dt = cfg.dtype
     s: Schema = {
         "embed": ParamDef((cfg.vocab_padded, cfg.d_model), dtype=dt),
@@ -196,6 +206,12 @@ def model_schema(cfg: ModelConfig) -> Schema:
         s["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded), dtype=dt)
     for p, spec in enumerate(cfg.pattern):
         s[f"pos{p}"] = _stack(_layer_schema(cfg, spec), cfg.n_groups)
+    if cfg.encoder_decoder:
+        enc_layer = _layer_schema(cfg, LayerSpec(mixer="attn", mlp="dense"))
+        s["encoder"] = {
+            "layers": _stack(enc_layer, cfg.n_encoder_layers),
+            "final_norm": ParamDef((cfg.d_model,), init="ones", dtype=dt),
+        }
     return s
 
 

@@ -22,6 +22,8 @@ _MODULES = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)

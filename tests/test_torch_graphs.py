@@ -31,7 +31,8 @@ rolls back whatever the step's wrappers counted).  Against that stub:
 The ``cuda`` cases hold the real graphs against the eager steps on the
 card, also for the MLA and Mamba smoke models (deepseek-v2, falcon-mamba,
 jamba), whose decode steps write ckv/k_rope rows and advance the Mamba
-state.
+state, and for whisper (``encoder_out`` written by the prefill graph, read
+by the decode graphs) and internvl2 (the vision prefix).
 """
 import dataclasses
 
@@ -542,3 +543,27 @@ def test_mla_and_mamba_graphed_tokens_equal_eager_on_the_card(arch):
                                       eager.generate(req))
     assert graphed.stats["decode_graph_replays"] == 10
     assert graphed.stats["prefill_graph_replays"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-26b"])
+def test_encoder_and_vision_graphed_tokens_equal_eager_on_the_card(arch):
+    """Graphed prefills (whisper's writing ``encoder_out`` whole) and
+    decode steps (reading it at the address the graph binds) give the
+    eager server's tokens, through a growth of the kv bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from repro_torch.models.registry import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    graphed = VortexServer(cfg, max_cache=256, seed=0)
+    eager = VortexServer(cfg, max_cache=256, params=graphed.params,
+                         graphs=False)
+    rng = np.random.default_rng(17)
+    for b, s in ((1, 13), (2, 125)):
+        req = _req(rng, b, s, 6, cfg)
+        np.testing.assert_array_equal(graphed.generate(req),
+                                      eager.generate(req))
+    assert graphed.stats["decode_graph_replays"] == 10
+    assert graphed.stats["prefill_graph_replays"] == 2
+    assert graphed.kv_pool.stats()["leases_active"] == 0
