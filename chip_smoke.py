@@ -256,7 +256,31 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    on the main path.  The script points ``VORTEX_CACHE_DIR`` at a
    temporary directory, so no denylist from an earlier run steers a
    selection.
-8. Print the kernels line (with phase 6's launch counts), then the result
+8. Training (src/repro_torch/launch/train.py, train/step.py; no kernel
+   lies on the reference's train path, so autograd runs plain torch on
+   the card).  paper-gpt2-124m at full width and depth (12 layers, d 768,
+   vocab 50,257, bf16, seeded init on the card) through ``build_trainer``
+   and the ``Supervisor`` at the launcher's defaults: batch 8, seq 128, 2
+   microbatches, remat, lr 3e-4, 50 steps, a checkpoint every 20 into a
+   temporary directory.  First the gradients of step 0's batch: every
+   leaf present, float32, finite and not all zero; one bf16 step against
+   a float32 step from the same weights and batch (losses within
+   BF16_LOSS_TOL); the device time of one step.  Then the launcher's run
+   on its stream over the whole vocabulary (timed: ms a step, tokens/s,
+   ``max_memory_allocated``; every loss finite and below ln(vocab) + 1;
+   checkpoints at 20 and 40).  Then the same run on the stream's tokens
+   restricted to the first LEARN_VOCAB ids, uninterrupted and with a
+   ``SimulatedFailure`` before step 30, both under
+   ``torch.use_deterministic_algorithms``: the mean of its last 5 losses
+   below its first 5's by LOSS_MARGIN, 1 failure and 1 restore from step
+   20, the replayed steps' batches identical, the final loss and every
+   parameter and moment bit-identical to the uninterrupted run, and the
+   trained state through ``CheckpointManager`` bit-exact (bf16 included).
+   Then granite-moe-1b-a400m at full width, 4 of its 24 layers, 5 steps
+   of one microbatch: its gradients (the expert stacks' included) finite
+   and not all zero, ``aux`` positive and ``dropped_frac`` finite.  Fails
+   if a vortex session is installed or ``launch_counts()`` moves.
+9. Print the kernels line (with phase 6's launch counts), then the result
    line.  Every phase prints its wall time.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
@@ -270,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -296,6 +321,22 @@ LONG_PROMPT = 8300  # a kv bucket past twice gemma2's window of 4096
 # the padded input: (name, h = w, cin, cout, stride).
 RESNET_CONVS = (("conv2_x", 58, 64, 64, 1), ("conv3_x", 57, 128, 128, 2))
 CONV_BATCHES = (1, 3, 8)
+# Phase 8: the training launcher's defaults (src/repro_torch/launch/
+# train.py) on paper-gpt2-124m, a failure before step 30, and the margin
+# by which the mean of the last 5 losses must fall below the first 5's
+# (predicted in PERF.md §6).
+TRAIN_ARCH = "paper-gpt2-124m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 128, 50, 20
+TRAIN_FAIL_AT = 30
+TRAIN_LR = 3e-4
+# The launcher's stream over gpt2's whole vocabulary is not learnable in
+# 50 steps (each bigram is seen about once), so the falling loss is held
+# on the same stream's tokens restricted to the first LEARN_VOCAB ids.
+LEARN_VOCAB = 512
+LOSS_MARGIN = 3.0  # nats, on the LEARN_VOCAB stream
+DIVERGED = 1.0  # a loss past ln(vocab) + 1 nat counts as diverged
+BF16_LOSS_TOL = 1e-2  # one bf16 step's loss vs float32's, relative
+GRANITE_TRAIN = ("granite-moe-1b-a400m", 4, 5)  # arch, layers, steps
 
 
 def fail(msg: str) -> None:
@@ -3875,6 +3916,293 @@ def phase_failure_domains(dev, kernels, serve_info: dict, smi: str) -> dict:
     return out
 
 
+def tree_leaves(tree: dict, pre: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(tree_leaves(v, pre + (k,)) if isinstance(v, dict)
+                   else {pre + (k,): v})
+    return out
+
+
+def train_batch(cfg, step: int, dev) -> dict:
+    """The launcher's batch for ``step`` on ``dev`` (no frontend stubs:
+    the phase trains text-only models)."""
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    data = SyntheticLMDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch_at(step).items()}
+
+
+def check_grads(cfg, hp, params, where: str) -> dict:
+    """One step's gradients (``accumulate_grads`` on batch 0): every leaf
+    present, finite and not all zero, float32 when accumulated over
+    microbatches (in the parameter's dtype with one, as the
+    reference's)."""
+    from repro_torch.train.step import accumulate_grads
+
+    loss, _, grads = accumulate_grads(
+        cfg, hp, params, train_batch(cfg, 0, params["embed"].device))
+    flat, pflat = tree_leaves(grads), tree_leaves(params)
+    if flat.keys() != pflat.keys():
+        fail(f"phase 8: {where}: gradient leaves {sorted(flat)} != "
+             f"parameter leaves {sorted(pflat)}")
+    for k, g in flat.items():
+        want = (torch.float32 if hp.num_microbatches > 1
+                else pflat[k].dtype)
+        if g.dtype != want or g.shape != pflat[k].shape:
+            fail(f"phase 8: {where}: gradient {k} is {g.dtype} {g.shape}")
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            fail(f"phase 8: {where}: gradient {k} is not finite or all 0")
+    return {"loss": float(loss), "leaves": len(flat)}
+
+
+def train_run(cfg, hp, ckpt: str, dev, fail_at: int | None = None,
+              data_vocab: int | None = None):
+    """:func:`repro_torch.launch.train.run` at the launcher's batch, seq,
+    steps and checkpoint interval, optionally with a SimulatedFailure
+    before step ``fail_at`` and the stream's tokens drawn from the first
+    ``data_vocab`` ids."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.supervisor import SimulatedFailure
+
+    tripped = []
+
+    def hook(step):
+        if step == fail_at and not tripped:
+            tripped.append(step)
+            raise SimulatedFailure(f"injected failure before step {step}")
+
+    return launch_train.run(
+        cfg, hp, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY, device=dev,
+        data_vocab=data_vocab,
+        failure_hook=hook if fail_at is not None else None,
+        log=lambda line: print(f"  {line}"))
+
+
+def restart_check(cfg, hp, dev) -> dict:
+    """The launcher's run twice, uninterrupted and with a SimulatedFailure
+    before step TRAIN_FAIL_AT, under ``torch.use_deterministic_algorithms``
+    (scoped to this check): the embedding's index backward accumulates
+    with atomics on the card, whose order varies from run to run, and the
+    mode swaps in its sort-based kernel, so the two runs must agree bit
+    for bit (tolerance 0).  cuBLAS on one stream is deterministic already
+    (``warn_only`` keeps its workspace notice a warning)."""
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            clean = train_run(cfg, hp, d1, dev, data_vocab=LEARN_VOCAB)
+            failed = train_run(cfg, hp, d2, dev, fail_at=TRAIN_FAIL_AT,
+                               data_vocab=LEARN_VOCAB)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    st = failed.supervisor.stats
+    replay = TRAIN_FAIL_AT - TRAIN_FAIL_AT // TRAIN_CKPT_EVERY \
+        * TRAIN_CKPT_EVERY
+    if (st.failures, st.restores, st.steps_run) != (
+            1, 1, TRAIN_STEPS + replay):
+        fail(f"phase 8: restart: failures={st.failures} restores="
+             f"{st.restores} steps_run={st.steps_run}, expected 1, 1, "
+             f"{TRAIN_STEPS + replay}")
+    ref = dict(clean.batches)
+    by_step: dict = {}
+    for step, digest in failed.batches:
+        by_step.setdefault(step, []).append(digest)
+    replayed = sorted(k for k, v in by_step.items() if len(v) == 2)
+    if replayed != list(range(TRAIN_FAIL_AT - replay, TRAIN_FAIL_AT)):
+        fail(f"phase 8: restart replayed steps {replayed}")
+    if any(set(v) != {ref[k]} for k, v in by_step.items()):
+        fail("phase 8: restart: a replayed step saw another batch")
+    pa = tree_leaves(clean.state)
+    pb = tree_leaves(failed.state)
+    diff = max(float((pa[k].detach().float() - pb[k].detach().float())
+                     .abs().max()) for k in pa)
+    la, lb = clean.losses[TRAIN_STEPS - 1], failed.losses[TRAIN_STEPS - 1]
+    if diff != 0.0 or la != lb:
+        fail(f"phase 8: restart: the restored run differs from the "
+             f"uninterrupted one (max |param diff| {diff}, final loss "
+             f"{la} vs {lb})")
+    return {"replayed": replayed, "final_loss": la, "max_diff": diff,
+            "steps_run": st.steps_run, "run": clean}
+
+
+def checkpoint_roundtrip(state: dict) -> int:
+    """The trained state through ``CheckpointManager.save``/``restore``:
+    every bf16 parameter and float32 moment bit-exact, dtypes kept."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(TRAIN_STEPS, state)
+        back = mgr.restore(TRAIN_STEPS, state)
+    a, b = tree_leaves(state), tree_leaves(back)
+    for k, t in a.items():
+        u = b[k]
+        if u.dtype != t.dtype or u.device != t.device:
+            fail(f"phase 8: checkpoint {k}: {u.dtype} on {u.device}")
+        bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        view = bits.get(t.dtype)
+        same = (torch.equal(t.detach().view(view), u.detach().view(view))
+                if view else torch.equal(t, u))
+        if not same:
+            fail(f"phase 8: checkpoint {k} did not restore bit-exactly")
+    return len(a)
+
+
+def phase_training(dev, kernels, smi: str) -> dict:
+    """Phase 8: training on the card, plain torch under autograd (no
+    kernel lies on the reference's train path)."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.vortex import session
+
+    before = kernels.launch_counts()
+    if session.installed_engine() is not None:
+        fail("phase 8: a vortex session is installed")
+    cfg = get_config(TRAIN_ARCH)
+    hp = train_hparams()
+    info: dict = {}
+
+    # The first step's gradients, then one step in bf16 and in float32
+    # from the same weights and batch.
+    params, opt, step = launch_train.build_trainer(cfg, hp, device=dev)
+    info["grads"] = check_grads(cfg, hp, params, TRAIN_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    batch = train_batch(cfg, 0, dev)
+    _, _, m16 = step(params, opt, batch)
+    _, _, m32 = make_train_step(cfg32, hp)(p32, adamw_init(p32), batch)
+    l16, l32 = float(m16["loss"]), float(m32["loss"])
+    rel = abs(l16 - l32) / abs(l32)
+    if not rel <= BF16_LOSS_TOL:
+        fail(f"phase 8: bf16 step loss {l16} vs float32 {l32}: {rel:.2e} "
+             f"> {BF16_LOSS_TOL}")
+    info["bf16_vs_f32"] = (l16, l32, rel)
+    # Device time of one step (torch.profiler, on this throwaway state).
+    info["device_ms"] = device_ms(lambda: step(params, opt, batch),
+                                  iters=5, warmup=1)
+    del params, opt, p32, step
+    free_cuda()
+
+    # The launcher's run: 50 steps, a checkpoint every 20, on the
+    # launcher's stream over the whole vocabulary (timed).
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        res = train_run(cfg, hp, d, dev)
+        wall = time.perf_counter() - t0
+        ckpts = sorted(res.supervisor.ckpt.steps())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if ckpts != [20, 40]:
+        fail(f"phase 8: checkpoints {ckpts}, expected [20, 40]")
+    first, last = loss_trend(res, "the launcher's stream",
+                             math.log(cfg.vocab) + DIVERGED)
+    secs = [s for _, _, s in res.history[1:]]
+    ms = float(np.median(secs)) * 1e3
+    info.update(first5=first, last5=last, ms=ms,
+                ms_mean=float(np.mean(secs)) * 1e3, wall_s=wall,
+                tokens_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+                peak_gb=peak_gb, base_gb=base_gb)
+    del res
+    free_cuda()
+    # The same run, uninterrupted and restarted, on the stream restricted
+    # to the first LEARN_VOCAB ids, which 50 steps can fit: its loss must
+    # fall by LOSS_MARGIN.
+    info["restart"] = restart_check(cfg, hp, dev)
+    lres = info["restart"].pop("run")
+    lfirst, llast = loss_trend(lres, f"the {LEARN_VOCAB}-token stream",
+                               math.log(cfg.vocab) + DIVERGED)
+    if not lfirst - llast >= LOSS_MARGIN:
+        fail(f"phase 8: on the {LEARN_VOCAB}-token stream the mean of the "
+             f"last 5 losses ({llast:.4f}) is not {LOSS_MARGIN} below the "
+             f"first 5's ({lfirst:.4f})")
+    info.update(learn_first5=lfirst, learn_last5=llast,
+                ckpt_params=checkpoint_roundtrip(lres.state))
+    del lres
+    free_cuda()
+
+    # granite-moe at full width, 4 of its 24 layers, 5 steps of one
+    # microbatch: the routing and the aux loss under autograd.
+    gfull = get_config(GRANITE_TRAIN[0])
+    gcfg = dataclasses.replace(gfull, n_layers=GRANITE_TRAIN[1])
+    ghp = dataclasses.replace(hp, num_microbatches=1)
+    params, opt, step = launch_train.build_trainer(gcfg, ghp, device=dev)
+    gi = check_grads(gcfg, ghp, params, gcfg.name)
+    stats = []
+    for i in range(GRANITE_TRAIN[2]):
+        params, opt, m = step(params, opt, train_batch(gcfg, i, dev))
+        stats.append(tuple(float(m[k]) for k in
+                           ("loss", "aux", "dropped_frac")))
+    if not np.isfinite(stats).all() or not all(a > 0 for _, a, _ in stats):
+        fail(f"phase 8: {gcfg.name} (loss, aux, dropped_frac): {stats}")
+    info["granite"] = {"stats": stats, **gi}
+    del params, opt, step
+    free_cuda()
+
+    if kernels.launch_counts() != before:
+        fail("phase 8: training moved the kernels' launch counters")
+    rs = info["restart"]
+    print(f"training: {TRAIN_ARCH} (12 layers, d 768, vocab 50257, bf16) "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"{hp.num_microbatches} microbatches, remat, lr {hp.base_lr}: "
+          f"{TRAIN_STEPS} steps in {wall:.2f} s; ms_per_step={ms:.2f} "
+          f"(median; mean {info['ms_mean']:.2f}) "
+          f"tokens_per_s={info['tokens_s']:.1f} "
+          f"device_ms_per_step={info['device_ms']:.2f} "
+          f"peak_gb={peak_gb:.3f} (base {base_gb:.3f}) on {smi}")
+    print(f"training: the launcher's stream (vocab {cfg.vocab}): loss "
+          f"first5={first:.4f} last5={last:.4f} margin={first - last:.4f}; "
+          f"the {LEARN_VOCAB}-token stream: first5={lfirst:.4f} "
+          f"last5={llast:.4f} margin={lfirst - llast:.4f} "
+          f"(>= {LOSS_MARGIN})")
+    print(f"training: gradients of all {info['grads']['leaves']} leaves "
+          f"finite and nonzero; bf16 step loss {l16:.5f} vs float32 "
+          f"{l32:.5f} (rel {rel:.2e} <= {BF16_LOSS_TOL})")
+    print(f"training: restart at step {TRAIN_FAIL_AT}: restored step "
+          f"{rs['replayed'][0]}, replayed {len(rs['replayed'])} steps on "
+          f"identical batches, steps_run={rs['steps_run']}, final loss "
+          f"{rs['final_loss']:.5f} bit-identical to the uninterrupted run "
+          f"(deterministic algorithms); {info['ckpt_params']} leaves of "
+          f"the trained state restored bit-exactly")
+    print(f"training: {gcfg.name} ({gcfg.n_layers} of {gfull.n_layers} "
+          f"layers) "
+          f"(loss, aux, dropped_frac) per step: "
+          f"{[tuple(round(v, 5) for v in t) for t in stats]}; expert "
+          f"stacks' gradients finite and nonzero")
+    return info
+
+
+def loss_trend(res, what: str, ceiling: float) -> tuple[float, float]:
+    """The means of a run's first and last 5 losses (by step index),
+    after checking that every step ran and every loss is finite and
+    below ``ceiling``."""
+    losses = [res.losses[i] for i in sorted(res.losses)]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or max(losses) >= ceiling:
+        fail(f"phase 8: {what}: {len(losses)} losses, every 5th "
+             f"{losses[::5]}, ceiling {ceiling:.3f}")
+    print(f"training: {what}: losses every 5th step "
+          f"{[round(x, 4) for x in losses[::5]]}")
+    return float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+
+
+def train_hparams():
+    from repro_torch.train.step import TrainHParams
+
+    return TrainHParams(base_lr=TRAIN_LR,
+                        warmup_steps=max(TRAIN_STEPS // 10, 1),
+                        total_steps=TRAIN_STEPS, num_microbatches=2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script runs on an NVIDIA GPU")
@@ -3977,8 +4305,13 @@ def main() -> int:
                               f"served after an idle-slice swap)")
     # Phase 7 installs plans on engines of its own; the kernels built
     # before it must stay silent through it.
+    n_before_7 = len(watch.stats)
     phase("7", phase_failure_domains, dev, kernels, serve_info, smi,
-          done="failure domains on the card ok", upto=len(watch.stats))
+          done="failure domains on the card ok", upto=n_before_7)
+    phase("8", phase_training, dev, kernels, smi,
+          done=f"{TRAIN_ARCH} trained at full width under the supervisor, "
+               f"restart bit-identical, launch counters unmoved",
+          upto=n_before_7)
     cache_root.cleanup()
     print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
     for r in rows:

@@ -2,13 +2,20 @@
 
 Attention, multi-head latent attention (MLA), the Mamba-1 selective SSM,
 dense MLPs and top-k routed MoE.  Every mixer/MLP is a plain function
-``(params, x, ...) -> y`` on tensors, in two modes:
+``(params, x, ...) -> y`` on tensors, in three modes:
 
   * ``prefill`` — the full (bucket-padded) sequence, emitting a decode cache
     of length ``cache_len``,
   * ``decode``  — one new token against the cache at ``pos``: one position
     for the batch, or a (b,) vector of per-row positions (continuous
-    batching).
+    batching),
+  * ``train``   — what prefill computes, with no cache, every op plain
+    torch under autograd: attention always takes the inline
+    ``chunked_attention`` and the experts their einsums, never an engine
+    dispatch (the kernels are ctypes calls with no backward), and the
+    Mamba scan recomputes each chunk in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
+    chunk, src/repro/models/layers.py:734-749).
 
 With a :mod:`repro_torch.vortex` session installed, prefill attention and
 each decode token's attention are served by the engine (the lattice picks
@@ -36,6 +43,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import LazyBucket, lazy_map
 from repro_torch.kernels.ref import chunked_attention
@@ -65,6 +73,8 @@ __all__ = [
 
 # KV-chunk length of the inline (sessionless) online-softmax attention.
 ATTN_CHUNK = 1024
+
+_MODES = ("prefill", "decode", "train")
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -250,7 +260,8 @@ def attn_forward(
     Returns ``(y, cache)``: in prefill the emitted k/v are padded to
     ``cache_len``; in decode the new token's k/v row is written INTO
     ``cache`` in place (the counterpart of the reference's
-    ``dynamic_update_slice``) and the same dict comes back.
+    ``dynamic_update_slice``) and the same dict comes back; in train the
+    cache is None.
 
     With ``spec.cross_attn`` the layer then attends, non-causally, from
     ``norm(x + y)`` to ``encoder_out`` (b, encoder_seq, d), whose K/V it
@@ -258,8 +269,8 @@ def attn_forward(
     there is this function's input, the mixer's NORMED input, not the
     residual stream: the reference's quirk, kept.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -296,7 +307,10 @@ def attn_forward(
         )
         new_cache = cache
     else:
-        engine = session.installed_engine()
+        # Train mode never dispatches: the kernels have no backward, so
+        # wq/wk/wv would get no gradient (the reference's trainer installs
+        # no session, so its training takes the inline path too).
+        engine = session.installed_engine() if mode == "prefill" else None
         if engine is not None:
             # Dynamic-seq serving path: the session engine selects
             # (block_q, block_k) from the scored lattice for this seq.
@@ -309,11 +323,13 @@ def attn_forward(
                 q, k, v, causal=causal, window=spec.window,
                 softcap=cfg.attn_softcap, chunk=ATTN_CHUNK,
             )
-        pad = cache_len - s
-        new_cache = {
-            "k": F.pad(k, (0, 0, 0, pad)) if pad else k,
-            "v": F.pad(v, (0, 0, 0, pad)) if pad else v,
-        }
+        new_cache = None
+        if mode == "prefill":
+            pad = cache_len - s
+            new_cache = {
+                "k": F.pad(k, (0, 0, 0, pad)) if pad else k,
+                "v": F.pad(v, (0, 0, 0, pad)) if pad else v,
+            }
     y = _merge_heads(out) @ p["wo"]
 
     if spec.cross_attn:
@@ -358,7 +374,8 @@ def mla_forward(
     Prefill runs the naive (decompressed) form: q/k width nope + rope, v
     width ``v_head_dim``, through the inline ``chunked_attention``, and
     emits the ``ckv`` (b, cache_len, kv_lora) and ``k_rope``
-    (b, cache_len, rope) leaves zero-padded past s.  Decode runs the
+    (b, cache_len, rope) leaves zero-padded past s; train runs the same
+    form and emits no cache.  Decode runs the
     absorbed form in f32 against those leaves: the new row lands at each
     row's ``pos`` in place, and key rows past ``pos`` are score-masked
     (``arange(S) <= pos``).  The value contraction multiplies masked rows
@@ -405,19 +422,21 @@ def mla_forward(
         wuv = p["wuv"].reshape(c, H, dv).float()
         out = torch.einsum("bhqc,chv->bhqv", out_c, wuv).to(x.dtype)
         new_cache = cache
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         k_nope = (c_kv @ p["wuk"]).reshape(b, s, H, nope).transpose(1, 2)
         v = (c_kv @ p["wuv"]).reshape(b, s, H, dv).transpose(1, 2)
         qh = torch.cat([q_nope, q_rope], dim=-1)
         kh = torch.cat([k_nope, k_rope.expand(b, H, s, rope_d)], dim=-1)
         out = chunked_attention(qh, kh, v, causal=True, chunk=ATTN_CHUNK)
-        pad = cache_len - s
-        new_cache = {
-            "ckv": F.pad(c_kv, (0, 0, 0, pad)),
-            "k_rope": F.pad(k_rope[:, 0], (0, 0, 0, pad)),
-        }
+        new_cache = None
+        if mode == "prefill":
+            pad = cache_len - s
+            new_cache = {
+                "ckv": F.pad(c_kv, (0, 0, 0, pad)),
+                "k_rope": F.pad(k_rope[:, 0], (0, 0, 0, pad)),
+            }
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     y = _merge_heads(out) @ p["wo"]
     return y, new_cache
 
@@ -472,7 +491,8 @@ def mamba_forward(
     last, zero-filled before row 0.  Both are tensor indexing, so a
     captured prefill replayed at another ``last`` leaves that row's state.
     Decode takes exactly one token and updates ``conv`` and ``ssm`` in
-    place.
+    place.  Train scans every row, checkpoints each chunk and emits no
+    state.
     """
     ssm = cfg.ssm
     b, s, d = x.shape
@@ -499,17 +519,19 @@ def mamba_forward(
                           p["conv_w"].float()) + p["conv_b"]
         xc = F.silu(xc)[:, None]  # (b, 1, di), float32 as the reference's
         new_conv = window[:, 1:]
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         xt = F.pad(x_in.float().transpose(1, 2), (dc - 1, 0))
         xc = F.conv1d(xt, p["conv_w"].float().t()[:, None, :], groups=di)
         xc = F.silu(xc.transpose(1, 2) + p["conv_b"]).to(x.dtype)
-        if last is None:
-            last = torch.full((1,), s - 1, dtype=torch.long, device=dev)
-        idx = last.reshape(()) - (dc - 2) + torch.arange(dc - 1, device=dev)
-        rows = x_in.index_select(1, idx.clamp(min=0))
-        new_conv = torch.where((idx >= 0)[None, :, None], rows, 0)
+        if mode == "prefill":
+            if last is None:
+                last = torch.full((1,), s - 1, dtype=torch.long, device=dev)
+            idx = (last.reshape(()) - (dc - 2)
+                   + torch.arange(dc - 1, device=dev))
+            rows = x_in.index_select(1, idx.clamp(min=0))
+            new_conv = torch.where((idx >= 0)[None, :, None], rows, 0)
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
 
     proj = xc.to(x.dtype) @ p["x_proj"]  # (b, s, dtr + 2*ds)
     dt_r = proj[..., :dtr]
@@ -529,21 +551,33 @@ def mamba_forward(
         cache["conv"].copy_(new_conv)
         new_cache = cache
     else:
-        # Pad rows past ``last`` leave the state as it is (C11).
-        real = torch.arange(s, device=dev) <= last.reshape(())
-        dt = torch.where(real[None, :, None], dt, 0.0)
+        if mode == "prefill":
+            # Pad rows past ``last`` leave the state as it is (C11).
+            real = torch.arange(s, device=dev) <= last.reshape(())
+            dt = torch.where(real[None, :, None], dt, 0.0)
+
+        def chunk_scan(h0, dt_c, x_c, B_c, C_c):
+            a = torch.exp(dt_c[..., None] * A)  # (b, L, di, ds)
+            bx = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
+            h_all, h_last = _ssm_chunk_scan(a, bx, h0)
+            return torch.einsum("blds,bls->bld", h_all, C_c), h_last
+
         chunk = min(cfg.scan_chunk, s)
         h = torch.zeros((b, di, ds), dtype=torch.float32, device=dev)
         ys = []
         for c0 in range(0, s, chunk):
-            dt_c, x_c = dt[:, c0:c0 + chunk], xcf[:, c0:c0 + chunk]
-            a = torch.exp(dt_c[..., None] * A)  # (b, L, di, ds)
-            bx = (dt_c * x_c)[..., None] * B[:, c0:c0 + chunk, None, :]
-            h_all, h = _ssm_chunk_scan(a, bx, h)
-            ys.append(torch.einsum("blds,bls->bld", h_all,
-                                   C[:, c0:c0 + chunk]))
+            cs = slice(c0, c0 + chunk)
+            args = (h, dt[:, cs], xcf[:, cs], B[:, cs], C[:, cs])
+            if mode == "train":
+                # Keep only the chunk's inputs; its (b, L, di, ds) scan is
+                # recomputed in the backward pass.
+                y_c, h = checkpoint(chunk_scan, *args, use_reentrant=False)
+            else:
+                y_c, h = chunk_scan(*args)
+            ys.append(y_c)
         y = torch.cat(ys, dim=1) + p["D"] * xcf
-        new_cache = {"conv": new_conv, "ssm": h}
+        new_cache = ({"conv": new_conv, "ssm": h} if mode == "prefill"
+                     else None)
 
     y = (y * F.silu(z.float())).to(x.dtype)
     return y @ p["out_proj"], new_cache
@@ -739,18 +773,18 @@ def route(
 
 
 def _expert_ffn(
-    p: dict, buf: torch.Tensor, cfg: ModelConfig, counts: torch.Tensor
+    p: dict, buf: torch.Tensor, cfg: ModelConfig, counts: torch.Tensor,
+    engine,
 ) -> torch.Tensor:
     """buf: (g, E, C, d) -> (g, E, C, d) through the per-expert FFNs.
 
     ``counts`` (g, E) int32 is each expert slab's TRUE row count; rows past
     it are routing pad (zero-filled by :func:`moe_forward`).  With an
-    engine session installed the three projections are three
-    ``grouped_gemm`` dispatches, each ONE launch for all g*E slabs with the
-    capacity as the bucketed extent and the counts riding in as the
-    device-side extent vector.  Without one, inline einsums.
+    ``engine`` the three projections are three ``grouped_gemm``
+    dispatches, each ONE launch for all g*E slabs with the capacity as the
+    bucketed extent and the counts riding in as the device-side extent
+    vector.  Without one, inline einsums.
     """
-    engine = session.installed_engine()
     if engine is not None:
         g, E, C, d = buf.shape
         # Expert-major group layout (g, E, C, d) -> (E*g, C, d): the r = g
@@ -777,7 +811,7 @@ def _expert_ffn(
 
 
 def moe_forward(
-    p: dict, x: torch.Tensor, cfg: ModelConfig
+    p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "prefill"
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routed MoE with sort-based, capacity-bounded dispatch.
 
@@ -790,6 +824,8 @@ def moe_forward(
     dropped_frac, topi)``: the Switch load-balance loss, the fraction of
     assignments the capacity bound dropped, and the (b, s, k) expert
     choices — every statistic a device tensor, never read on the host.
+    The experts dispatch through an installed session's engine except in
+    train mode, which keeps them on the einsums autograd differentiates.
     """
     m = cfg.moe
     b, s, d = x.shape
@@ -822,7 +858,8 @@ def moe_forward(
     # ``valid`` is a prefix of each slab, so its sum is the slab's extent.
     counts = valid.sum(dim=-1, dtype=torch.int32)         # (b, E)
 
-    out_flat = _expert_ffn(p, buf, cfg, counts).reshape(b, E * C, d)
+    engine = session.installed_engine() if mode != "train" else None
+    out_flat = _expert_ffn(p, buf, cfg, counts, engine).reshape(b, E * C, d)
 
     # Return map: flat position f sits at sorted position inv[f], in slot
     # (flat_e[f], inv[f] - first[flat_e[f]]).

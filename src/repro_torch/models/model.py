@@ -13,7 +13,8 @@ Entry points:
     attention ``k``/``v``, MLA ``ckv``/``k_rope``, Mamba ``conv``/``ssm``
     (:data:`CACHE_SEQ_AXIS` names the leaves that have a sequence axis),
     and, for an encoder-decoder, the bare ``encoder_out`` leaf,
-  * :func:`forward`     — logits for prefill/decode,
+  * :func:`forward`     — logits for train/prefill/decode,
+  * :func:`loss_fn`     — next-token cross entropy (+ the MoE aux loss),
   * :func:`prefill_step` / :func:`decode_step` — the serving steps (the
     reference's train/step.py:137-165 folded in).  ``prefill_step`` takes
     the logits of the row the caller names — the last REAL prompt token —
@@ -34,6 +35,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
@@ -47,8 +49,8 @@ from repro_torch.models.layers import (
 )
 
 __all__ = [
-    "make_cache", "abstract_cache", "forward", "prefill_step", "decode_step",
-    "CACHE_SEQ_AXIS",
+    "make_cache", "abstract_cache", "forward", "loss_fn", "prefill_step",
+    "decode_step", "CACHE_SEQ_AXIS",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -125,11 +127,16 @@ def _hidden(
     last: torch.Tensor | None = None,
     vision_embeds: torch.Tensor | None = None,
     encoder_frames: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, dict, dict]:
+    remat: bool = True,
+) -> tuple[torch.Tensor, dict | None, dict]:
     """Embedding through the final norm: (hidden (b, s, d), cache,
-    moe_stats).  ``moe_stats`` holds the mean ``dropped_frac`` over the
-    MoE layers (a device scalar; 0 without MoE layers) and ``topi``, each
-    MoE layer's (b, s, k) expert choices in layer order.  A prefill with
+    moe_stats).  ``moe_stats`` holds ``aux``, the MoE load-balance loss
+    summed over the MoE layers and divided by ``n_layers``, the mean
+    ``dropped_frac`` over the MoE layers (device scalars; 0 without MoE
+    layers) and, outside train mode, ``topi``, each MoE layer's (b, s, k)
+    expert choices in layer order.  Train mode emits no cache and, with
+    ``remat``, recomputes each group in the backward pass
+    (:func:`_train_layers`).  A prefill with
     ``out_cache`` (a :func:`make_cache`-shaped tree) writes each layer's
     k/v (ckv/k_rope) into its first s rows in place, and its Mamba state
     whole, and its ``encoder_out`` whole, and returns it; the rows past s
@@ -174,34 +181,29 @@ def _hidden(
                 raise ValueError(
                     f"{cfg.name}: an encoder-decoder prefill needs "
                     "encoder_frames")
-            encoder_out = _encode(cfg, params, encoder_frames)
+            encoder_out = _encode(
+                cfg, params, encoder_frames,
+                mode="train" if mode == "train" else "prefill")
             if out_cache is not None:
                 out_cache["encoder_out"].copy_(encoder_out)
+    if mode == "train":
+        x, stats = _train_layers(cfg, params, x, positions, encoder_out,
+                                 remat)
+        return norm(x, params["final_norm"], cfg), None, stats
     n_pos = len(cfg.pattern)
     new_layers: list[list[dict]] = [[] for _ in range(n_pos)]
+    auxes: list[torch.Tensor] = []
     dropped: list[torch.Tensor] = []
     topis: list[torch.Tensor] = []
+    clen = s if out_cache is not None else cache_len
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.pattern):
-            p = _slice(params[f"pos{i}"], g)
             c = _slice(cache[f"pos{i}"], g) if mode == "decode" else None
-            h = norm(x, p["norm_mixer"], cfg)
-            clen = s if out_cache is not None else cache_len
-            if spec.mixer == "attn":
-                y, nc = attn_forward(
-                    p["attn"], h, cfg, spec, mode=mode, positions=positions,
-                    cache=c, pos=pos, cache_len=clen,
-                    encoder_out=encoder_out,
-                )
-            elif spec.mixer == "mla":
-                y, nc = mla_forward(
-                    p["mla"], h, cfg, mode=mode, positions=positions,
-                    cache=c, pos=pos, cache_len=clen,
-                )
-            else:
-                y, nc = mamba_forward(
-                    p["mamba"], h, cfg, mode=mode, cache=c, last=last,
-                )
+            x, nc, moe = _apply_layer(
+                cfg, spec, _slice(params[f"pos{i}"], g), x, mode=mode,
+                positions=positions, cache=c, pos=pos, cache_len=clen,
+                last=last, encoder_out=encoder_out,
+            )
             if out_cache is not None:
                 for name, leaf in nc.items():
                     dst = out_cache[f"pos{i}"][name][g]
@@ -211,16 +213,10 @@ def _hidden(
                     dst.copy_(leaf)
             elif mode != "decode":
                 new_layers[i].append(nc)
-            x = x + y
-            if spec.mlp == "dense":
-                x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
-            elif spec.mlp == "moe":
-                y, _, drop, topi = moe_forward(
-                    p["moe"], norm(x, p["norm_mlp"], cfg), cfg
-                )
-                x = x + y
-                dropped.append(drop)
-                topis.append(topi)
+            if moe is not None:
+                auxes.append(moe[0])
+                dropped.append(moe[1])
+                topis.append(moe[2])
     if mode == "decode":
         new_cache = cache  # written in place, layer by layer
     elif out_cache is not None:
@@ -235,35 +231,124 @@ def _hidden(
         }
         if encoder_out is not None:
             new_cache["encoder_out"] = encoder_out
-    stats = {
-        "dropped_frac": (
-            torch.stack(dropped).mean() if dropped
-            else torch.zeros((), device=dev)
-        ),
-        "topi": topis,
-    }
+    stats = _moe_stats(cfg, auxes, dropped, dev)
+    stats["topi"] = topis
     return norm(x, params["final_norm"], cfg), new_cache, stats
 
 
-def _encode(cfg: ModelConfig, params: dict,
-            frames: torch.Tensor) -> torch.Tensor:
+def _apply_layer(
+    cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor, *,
+    mode: str, positions: torch.Tensor, cache: dict | None = None,
+    pos: torch.Tensor | None = None, cache_len: int = 0,
+    last: torch.Tensor | None = None,
+    encoder_out: torch.Tensor | None = None, causal: bool = True,
+) -> tuple[torch.Tensor, dict | None, tuple | None]:
+    """One pre-norm layer (src/repro/models/model.py:145-187): ``(x, the
+    mixer's cache, (aux, dropped_frac, topi) of an MoE MLP or None)``."""
+    h = norm(x, p["norm_mixer"], cfg)
+    if spec.mixer == "attn":
+        y, nc = attn_forward(
+            p["attn"], h, cfg, spec, mode=mode, positions=positions,
+            cache=cache, pos=pos, cache_len=cache_len, causal=causal,
+            encoder_out=encoder_out,
+        )
+    elif spec.mixer == "mla":
+        y, nc = mla_forward(
+            p["mla"], h, cfg, mode=mode, positions=positions, cache=cache,
+            pos=pos, cache_len=cache_len,
+        )
+    else:
+        y, nc = mamba_forward(p["mamba"], h, cfg, mode=mode, cache=cache,
+                              last=last)
+    x = x + y
+    moe = None
+    if spec.mlp == "dense":
+        x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
+    elif spec.mlp == "moe":
+        y, aux, drop, topi = moe_forward(
+            p["moe"], norm(x, p["norm_mlp"], cfg), cfg, mode=mode)
+        x = x + y
+        moe = (aux, drop, topi)
+    return x, nc, moe
+
+
+def _moe_stats(cfg: ModelConfig, auxes: list, dropped: list, dev) -> dict:
+    """The load-balance loss summed over the MoE layers and divided by
+    ``cfg.n_layers`` (all layers, as the reference divides,
+    src/repro/models/model.py:366), and the mean ``dropped_frac`` over the
+    MoE layers; device scalars, 0 without MoE layers.  ``auxes`` and
+    ``dropped`` hold each layer's scalar, or each group's vector of them,
+    in layer order."""
+    if not auxes:
+        zero = torch.zeros((), device=dev)
+        return {"aux": zero, "dropped_frac": zero}
+    aux = torch.cat([a.reshape(-1) for a in auxes])
+    return {
+        "aux": aux.sum() / max(cfg.n_layers, 1),
+        "dropped_frac": torch.cat([d.reshape(-1) for d in dropped]).mean(),
+    }
+
+
+def _train_layers(
+    cfg: ModelConfig, params: dict, x: torch.Tensor,
+    positions: torch.Tensor, encoder_out: torch.Tensor | None, remat: bool,
+) -> tuple[torch.Tensor, dict]:
+    """The decoder stack in train mode: ``(x, {"aux", "dropped_frac"})``.
+    With ``remat`` each group runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint(nothing_saveable)`` around its scanned
+    group body, model.py:327-330): only the group's input is kept, and
+    the backward pass recomputes the rest.  Each stacked leaf is unbound
+    once, so its gradient is stacked once, not scattered per group."""
+    layers = [_unbind(params[f"pos{i}"], cfg.n_groups)
+              for i in range(len(cfg.pattern))]
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.pattern)
+
+    def group(x, g):
+        moes = []
+        for i, spec in enumerate(cfg.pattern):
+            x, _, moe = _apply_layer(
+                cfg, spec, layers[i][g], x, mode="train",
+                positions=positions, encoder_out=encoder_out,
+            )
+            moes += [] if moe is None else [moe[:2]]
+        if not moes:
+            return x
+        aux, drop = zip(*moes)
+        return x, torch.stack(aux), torch.stack(drop)
+
+    auxes, dropped = [], []
+    for g in range(cfg.n_groups):
+        out = (checkpoint(group, x, g, use_reentrant=False) if remat
+               else group(x, g))
+        if n_moe:
+            x, aux, drop = out
+            auxes.append(aux)
+            dropped.append(drop)
+        else:
+            x = out
+    return x, _moe_stats(cfg, auxes, dropped, x.device)
+
+
+def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+            mode: str = "prefill") -> torch.Tensor:
     """Whisper's bidirectional encoder over the (stubbed) frame embeddings
     (b, encoder_seq, d): sinusoidal positions, then ``n_encoder_layers``
     pre-norm layers of non-causal attention (no cache) and a dense MLP,
-    then the final norm (src/repro/models/model.py:205-228)."""
+    then the final norm (src/repro/models/model.py:205-228).  In a
+    prefill its attention dispatches through an installed session; in
+    ``mode="train"`` it stays inline, where autograd reaches it."""
     enc = params["encoder"]
     s, d = frames.shape[1:]
     positions = torch.arange(s, device=frames.device)
     x = frames + sinusoid(positions, d).to(frames.dtype)
     spec = LayerSpec(mixer="attn", mlp="dense")
-    for g in range(cfg.n_encoder_layers):
-        p = _slice(enc["layers"], g)
-        y, _ = attn_forward(
-            p["attn"], norm(x, p["norm_mixer"], cfg), cfg, spec,
-            mode="prefill", positions=positions, cache_len=s, causal=False,
-        )
-        x = x + y
-        x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
+    layers = (_unbind(enc["layers"], cfg.n_encoder_layers) if mode == "train"
+              else [_slice(enc["layers"], g)
+                    for g in range(cfg.n_encoder_layers)])
+    for p in layers:
+        x, _, _ = _apply_layer(cfg, spec, p, x, mode=mode,
+                               positions=positions, cache_len=s,
+                               causal=False)
     return norm(x, enc["final_norm"], cfg)
 
 
@@ -276,6 +361,16 @@ def _slice(tree: dict, g: int) -> dict:
     }
 
 
+def _unbind(tree: dict, n: int) -> list[dict]:
+    """The ``n`` groups of a stacked tree, each leaf unbound once: under
+    autograd one ``unbind`` gathers the groups' gradients with one stack,
+    where ``n`` separate ``v[g]`` views would each scatter into a zeroed
+    copy of the whole stack."""
+    flat = {k: _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: v[g] for k, v in flat.items()} for g in range(n)]
+
+
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
@@ -283,7 +378,11 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = (torch.tanh(logits.float() / c) * c).to(logits.dtype)
     if cfg.vocab_padded != cfg.vocab:
-        # Mask the padding columns so argmax never sees them.
+        # Mask the padding columns so argmax and softmax never see them.
+        # In place, and safe under autograd: no backward saves this tensor
+        # (the matmul saves its inputs, tanh its own output, which the
+        # scale by c copies), and the masked columns get a zero gradient,
+        # as under the reference's ``where``.
         logits[..., cfg.vocab:] = -1e30
     return logits
 
@@ -300,23 +399,55 @@ def forward(
     return_moe_stats: bool = False,
     vision_embeds: torch.Tensor | None = None,
     encoder_frames: torch.Tensor | None = None,
+    remat: bool = True,
 ) -> tuple:
     """Run the model: ``tokens`` (b, s) int — s == 1 in decode mode with
     ``pos`` the position of the new token, an int or a (b,) tensor of
     per-row positions.  Returns
     ``(logits (b, s, vocab_padded), cache[, moe_stats])``; in prefill the
     cache leaves are ``cache_len`` long, in decode ``cache`` is updated in
-    place.  ``return_moe_stats`` appends ``{"dropped_frac": mean fraction
-    of (token, choice) assignments the MoE capacity bound dropped, over
-    the MoE layers, "topi": per-layer expert choices}``.
-    ``vision_embeds`` / ``encoder_frames``: the frontend stubs' inputs."""
+    place, in train mode the cache is None and ``remat`` recomputes each
+    group in the backward pass.  ``return_moe_stats`` appends ``{"aux":
+    the MoE load-balance loss over ``n_layers``, "dropped_frac": mean
+    fraction of (token, choice) assignments the MoE capacity bound
+    dropped, over the MoE layers, "topi": per-layer expert choices (not
+    in train mode)}``.  ``vision_embeds`` / ``encoder_frames``: the
+    frontend stubs' inputs."""
     x, new_cache, stats = _hidden(
         cfg, params, tokens, mode=mode, cache=cache, pos=pos,
         cache_len=cache_len, vision_embeds=vision_embeds,
-        encoder_frames=encoder_frames,
+        encoder_frames=encoder_frames, remat=remat,
     )
     ret = (_head(cfg, params, x), new_cache)
     return ret + (stats,) if return_moe_stats else ret
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    aux_weight: float = 0.01,
+    **fwd_kwargs,
+) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross entropy in float32 plus ``aux_weight`` times
+    the MoE load-balance loss (src/repro/models/model.py:372-400): ``(total,
+    {"xent", "aux", "dropped_frac"})``, every value a device scalar.
+    ``fwd_kwargs`` go to :func:`forward` in train mode (``remat``,
+    ``vision_embeds``, ``encoder_frames``)."""
+    logits, _, stats = forward(
+        cfg, params, tokens, mode="train", return_moe_stats=True,
+        **fwd_kwargs,
+    )
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    xent = (lse - ll).mean()
+    aux = stats["aux"]
+    return xent + aux_weight * aux, {
+        "xent": xent, "aux": aux, "dropped_frac": stats["dropped_frac"],
+    }
 
 
 def prefill_step(

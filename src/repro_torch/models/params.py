@@ -35,6 +35,7 @@ __all__ = [
     "model_schema",
     "init_params",
     "params_from_numpy",
+    "decay_mask",
     "count_params",
 ]
 
@@ -49,6 +50,7 @@ class ParamDef:
     init: str = "normal"  # normal | zeros | ones | ssm_a
     dtype: str = "bfloat16"
     scale_axis: int = 0  # fan-in axis for the normal init scale
+    stacked: int = 0  # leading axes that stack layers (see _stack)
 
 
 Schema = dict[str, Any]  # nested dict of ParamDef
@@ -186,7 +188,7 @@ def _stack(schema: Schema, n: int) -> Schema:
         if isinstance(v, ParamDef):
             out[k] = ParamDef(
                 shape=(n,) + v.shape, init=v.init, dtype=v.dtype,
-                scale_axis=v.scale_axis + 1,
+                scale_axis=v.scale_axis + 1, stacked=v.stacked + 1,
             )
         else:
             out[k] = _stack(v, n)
@@ -295,6 +297,16 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         return t.to(dtype=_DTYPES[d.dtype], device=device)
 
     return _map_schema(model_schema(cfg), convert)
+
+
+def decay_mask(cfg: ModelConfig) -> dict:
+    """Which leaves AdamW decays: those of rank >= 2 BEFORE stacking, the
+    matrices of each layer, the embedding and the head.  The reference
+    tests the stacked rank (src/repro/optim/adamw.py:88-90), which also
+    decays every layer's norm gains and Mamba's ``conv_b``, ``dt_bias``
+    and ``D`` (ROADMAP C14)."""
+    return _map_schema(model_schema(cfg),
+                       lambda _, d: len(d.shape) - d.stacked >= 2)
 
 
 def count_params(cfg: ModelConfig) -> int:
