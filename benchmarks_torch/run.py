@@ -11,10 +11,10 @@ Each prints ``name,us_per_call,derived`` CSV lines (benchmarks_torch/util.emit).
   bench_adaptive         Fig. 16            tensor core / CUDA core adaptation
   bench_runtime_overhead Fig. 14            selection overhead
   bench_workloads        §4 generality      gemm/attention/conv one engine
+  bench_models           Fig. 13            model-level dynamic shapes
 
-(The reference's ``bench_models`` waits for the port's mesh, partitioning
-and training step.)  Everything runs on the card; ``--device cpu`` is
-forwarded to the modules and runs the plain versions.
+Everything runs on the card; ``--device cpu`` is forwarded to the modules
+and runs the plain versions.
 
 ``--json PATH`` writes the serving snapshot
 (``bench_workloads.serving_payload``; the port's file is
@@ -50,6 +50,7 @@ MODULES = [
     "bench_workloads",
     "bench_offsample",
     "bench_hierarchy",
+    "bench_models",
 ]
 
 # The reference's gates (its CI's bench-smoke job), keyed by name.

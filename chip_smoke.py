@@ -280,8 +280,34 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    of one microbatch: its gradients (the expert stacks' included) finite
    and not all zero, ``aux`` positive and ``dropped_frac`` finite.  Fails
    if a vortex session is installed or ``launch_counts()`` moves.
-9. Print the kernels line (with phase 6's launch counts), then the result
-   line.  Every phase prints its wall time.
+9. Distribution (launch/mesh.py, models/partitioning.py, the sharded
+   train step, ``flash_decode_sharded``; no kernel lies on the
+   reference's distribution path).  9a: paper-gpt2-124m at full width
+   and depth through ``build_trainer(mesh=make_host_mesh())``, a 1x1
+   DeviceMesh on a 1-rank NCCL group (parameters DTensors, moments laid
+   out by ``opt_state_pspecs``), 5 steps of the launcher's stream at its
+   defaults: each loss within 1e-3 relative of phase 8's, beside a plain
+   run of the same steps (whether bit-identical, the largest parameter
+   difference after step 5), ms and device ms a step; the group is
+   destroyed at the end.  9b: two spawned ranks on the one card, a gloo
+   group over a FileStore, ``init_device_mesh("cuda", (1, 2))`` (data 1,
+   model 2) with the rules of the production TP of 16, where neither 4
+   nor 8 kv heads divide the model axis, so the cache shards on sequence.
+   ``flash_decode_sharded`` on bf16 DTensor caches placed by
+   ``cache_pspecs`` at starcoder2-15b's decode heads (48/4 of 128, batch
+   8, 16,384 rows) and gemma2-9b's local layer (16/8 of 256, window 4096,
+   softcap 50, batch 8, 8,192 rows), at the first, middle and last
+   position: the output within 2^-6 of the unsharded ``_decode_attend``,
+   the cache writes exact at the owning rank only.  Then one
+   ``decode_step(rules=)`` of starcoder2-15b at full width with 2 layers
+   on DTensor weights and caches (the model's seq-sharded branch) against
+   the plain ``decode_step``: logits and the new cache row within 5e-2,
+   every other row exact.  9c: ``VortexServer(mesh=make_host_mesh())`` on
+   phase 4's weights serves phase 4's requests: tokens identical, B2
+   launched 12 times a prefill and a token, every decode step a graph
+   replay.
+10. Print the kernels line (with phase 6's launch counts), then the
+   result line.  Every phase prints its wall time.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
 1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMMs, grouped and
@@ -293,6 +319,7 @@ scheduler tokens exactly equal to serial generate()'s.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1006,6 +1033,7 @@ def phase_serve(dev, kernels, arch: str) -> dict:
         "kvb": kvb, "kv_len": kv_len, "logit_rel": worst,
         "tokens": tokens, "wall_s": wall, "per_form": per_form,
         "dropped_frac": dropped, "routing_flips": flips,
+        "reqs": reqs, "outs": outs,
     }
 
 
@@ -4108,7 +4136,7 @@ def phase_training(dev, kernels, smi: str) -> dict:
                              math.log(cfg.vocab) + DIVERGED)
     secs = [s for _, _, s in res.history[1:]]
     ms = float(np.median(secs)) * 1e3
-    info.update(first5=first, last5=last, ms=ms,
+    info.update(losses=dict(res.losses), first5=first, last5=last, ms=ms,
                 ms_mean=float(np.mean(secs)) * 1e3, wall_s=wall,
                 tokens_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
                 peak_gb=peak_gb, base_gb=base_gb)
@@ -4179,6 +4207,425 @@ def phase_training(dev, kernels, smi: str) -> dict:
           f"{[tuple(round(v, 5) for v in t) for t in stats]}; expert "
           f"stacks' gradients finite and nonzero")
     return info
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: distribution -- the sharded trainer, the seq-sharded decode over
+# two ranks, the server on the host mesh
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 5  # 9a: sharded steps held against phase 8's first five
+DIST_LOSS_TOL = 1e-3  # relative, per step
+# 9b: (arch, layer, batch, q heads, kv heads, head dim, cache rows,
+# window, softcap): starcoder2-15b's decode heads and gemma2-9b's local
+# layer.  At the production TP of 16 neither 4 nor 8 kv heads divide the
+# model axis, so both caches shard on sequence there.
+SHARDED_DECODE = (
+    ("starcoder2-15b", "", 8, 48, 4, 128, 16384, None, None),
+    ("gemma2-9b", " local", 8, 16, 8, 256, 8192, 4096, 50.0),
+)
+SHARDED_MODEL = ("starcoder2-15b", 2, 8, 16384)  # arch, layers, batch, rows
+SHARDED_MODEL_TOL = 5e-2  # as the server's logits: bf16 through 2 layers
+
+
+def sharded_train(dev, phase8: dict, smi: str) -> dict:
+    """9a: gpt2-124m at full width and depth through
+    ``build_trainer(mesh=make_host_mesh())`` (a 1x1 DeviceMesh on a
+    1-rank NCCL group: parameters DTensors, moments laid out by
+    ``opt_state_pspecs``) for DIST_STEPS steps of the launcher's stream,
+    against phase 8's losses and a plain run of the same steps."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves as leaves
+
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    hp = train_hparams()
+    mesh = meshes.make_host_mesh()
+    runs, walls = {}, {}
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name, m in (("plain", None), ("mesh", mesh)):
+                with tempfile.TemporaryDirectory() as d:
+                    t0 = time.perf_counter()
+                    runs[name] = launch_train.run(
+                        cfg, hp, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        steps=DIST_STEPS, ckpt_dir=d,
+                        ckpt_every=TRAIN_CKPT_EVERY, device=dev, mesh=m,
+                        log=lambda line: None)
+                    walls[name] = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        sp = runs["mesh"].state["params"]
+        if not all(isinstance(t, DTensor) for t in leaves(sp)):
+            fail("phase 9a: a parameter of the sharded run is not a DTensor")
+        mu = runs["mesh"].state["opt"]["mu"]
+        if not all(isinstance(t, DTensor) for t in leaves(mu)):
+            fail("phase 9a: a moment of the sharded run is not a DTensor")
+        diff = max(float((a.detach().full_tensor().float()
+                          - b.detach().float()).abs().max())
+                   for a, b in zip(leaves(sp),
+                                   leaves(runs["plain"].state["params"])))
+        ref = phase8["losses"]
+        rows = []
+        for i in range(DIST_STEPS):
+            got = runs["mesh"].losses[i]
+            rel = abs(got - ref[i]) / abs(ref[i])
+            rows.append((i, got, ref[i], runs["plain"].losses[i], rel))
+            if not rel <= DIST_LOSS_TOL:
+                fail(f"phase 9a: step {i} loss {got} vs phase 8's {ref[i]}: "
+                     f"{rel:.2e} > {DIST_LOSS_TOL}")
+        identical = all(g == p for _, g, _, p, _ in rows)
+        secs = [t for _, _, t in runs["mesh"].history[1:]]
+        psecs = [t for _, _, t in runs["plain"].history[1:]]
+        del runs
+        free_cuda()
+        # Device time of one sharded step on a fresh trainer.
+        params, opt, step = launch_train.build_trainer(cfg, hp, mesh=mesh,
+                                                       device=dev)
+        batch = train_batch(cfg, 0, dev)
+        dms = device_ms(lambda: step(params, opt, batch), iters=3, warmup=1)
+        del params, opt, step
+    finally:
+        meshes.destroy()
+    if torch.distributed.is_initialized():
+        fail("phase 9a: the process group outlived the phase")
+    info = {"ms": float(np.median(secs)) * 1e3,
+            "plain_ms": float(np.median(psecs)) * 1e3,
+            "device_ms": dms, "identical": identical, "max_diff": diff,
+            "losses": rows, "wall_s": walls}
+    print(f"distribution 9a: {TRAIN_ARCH} (12 layers, d 768) on a 1x1 "
+          f"DeviceMesh (1-rank NCCL), DTensor params, ZeRO-1 moments, "
+          f"{DIST_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{hp.num_microbatches} microbatches: ms_per_step={info['ms']:.2f} "
+          f"(median of steps 1-{DIST_STEPS - 1}; the plain run "
+          f"{info['plain_ms']:.2f}) device_ms_per_step={dms:.2f} "
+          f"run_wall_s={walls} on {smi}")
+    print(f"distribution 9a: (step, sharded, phase 8, plain) losses "
+          f"{[(i, g, p8, p) for i, g, p8, p, _ in rows]}; max rel vs phase "
+          f"8 {max(r[-1] for r in rows):.2e} (<= {DIST_LOSS_TOL}); "
+          f"bit-identical to the plain run: {identical}; max |param diff| "
+          f"after step {DIST_STEPS}: {diff}")
+    return info
+
+
+def production_rules(mesh, cfg):
+    """``make_rules`` on ``mesh`` with the production mesh's
+    ``kv_heads_act`` (the (16, 16) mesh's): on a model axis of 2 the kv
+    heads would divide it and the cache would shard on heads, where in
+    production it shards on sequence."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.partitioning import make_rules
+
+    kw = dict(fsdp=cfg.fsdp, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    rules = make_rules(mesh, **kw)
+    prod = make_rules(MeshShape((16, 16), ("data", "model")), **kw)
+    return dataclasses.replace(rules, rules={
+        **rules.rules, "kv_heads_act": prod.rules["kv_heads_act"]})
+
+
+def sharded_heads(mesh, dev) -> list[dict]:
+    """9b's head-level cases: ``flash_decode_sharded`` on DTensor caches
+    against ``_decode_attend`` on the whole cache."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import _decode_attend, flash_decode_sharded
+    from repro_torch.models.partitioning import PartitionSpec as P
+    from repro_torch.models.partitioning import spec_to_placements
+    from repro_torch.models.registry import get_config
+
+    cases = []
+    for arch, layer, b, hq, hkv, hd, S, window, cap in SHARDED_DECODE:
+        cfg = get_config(arch)
+        if (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim) != \
+                (hq, hkv, hd):
+            fail(f"phase 9b: {arch}'s heads are not {(hq, hkv, hd)}")
+        rules = production_rules(mesh, cfg)
+        spec = P(*M.cache_pspecs(cfg, rules, b, S)["pos0"]["k"][1:])
+        place = spec_to_placements(mesh, spec)
+        if not place[1].is_shard(2):
+            fail(f"phase 9b: {arch}'s cache is not sequence-sharded: {spec}")
+        g = torch.Generator(dev).manual_seed(9)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+
+        k_full, v_full = rnd(b, hkv, S, hd), rnd(b, hkv, S, hd)
+        s_loc = S // mesh.size(1)
+        base = mesh.get_local_rank("model") * s_loc
+        mine = slice(base, base + s_loc)
+        for pos in (0, S // 2, S - 1):
+            q = rnd(b, hq, 1, hd)
+            kn, vn = rnd(b, hkv, 1, hd), rnd(b, hkv, 1, hd)
+            # Clones: the in-place write must not reach the originals.
+            kc = distribute_tensor(k_full.clone(), mesh, place,
+                                   src_data_rank=None)
+            vc = distribute_tensor(v_full.clone(), mesh, place,
+                                   src_data_rank=None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, kc, vc = flash_decode_sharded(
+                q, kc, vc, kn, vn, pos, window, cap, hd ** -0.5, rules)
+            got = out.full_tensor()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            kr, vr = k_full.clone(), v_full.clone()
+            kr[:, :, pos] = kn[:, :, 0]
+            vr[:, :, pos] = vn[:, :, 0]
+            want = _decode_attend(
+                q, kr, vr, torch.full((b,), pos, device=dev), window,
+                cap, hd ** -0.5)
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / max(float(want.float().abs().max()), 1e-30)
+            k_loc, v_loc = kc.to_local(), vc.to_local()
+            exact = bool(torch.equal(k_loc, kr[:, :, mine])
+                         and torch.equal(v_loc, vr[:, :, mine]))
+            moved = int((k_loc != k_full[:, :, mine])
+                        .any(dim=3).any(dim=1).any(dim=0).sum())
+            cases.append(dict(
+                name=arch + layer, pos=pos, rel=rel, err=err, exact=exact,
+                owned=base <= pos < base + s_loc, rows_moved=moved, ms=ms,
+                kv_mb=2 * k_full.numel() * 2 / 1e6, placements=str(place)))
+            del kc, vc, kr, vr
+    return cases
+
+
+def sharded_model_decode(mesh, dev) -> dict:
+    """9b's model case: one ``decode_step(rules=)`` of SHARDED_MODEL on
+    DTensor caches placed by the production ``cache_pspecs``
+    (sequence-sharded), through the model's seq-sharded branch, against
+    the plain ``decode_step`` on the same weights and cache.
+
+    The weights are replicated DTensors (``param_pspecs`` of rules that
+    keep only "batch" and "seq"): DTensor's all-gather over gloo crashes
+    on CUDA tensors with this card's torch 2.11, and a vocabulary- or
+    head-sharded decode needs one (benchmarks_torch/gloo_cuda_collectives.py
+    names the collectives that run).  tests/test_torch_distributed.py
+    drives the branch with sharded weights on the CPU."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.models.partitioning import (
+        distribute_tree,
+        replicated_ops,
+    )
+    from repro_torch.models.registry import get_config
+
+    arch, layers, b, S = SHARDED_MODEL
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    prod = production_rules(mesh, cfg)
+    rules = dataclasses.replace(prod, rules={
+        k: v if k in ("batch", "seq") else None
+        for k, v in prod.rules.items()})
+    if not L._seq_sharded(rules, S):
+        fail(f"phase 9b: {arch}'s decode would not take the sharded branch")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(3), device=dev)
+    g = torch.Generator(dev).manual_seed(4)
+    cache = M.make_cache(cfg, b, S, device=dev)
+    for leaf in tree_leaves(cache).values():
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
+    toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev)
+    pos = 3 * S // 4 + 5
+
+    def clone(t):
+        return ({k: clone(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.clone())
+
+    # Each decode writes its own copy; ``cache`` stays as it was.
+    sc = distribute_tree(mesh, clone(cache), M.cache_pspecs(cfg, prod, b, S))
+    sp = distribute_tree(mesh, params, param_pspecs(cfg, rules))
+    plain_cache = clone(cache)
+    with torch.no_grad():
+        want, _, _ = M.decode_step(cfg, params, plain_cache, toks, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = []
+        inner = L.flash_decode_sharded
+
+        def counted(*args):  # the branch's calls, one a layer
+            calls.append(1)
+            return inner(*args)
+
+        L.flash_decode_sharded = counted
+        try:
+            with replicated_ops():
+                got, sc, _ = M.decode_step(cfg, sp, sc, toks, pos,
+                                           rules=rules)
+                got = got.full_tensor()
+        finally:
+            L.flash_decode_sharded = inner
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    if len(calls) != layers:
+        fail(f"phase 9b: {len(calls)} sharded decodes for {layers} layers")
+    rel = float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+    # Each rank checks its own rows (no all-gather: see above).
+    s_loc = S // mesh.size(1)
+    base = mesh.get_local_rank("model") * s_loc
+    mine = slice(base, base + s_loc)
+    owned = base <= pos < base + s_loc
+    row_rel, others_exact = 0.0, True
+    plain, before = tree_leaves(plain_cache), tree_leaves(cache)
+    for key, leaf in tree_leaves(sc).items():
+        if tuple(leaf.placements)[1] != Shard(3):
+            fail(f"phase 9b: cache leaf {key} is laid out {leaf.placements}")
+        loc = leaf.to_local()
+        keep = torch.ones(s_loc, dtype=torch.bool, device=dev)
+        if owned:
+            new, ref = loc[:, :, :, pos - base], plain[key][:, :, :, pos]
+            row_rel = max(row_rel, float((new.float() - ref.float()).abs()
+                                         .max())
+                          / max(float(ref.float().abs().max()), 1e-30))
+            keep[pos - base] = False
+        was = before[key][:, :, :, mine]
+        others_exact &= bool(torch.equal(loc[:, :, :, keep],
+                                         was[:, :, :, keep]))
+    return dict(arch=arch, layers=layers, batch=b, rows=S, pos=pos,
+                owned=owned, logit_rel=rel, row_rel=row_rel,
+                others_exact=others_exact,
+                ms=ms, placements=str(sc["pos0"]["k"].placements))
+
+
+def sharded_decode_worker(rank: int, world: int, tmp: str) -> None:
+    """9b, one rank: a (1, world) DeviceMesh on the card over the gloo
+    group (every rank on cuda:0), then the head-level and model cases."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        out = {"cases": sharded_heads(mesh, dev),
+               "model": sharded_model_decode(mesh, dev)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_decode(smi: str) -> dict:
+    """9b: two spawned ranks on the one card, a gloo group over a
+    FileStore, the seq-sharded flash decode at SHARDED_DECODE's shapes
+    and SHARDED_MODEL's decode step."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(sharded_decode_worker, args=(2, tmp), nprocs=2)
+        wall = time.perf_counter() - t0
+        per_rank = [json.loads(pathlib.Path(tmp, f"rank{r}.json")
+                               .read_text()) for r in range(2)]
+    tol = ATTN_TOL[torch.bfloat16]
+    worst = 0.0
+    for r, res in enumerate(per_rank):
+        m = res["model"]
+        if not (m["logit_rel"] <= SHARDED_MODEL_TOL
+                and m["row_rel"] <= SHARDED_MODEL_TOL and m["others_exact"]):
+            fail(f"phase 9b: rank {r} {m['arch']} decode_step on the mesh "
+                 f"vs the plain one: {m}")
+        for c in res["cases"]:
+            worst = max(worst, c["rel"])
+            if not c["rel"] <= tol:
+                fail(f"phase 9b: rank {r} {c['name']} pos {c['pos']}: the "
+                     f"sharded decode is {c['rel']:.3e} off the unsharded "
+                     f"one (> {tol})")
+            if not c["exact"] or c["rows_moved"] != int(c["owned"]):
+                fail(f"phase 9b: rank {r} {c['name']} pos {c['pos']}: cache "
+                     f"writes not exact at the owner only ({c})")
+    for c in per_rank[0]["cases"]:
+        print(f"distribution 9b: flash_decode_sharded {c['name']} "
+              f"({c['kv_mb']:.0f} MB of K/V, placements {c['placements']}) "
+              f"pos {c['pos']}: rel {c['rel']:.3e} max_abs_err "
+              f"{c['err']:.3e} (<= {tol}), writes exact, owner {c['owned']}, "
+              f"{c['ms']:.2f} ms host wall-clock (rank 0)")
+    m = per_rank[0]["model"]
+    print(f"distribution 9b: decode_step(rules=) {m['arch']} full width, "
+          f"{m['layers']} layers, batch {m['batch']}, {m['rows']} rows, pos "
+          f"{m['pos']}, caches {m['placements']}, weights replicated: "
+          f"logits rel {max(r['model']['logit_rel'] for r in per_rank):.3e}, "
+          f"new cache row rel "
+          f"{max(r['model']['row_rel'] for r in per_rank):.3e} (<= "
+          f"{SHARDED_MODEL_TOL}; the owner's), other rows exact, "
+          f"{m['ms']:.1f} ms host wall-clock (rank 0)")
+    print(f"distribution 9b: 2 ranks on one card, a (1, 2) DeviceMesh over "
+          f"gloo (its collectives on CUDA tensors); worst rel {worst:.3e}; "
+          f"wall_s={wall:.1f} on {smi}")
+    return {"wall_s": wall, "worst_rel": worst, "model": m}
+
+
+def mesh_server(kernels, serve_info: dict, smi: str) -> dict:
+    """9c: ``VortexServer(cfg, mesh=make_host_mesh())`` on phase 4's
+    weights and requests: the same greedy tokens, B2 launched as phase 4
+    counts it."""
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch.serve import VortexServer
+
+    cfg = serve_info["cfg"]
+    reqs, want = serve_info["reqs"], serve_info["outs"]
+    mesh = meshes.make_host_mesh()
+    try:
+        server = VortexServer(cfg, mesh=mesh, max_cache=256,
+                              params=serve_info["server"].params)
+        if server.rules is None or server.rules.mesh is not mesh:
+            fail("phase 9c: the server built no rules on its mesh")
+        server.warmup(max_batch=8, m_max=64, max_new=8)
+        before = dict(server.stats)
+        kernels.reset_launch_counts()
+        outs = [server.generate(r) for r in reqs]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        meshes.destroy()
+    steps = sum(r.max_new - 1 for r in reqs)
+    for i, (a, b) in enumerate(zip(outs, want)):
+        if not np.array_equal(a, b):
+            fail(f"phase 9c: request {i}'s tokens differ from phase 4's")
+    replays = (server.stats["decode_graph_replays"]
+               - before["decode_graph_replays"])
+    if (counts["flash_attention_prefill"] != cfg.n_layers * len(reqs)
+            or counts["flash_attention_decode"] != cfg.n_layers * steps
+            or replays != steps):
+        fail(f"phase 9c: B2 launches {counts}, {replays} replays for "
+             f"{steps} steps")
+    all_tensor_core(counts, "phase 9c")
+    print(f"distribution 9c: VortexServer on the 1x1 host mesh, "
+          f"{cfg.name}: {len(reqs)} requests, tokens identical to phase 4's; "
+          f"B2 launches prefill={counts['flash_attention_prefill']} "
+          f"decode={counts['flash_attention_decode']} "
+          f"({cfg.n_layers} a prefill, {cfg.n_layers} a token), "
+          f"{replays} decode replays for {steps} steps on {smi}")
+    del server
+    return {"counts": counts}
+
+
+def phase_distribution(dev, kernels, serve_info: dict, phase8: dict,
+                       smi: str) -> dict:
+    """Phase 9: 9a, 9b, 9c, each timed."""
+    out = {}
+    for name, fn, args in (
+            ("9a", sharded_train, (dev, phase8, smi)),
+            ("9b", sharded_decode, (smi,)),
+            ("9c", mesh_server, (kernels, serve_info, smi))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        print(f"phase {name}: wall_s={time.perf_counter() - t0:.1f}",
+              flush=True)
+        free_cuda()
+    return out
 
 
 def loss_trend(res, what: str, ceiling: float) -> tuple[float, float]:
@@ -4308,10 +4755,16 @@ def main() -> int:
     n_before_7 = len(watch.stats)
     phase("7", phase_failure_domains, dev, kernels, serve_info, smi,
           done="failure domains on the card ok", upto=n_before_7)
-    phase("8", phase_training, dev, kernels, smi,
-          done=f"{TRAIN_ARCH} trained at full width under the supervisor, "
-               f"restart bit-identical, launch counters unmoved",
-          upto=n_before_7)
+    train_info = phase(
+        "8", phase_training, dev, kernels, smi,
+        done=f"{TRAIN_ARCH} trained at full width under the supervisor, "
+             f"restart bit-identical, launch counters unmoved",
+        upto=n_before_7)
+    phase("9", phase_distribution, dev, kernels, serve_info, train_info, smi,
+          done=f"{TRAIN_ARCH} trained on a 1x1 DTensor mesh within "
+               f"{DIST_LOSS_TOL} of phase 8, the seq-sharded decode over 2 "
+               f"ranks matches, the host-mesh server's tokens equal phase "
+               f"4's", upto=n_before_7)
     cache_root.cleanup()
     print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
     for r in rows:

@@ -110,6 +110,7 @@ from repro_torch.models.model import (
     decode_step,
     prefill_step,
 )
+from repro_torch.models.partitioning import make_rules
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_config, get_smoke_config
 from repro_torch.runtime import faults
@@ -124,6 +125,7 @@ __all__ = [
     "DeadlineExceeded",
     "CacheOverflowError",
     "VisionPrefixError",
+    "MeshServingError",
 ]
 
 
@@ -131,6 +133,10 @@ class CacheOverflowError(ValueError):
     """The request cannot fit ``max_cache`` even after growth — refused up
     front, before any prefill work, by both admission paths: the serial
     ``generate()`` and the scheduler's ``submit()``."""
+
+
+class MeshServingError(ValueError):
+    """The server was handed a mesh of more than one rank."""
 
 
 class VisionPrefixError(ValueError):
@@ -317,6 +323,13 @@ class VortexServer:
     ``prefill_graph_captures``/``prefill_graph_replays`` and
     ``chained_prefills`` beside the reference's bucket counters
     (``prefill_buckets`` is the reference's ``prefill_compiles``).
+
+    ``mesh``: a one-rank DeviceMesh (``launch.mesh.make_host_mesh()``,
+    the reference's serving mesh, src/repro/launch/serve.py:910) builds
+    ``self.rules`` the reference's way and every prefill and decode step
+    runs under them.  Its leaves stay plain tensors, so the constraints
+    are no-ops and the CUDA graphs and kernels serve as without one.  A
+    mesh of more ranks raises :class:`MeshServingError` (ROADMAP A13.2).
     """
 
     # The head width of the kv-bucket source of a model with no attention
@@ -339,6 +352,7 @@ class VortexServer:
         impl: str | None = None,
         graphs: bool | None = None,
         prefill: str = "aot",
+        mesh=None,
     ):
         if prefill not in ("aot", "chained"):
             raise ValueError(
@@ -346,6 +360,13 @@ class VortexServer:
             )
         self.prefill_mode = prefill
         self.cfg = cfg
+        if mesh is not None and mesh.size() != 1:
+            raise MeshServingError(
+                f"the server runs on a one-rank mesh; got {mesh}")
+        self.mesh = mesh
+        self.rules = (make_rules(mesh, n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads)
+                      if mesh is not None else None)
         if engine is None:
             engine = Engine(EngineConfig(
                 hardware=hardware,
@@ -1014,7 +1035,8 @@ class VortexServer:
         with self.engine.use():
             logits, cache, stats = prefill_step(
                 self.cfg, self.params, tokens, cache_len=kvb, last=last,
-                out_cache=cache, **self._frontend(tokens.shape[0]),
+                out_cache=cache, rules=self.rules,
+                **self._frontend(tokens.shape[0]),
             )
         return logits, stats["dropped_frac"], cache
 
@@ -1116,7 +1138,7 @@ class VortexServer:
         """The eager decode step: ``(logits, MoE dropped_frac)``."""
         with self.engine.use():
             logits, _, stats = decode_step(
-                self.cfg, self.params, cache, tokens, pos
+                self.cfg, self.params, cache, tokens, pos, rules=self.rules
             )
         return logits, stats["dropped_frac"]
 

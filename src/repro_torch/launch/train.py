@@ -1,11 +1,15 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
-[--smoke] [--device cpu]`` (counterpart of src/repro/launch/train.py).
+[--smoke] [--device cpu] [--mesh host|prod]`` (counterpart of
+src/repro/launch/train.py).
 
-One device, the card unless ``--device cpu``: seeded params, the
-microbatched, remat'd train step, the deterministic data pipeline, async
-checkpoints every ``--ckpt-every`` steps, restart under the supervisor
-and the straggler monitor.  The reference's ``--mesh`` (a host or
-production mesh, sharded params) waits for the mesh.  Frontend stubs get
+The card unless ``--device cpu``: seeded params, the microbatched,
+remat'd train step, the deterministic data pipeline, async checkpoints
+every ``--ckpt-every`` steps, restart under the supervisor and the
+straggler monitor.  ``--mesh host`` (the 1x1 host mesh, a 1-rank
+process group the launcher starts) or ``--mesh prod`` (16x16, in a world
+of 256 ranks the caller started) shards the parameters by
+``param_pspecs`` and the moments by ``opt_state_pspecs`` as DTensors;
+without ``--mesh`` the step runs on plain tensors.  Frontend stubs get
 zeros: ``vision_embeds`` for a VLM, ``encoder_frames`` for an
 encoder-decoder, as the reference feeds them.
 
@@ -27,9 +31,11 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import count_params, init_params
+from repro_torch.launch import mesh as meshes
+from repro_torch.models.params import count_params, init_params, param_pspecs
+from repro_torch.models.partitioning import distribute_tree, make_rules
 from repro_torch.models.registry import get_config, get_smoke_config
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import adamw_init, opt_state_pspecs
 from repro_torch.runtime.heartbeat import StepMonitor
 from repro_torch.runtime.supervisor import Supervisor
 from repro_torch.train.step import TrainHParams, make_train_step
@@ -37,15 +43,29 @@ from repro_torch.train.step import TrainHParams, make_train_step
 __all__ = ["build_trainer", "TrainRun", "run", "main"]
 
 
-def build_trainer(cfg: ModelConfig, hp: TrainHParams, *, seed: int = 0,
-                  device="cuda"):
+def build_trainer(cfg: ModelConfig, hp: TrainHParams, *, mesh=None,
+                  seed: int = 0, device="cuda"):
     """``(params, opt_state, train_step)``: weights drawn from a generator
     seeded with ``seed`` on ``device`` (the card unless ``device="cpu"``;
-    raises without a GPU otherwise) and zeroed float32 moments."""
+    raises without a GPU otherwise) and zeroed float32 moments.  With a
+    ``mesh`` (a DeviceMesh with the reference's axis names) every rank
+    draws the same weights and keeps its shard: the parameters are
+    DTensors laid out by ``param_pspecs``, the moments by
+    ``opt_state_pspecs`` (ZeRO-1), and the step is the sharded one
+    (src/repro/launch/train.py:31-53)."""
     dev = resolve_device(device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          device=dev)
-    return params, adamw_init(params), make_train_step(cfg, hp)
+    if mesh is None:
+        return params, adamw_init(params), make_train_step(cfg, hp)
+    rules = make_rules(mesh, fsdp=cfg.fsdp, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads)
+    p_specs = param_pspecs(cfg, rules)
+    o_specs = opt_state_pspecs(p_specs, params,
+                               rules.axis_sizes.get("data", 1))
+    params = distribute_tree(mesh, params, p_specs)
+    opt = adamw_init(params, mesh=mesh, specs=o_specs)
+    return params, opt, make_train_step(cfg, hp, rules=rules)
 
 
 @dataclasses.dataclass
@@ -84,6 +104,7 @@ def run(
     ckpt_every: int = 20,
     log_every: int = 10,
     device="cuda",
+    mesh=None,
     data_vocab: int | None = None,
     failure_hook: Callable[[int], None] | None = None,
     log: Callable[[str], None] = print,
@@ -96,8 +117,9 @@ def run(
     moved to the device, with the frontend stubs' zeros.  ``data_vocab``
     draws the stream's tokens from the first ``data_vocab`` ids only
     (default: the whole vocabulary, as the reference).  The loss is read
-    on the host every step, as the reference does."""
-    params, opt, step_fn = build_trainer(cfg, hp, device=device)
+    on the host every step, as the reference does.  ``mesh``: the sharded
+    trainer of :func:`build_trainer`."""
+    params, opt, step_fn = build_trainer(cfg, hp, mesh=mesh, device=device)
     dev, dt = params["embed"].device, params["embed"].dtype
     data = SyntheticLMDataset(data_vocab or cfg.vocab, seq, batch)
     out = TrainRun(
@@ -139,6 +161,9 @@ def main(argv: list[str] | None = None) -> TrainRun:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--mesh", choices=("host", "prod"), default=None,
+                    help="shard over the 1x1 host mesh or the 16x16 "
+                         "production mesh (default: no mesh)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--steps", type=int, default=50)
@@ -158,18 +183,27 @@ def main(argv: list[str] | None = None) -> TrainRun:
         total_steps=args.steps,
         num_microbatches=args.microbatches,
     )
-    print(f"arch={cfg.name} params={count_params(cfg):,} device={dev}")
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt-") as tmp:
-        t0 = time.perf_counter()
-        res = run(cfg, hp, batch=args.batch, seq=args.seq, steps=args.steps,
-                  ckpt_dir=args.ckpt_dir or tmp,
-                  ckpt_every=args.ckpt_every, log_every=args.log_every,
-                  device=dev)
-        st = res.supervisor.stats
-        print(f"done: {st.steps_run} steps in "
-              f"{time.perf_counter() - t0:.1f}s; failures={st.failures} "
-              f"restores={st.restores}; "
-              f"stragglers={res.monitor.stragglers()}")
+    mesh = None
+    if args.mesh == "host":
+        mesh = meshes.make_host_mesh(device=dev)
+    elif args.mesh == "prod":
+        mesh = meshes.make_production_mesh(device=dev)
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else None
+    print(f"arch={cfg.name} params={count_params(cfg):,} device={dev} "
+          f"mesh={shape}")
+    try:
+        with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt-") as tmp:
+            t0 = time.perf_counter()
+            res = run(cfg, hp, batch=args.batch, seq=args.seq,
+                      steps=args.steps, ckpt_dir=args.ckpt_dir or tmp,
+                      ckpt_every=args.ckpt_every, log_every=args.log_every,
+                      device=dev, mesh=mesh)
+    finally:
+        meshes.destroy()
+    st = res.supervisor.stats
+    print(f"done: {st.steps_run} steps in {time.perf_counter() - t0:.1f}s; "
+          f"failures={st.failures} restores={st.restores}; "
+          f"stragglers={res.monitor.stragglers()}")
     return res
 
 

@@ -12,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-__all__ = ["LayerSpec", "MoESpec", "SSMSpec", "MLASpec", "ModelConfig"]
+__all__ = ["LayerSpec", "MoESpec", "SSMSpec", "MLASpec", "ModelConfig",
+           "ShapeSpec", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,3 +168,21 @@ class ModelConfig:
             n += m.num_shared * mult * d * m.d_ff_expert
             n += d * m.num_experts  # router
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (batch, sequence) cell: train, prefill or decode."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}

@@ -36,6 +36,13 @@ mixer are plain torch on every device, as the reference leaves them to
 inline XLA.
 A Mamba prefill leaves the state of the last REAL prompt token, where the
 reference scans the bucket pad into it (ROADMAP C11).
+
+Sharding is expressed through logical-axis constraints
+(models/partitioning.py ``constrain``), at the reference's places: they
+redistribute DTensor activations and leave plain tensors untouched.
+A decode whose attention cache is sequence-sharded over the model axis
+runs :func:`flash_decode_sharded`: each rank attends over its own cache
+rows and the partial softmaxes merge with three all-reduces.
 """
 from __future__ import annotations
 
@@ -48,6 +55,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.engine import LazyBucket, lazy_map
 from repro_torch.kernels.ref import chunked_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.partitioning import (
+    AxisRules,
+    PartitionSpec,
+    constrain,
+    is_dtensor,
+    on_full_values,
+    spec_to_placements,
+)
 from repro_torch.vortex import session
 
 __all__ = [
@@ -57,6 +72,9 @@ __all__ = [
     "rope_tables",
     "sinusoid",
     "apply_rope",
+    "PerRowPosError",
+    "flash_decode_shard",
+    "flash_decode_sharded",
     "attn_forward",
     "mla_forward",
     "mamba_forward",
@@ -144,6 +162,11 @@ def apply_rope(
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
+    if is_dtensor(x):
+        # The same values; a head-sharded gradient comes back through a
+        # stack and a split, where the transposed view's backward fails
+        # in DTensor's local view.
+        return torch.stack(x.split(x.shape[-1] // n, dim=-1), dim=1)
     # Contiguous: the kernels take dense (b, h, s, hd) tensors.
     return x.reshape(b, s, n, -1).transpose(1, 2).contiguous()
 
@@ -233,6 +256,134 @@ def _decode_attend(
     return out.reshape(b, hq, 1, -1).to(q.dtype)
 
 
+class PerRowPosError(ValueError):
+    """A per-row decode position reached the sequence-sharded decode,
+    which takes one position for the whole batch (ROADMAP C15: the
+    reference's ``flash_decode_sharded`` fails on a (b,) ``pos`` too)."""
+
+
+def flash_decode_shard(
+    q: torch.Tensor,        # (b, H, 1, hd)
+    k_cache: torch.Tensor,  # (b, KV, s_loc, hd): this rank's cache rows
+    v_cache: torch.Tensor,  # (b, KV, s_loc, dv)
+    k_new: torch.Tensor,    # (b, KV, 1, hd)
+    v_new: torch.Tensor,    # (b, KV, 1, dv)
+    pos,
+    *,
+    base: int,
+    window: int | None,
+    softcap: float | None,
+    scale: float,
+    group=None,
+) -> torch.Tensor:
+    """One rank's part of the sequence-sharded flash decode (the body of
+    the reference's ``shard_map``, src/repro/models/layers.py:316-345) on
+    plain tensors: the rank holds cache rows ``base .. base + s_loc - 1``.
+
+    (a) The new K/V row is written IN PLACE at ``pos`` when this rank owns
+    it; (b) a partial online softmax in float32 over the rank's rows; (c)
+    the partials merge over ``group`` with an all-reduce MAX of the row
+    maxima, then SUM of the sums and of the (b, KV, group, dv) outputs:
+    bytes per step O(heads x head_dim), not O(cache).  ``pos`` is one
+    position for the batch (an int or a 0-d tensor); a (b,) tensor raises
+    :class:`PerRowPosError`.  Returns ``(b, H, 1, dv)`` in ``q``'s
+    dtype."""
+    import torch.distributed as dist
+
+    if torch.is_tensor(pos) and pos.ndim:
+        raise PerRowPosError(
+            f"the sequence-sharded decode takes one position, got pos of "
+            f"shape {tuple(pos.shape)}")
+    b, hq, _, hd = q.shape
+    _, hkv, s_loc, dv = v_cache.shape
+    grp = hq // hkv
+    dev = q.device
+    pos_t = torch.as_tensor(pos, device=dev)
+    off = pos_t - base
+    owned = (off >= 0) & (off < s_loc)
+    safe = off.clamp(0, s_loc - 1).long()
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        row = c.index_select(2, safe.reshape(1))
+        c.index_copy_(2, safe.reshape(1),
+                      torch.where(owned, new.to(c.dtype), row))
+
+    k_pos = base + torch.arange(s_loc, device=dev)
+    qf = q.float().reshape(b, hkv, grp, hd)
+    sc = torch.einsum("bkgd,bksd->bkgs", qf, k_cache.float()) * scale
+    if softcap is not None:
+        sc = torch.tanh(sc / softcap) * softcap
+    mask = k_pos <= pos_t
+    if window is not None:
+        mask = mask & (k_pos > pos_t - window)
+    sc = torch.where(mask[None, None, None, :], sc, -1e30)
+    m = sc.amax(dim=-1)
+    dist.all_reduce(m, dist.ReduceOp.MAX, group=group)
+    pr = torch.exp(sc - m[..., None])
+    l_sum = pr.sum(dim=-1)
+    dist.all_reduce(l_sum, dist.ReduceOp.SUM, group=group)
+    o = torch.einsum("bkgs,bksd->bkgd", pr, v_cache.float())
+    dist.all_reduce(o, dist.ReduceOp.SUM, group=group)
+    out = o / l_sum.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hq, 1, dv).to(q.dtype)
+
+
+def flash_decode_sharded(
+    q: torch.Tensor,        # (b, H, 1, hd)
+    k_cache: torch.Tensor,  # (b, KV, S, hd): seq-sharded over the TP axis
+    v_cache: torch.Tensor,  # (b, KV, S, dv)
+    k_new: torch.Tensor,    # (b, KV, 1, hd)
+    v_new: torch.Tensor,    # (b, KV, 1, dv)
+    pos,
+    window: int | None,
+    softcap: float | None,
+    scale: float,
+    rules: AxisRules,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Distributed flash decode over DTensors (src/repro/models/layers.py:
+    271-356): the caches are DTensors sharded on their sequence axis over
+    the rules' ``seq`` mesh axis (and on batch over the batch axes, or
+    not); ``q``, ``k_new`` and ``v_new`` are DTensors or replicated plain
+    tensors.  Each rank runs :func:`flash_decode_shard` on its local rows,
+    writing the caches in place.  Returns ``(out, k_cache, v_cache)``,
+    ``out`` a DTensor laid out ``(batch, None, None, None)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = rules.mesh
+    seq_ax = rules.rules.get("seq")
+    b = q.shape[0]
+    S = v_cache.shape[2]
+    s_loc = S // rules.axis_sizes[seq_ax]
+    bspec = rules.sanitize(PartitionSpec(rules.rules.get("batch")), (b,))
+    flat = spec_to_placements(mesh, bspec)
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, flat).to_local()
+
+    out = flash_decode_shard(
+        local(q), k_cache.to_local(), v_cache.to_local(), local(k_new),
+        local(v_new), pos, base=mesh.get_local_rank(seq_ax) * s_loc,
+        window=window, softcap=softcap, scale=scale,
+        group=mesh.get_group(seq_ax),
+    )
+    return DTensor.from_local(out, mesh, flat, run_check=False), \
+        k_cache, v_cache
+
+
+def _seq_sharded(rules: AxisRules | None, S: int) -> bool:
+    """The reference's condition for the sharded decode (layers.py:
+    417-424): a mesh whose model axis is > 1 and divides the cache length,
+    and kv heads that do not divide it."""
+    if rules is None or rules.mesh is None:
+        return False
+    model = rules.axis_sizes.get("model", 1)
+    return (rules.rules.get("seq") is not None
+            and rules.rules.get("kv_heads_act") is None
+            and model > 1 and S % model == 0)
+
+
 def attn_forward(
     p: dict,
     x: torch.Tensor,
@@ -246,6 +397,8 @@ def attn_forward(
     cache_len: int = 0,
     causal: bool = True,
     encoder_out: torch.Tensor | None = None,
+    rules: AxisRules | None = None,
+    uniform_pos=None,
 ) -> tuple[torch.Tensor, dict]:
     """GQA attention with RoPE, sliding window, logit softcap and
     cross-attention.
@@ -268,15 +421,27 @@ def attn_forward(
     projects anew at every call, as the reference does (:493-502).  ``x``
     there is this function's input, the mixer's NORMED input, not the
     residual stream: the reference's quirk, kept.
+
+    ``rules`` pins train-mode activations as the reference does; under a
+    mesh whose cache is sequence-sharded (``_seq_sharded``) the decode
+    runs :func:`flash_decode_sharded` at ``uniform_pos``, the batch's one
+    position (None when the caller gave per-row positions: then
+    :class:`PerRowPosError`).
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
+    if mode == "train":
+        # Megatron-SP gather point: the full sequence for the mixer body.
+        x = constrain(x, rules, "batch", None, None)
     q = _split_heads(x @ p["wq"], H)
     k = _split_heads(x @ p["wk"], KV)
     v = _split_heads(x @ p["wv"], KV)
+    if mode == "train":
+        q = constrain(q, rules, "batch", "heads_act", None, None)
+        k = constrain(k, rules, "batch", "kv_heads_act", None, None)
 
     if cfg.use_rope:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
@@ -290,7 +455,15 @@ def attn_forward(
         k = apply_rope(k, cos, sin)
 
     scale = hd ** -0.5
-    if mode == "decode":
+    if (mode == "decode" and cache is not None
+            and _seq_sharded(rules, cache["k"].shape[2])):
+        out, _, _ = flash_decode_sharded(
+            q, cache["k"], cache["v"], k, v,
+            pos if uniform_pos is None else uniform_pos, spec.window,
+            cfg.attn_softcap, scale, rules,
+        )
+        new_cache = cache
+    elif mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and a position")
         # In place: the cache is this request's own (leased) buffer, or the
@@ -368,6 +541,7 @@ def mla_forward(
     cache: dict | None = None,
     pos: torch.Tensor | None = None,
     cache_len: int = 0,
+    rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Multi-head latent attention (src/repro/models/layers.py:511-620).
 
@@ -427,6 +601,7 @@ def mla_forward(
         v = (c_kv @ p["wuv"]).reshape(b, s, H, dv).transpose(1, 2)
         qh = torch.cat([q_nope, q_rope], dim=-1)
         kh = torch.cat([k_nope, k_rope.expand(b, H, s, rope_d)], dim=-1)
+        qh = constrain(qh, rules, "batch", "heads_act", None, None)
         out = chunked_attention(qh, kh, v, causal=True, chunk=ATTN_CHUNK)
         new_cache = None
         if mode == "prefill":
@@ -478,6 +653,7 @@ def mamba_forward(
     mode: str,
     cache: dict | None = None,
     last: torch.Tensor | None = None,
+    rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Mamba-1 (src/repro/models/layers.py:648-758): in_proj -> causal
     depthwise conv -> selective scan -> gate.
@@ -502,6 +678,7 @@ def mamba_forward(
 
     xz = x @ p["in_proj"]
     x_in, z = xz[..., :di], xz[..., di:]
+    x_in = constrain(x_in, rules, "batch", None, "ssm_inner")
 
     if mode == "decode":
         if cache is None:
@@ -521,7 +698,11 @@ def mamba_forward(
         new_conv = window[:, 1:]
     elif mode in ("prefill", "train"):
         xt = F.pad(x_in.float().transpose(1, 2), (dc - 1, 0))
-        xc = F.conv1d(xt, p["conv_w"].float().t()[:, None, :], groups=di)
+        # DTensor takes a conv for a tensor-parallel one and refuses the
+        # depthwise weight: over DTensors it runs on full values.
+        xc = on_full_values(
+            lambda a, w: F.conv1d(a, w, groups=di), xt,
+            p["conv_w"].float().t()[:, None, :])
         xc = F.silu(xc.transpose(1, 2) + p["conv_b"]).to(x.dtype)
         if mode == "prefill":
             if last is None:
@@ -599,10 +780,12 @@ def _glu_act(
     return F.gelu(h, approximate="tanh")
 
 
-def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                rules: AxisRules | None = None) -> torch.Tensor:
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if "w_gate" in p else None
-    return _glu_act(cfg, h, g) @ p["w_out"]
+    h = constrain(_glu_act(cfg, h, g), rules, "batch", None, "ff")
+    return h @ p["w_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -774,7 +957,7 @@ def route(
 
 def _expert_ffn(
     p: dict, buf: torch.Tensor, cfg: ModelConfig, counts: torch.Tensor,
-    engine,
+    engine, rules: AxisRules | None = None,
 ) -> torch.Tensor:
     """buf: (g, E, C, d) -> (g, E, C, d) through the per-expert FFNs.
 
@@ -801,17 +984,31 @@ def _expert_ffn(
         out = engine.dispatch("grouped_gemm", h, p["w_out"], cnt)
         return out.reshape(E, g, C, -1).transpose(0, 1)
 
-    h = torch.einsum("gecd,edf->gecf", buf, p["w_in"])
+    # Over DTensors an FSDP-sharded expert stack is gathered on its
+    # "embed" dim first: DTensor's einsum fails to take the stack sharded
+    # on both the expert and the contracted or output width.
+    w = {k: constrain(p[k], rules, "expert", None, None)
+         for k in ("w_in", "w_gate", "w_out") if k in p}
+    h = torch.einsum("gecd,edf->gecf", buf, w["w_in"])
     gate = (
-        torch.einsum("gecd,edf->gecf", buf, p["w_gate"])
-        if "w_gate" in p else None
+        torch.einsum("gecd,edf->gecf", buf, w["w_gate"])
+        if "w_gate" in w else None
     )
     h = _glu_act(cfg, h, gate)
-    return torch.einsum("gecf,efd->gecd", h, p["w_out"])
+    return torch.einsum("gecf,efd->gecd", h, w["w_out"])
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value as a plain tensor on every rank (a plain
+    tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def moe_forward(
-    p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "prefill"
+    p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "prefill",
+    rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routed MoE with sort-based, capacity-bounded dispatch.
 
@@ -832,14 +1029,22 @@ def moe_forward(
     E, k = m.num_experts, m.top_k
     C = moe_capacity(cfg, s)
     dev = x.device
+    if s > 1:
+        # Routing, sort and dispatch run on seq-replicated activations
+        # (reference layers.py:1000-1008); not at s == 1 (decode).
+        x = constrain(x, rules, "batch", None, None)
     probs, topw, topi = route(p, x, cfg)
+    # The routing's index arithmetic (one_hot, argsort, searchsorted,
+    # integer gathers) has no DTensor sharding rule: over DTensors it runs
+    # on a replicated plain copy of the choices.
+    choice = _replicated(topi)
 
     # Aux loss (Switch): E * sum_e f_e * P_e over all tokens.
-    f_e = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
+    f_e = F.one_hot(choice[..., 0], E).float().mean(dim=(0, 1))
     aux = E * torch.sum(f_e * probs.mean(dim=(0, 1)))
 
     S = s * k
-    flat_e = topi.reshape(b, S)
+    flat_e = choice.reshape(b, S)
     order = torch.argsort(flat_e, dim=-1, stable=True)  # sorted pos -> flat
     sorted_e = torch.gather(flat_e, 1, order)
     experts = torch.arange(E, device=dev)
@@ -858,8 +1063,15 @@ def moe_forward(
     # ``valid`` is a prefix of each slab, so its sum is the slab's extent.
     counts = valid.sum(dim=-1, dtype=torch.int32)         # (b, E)
 
+    if s > 1:
+        # The expert slabs pinned to (batch, expert), so the FFN einsums
+        # partition over the EP axis (reference :1054-1065).
+        buf = constrain(buf, rules, "batch", "expert", None, None)
     engine = session.installed_engine() if mode != "train" else None
-    out_flat = _expert_ffn(p, buf, cfg, counts, engine).reshape(b, E * C, d)
+    out_buf = _expert_ffn(p, buf, cfg, counts, engine, rules)
+    if s > 1:
+        out_buf = constrain(out_buf, rules, "batch", "expert", None, None)
+    out_flat = out_buf.reshape(b, E * C, d)
 
     # Return map: flat position f sits at sorted position inv[f], in slot
     # (flat_e[f], inv[f] - first[flat_e[f]]).

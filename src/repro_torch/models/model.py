@@ -38,6 +38,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.partitioning import (
+    AxisRules,
+    PartitionSpec as P,
+    constrain,
+    is_dtensor,
+)
 from repro_torch.models.layers import (
     attn_forward,
     mamba_forward,
@@ -49,8 +55,8 @@ from repro_torch.models.layers import (
 )
 
 __all__ = [
-    "make_cache", "abstract_cache", "forward", "loss_fn", "prefill_step",
-    "decode_step", "CACHE_SEQ_AXIS",
+    "make_cache", "abstract_cache", "cache_pspecs", "forward", "loss_fn",
+    "prefill_step", "decode_step", "CACHE_SEQ_AXIS",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -114,6 +120,40 @@ def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     return make_cache(cfg, batch, cache_len, device="meta")
 
 
+def cache_pspecs(
+    cfg: ModelConfig, rules: AxisRules, batch: int, cache_len: int
+) -> dict:
+    """PartitionSpecs beside :func:`make_cache`'s tree, sanitized against
+    the leaves' shapes (src/repro/models/model.py:104-143).  KV caches
+    shard on the kv-head axis when it divides the model axis, otherwise on
+    the sequence axis (the cache is the dominant memory and must shard on
+    something model-sized)."""
+    batch_ax = rules.rules.get("batch")
+    model = rules.rules.get("ff")  # the TP axis name ("model") or None
+    kv_ok = rules.rules.get("kv_heads_act") is not None
+    out: dict = {}
+    for p, spec in enumerate(cfg.pattern):
+        defs = _cache_entry_defs(cfg, spec, batch, cache_len)
+        if spec.mixer == "attn":
+            raw = (P(None, batch_ax, model, None, None) if kv_ok
+                   else P(None, batch_ax, None, model, None))
+            entry = {"k": raw, "v": raw}
+        elif spec.mixer == "mla":
+            entry = {"ckv": P(None, batch_ax, model, None),
+                     "k_rope": P(None, batch_ax, None, None)}
+        else:  # mamba
+            entry = {"conv": P(None, batch_ax, None, model),
+                     "ssm": P(None, batch_ax, model, None)}
+        out[f"pos{p}"] = {
+            k: rules.sanitize(entry[k], (cfg.n_groups,) + defs[k][0])
+            for k in entry
+        }
+    if cfg.encoder_decoder:
+        out["encoder_out"] = rules.sanitize(
+            P(batch_ax, None, None), (batch, cfg.encoder_seq, cfg.d_model))
+    return out
+
+
 def _hidden(
     cfg: ModelConfig,
     params: dict,
@@ -128,6 +168,7 @@ def _hidden(
     vision_embeds: torch.Tensor | None = None,
     encoder_frames: torch.Tensor | None = None,
     remat: bool = True,
+    rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, dict | None, dict]:
     """Embedding through the final norm: (hidden (b, s, d), cache,
     moe_stats).  ``moe_stats`` holds ``aux``, the MoE load-balance loss
@@ -143,7 +184,9 @@ def _hidden(
     keep what they held (every decode read is masked past ``pos``).
     ``last`` ((1,) integer tensor) is the prefill's last real row, whose
     state the Mamba layers keep.  ``vision_embeds`` and ``encoder_frames``
-    are the frontend stubs' inputs (module docstring)."""
+    are the frontend stubs' inputs (module docstring).  ``rules`` pins
+    the residual stream's layout between layers (a no-op on plain
+    tensors)."""
     b, s = tokens.shape
     x = params["embed"][tokens]
     if cfg.embed_scale:
@@ -152,10 +195,12 @@ def _hidden(
     dev = x.device
     # RoPE positions: (s,) in prefill, (b, 1) in decode.  Decode has one
     # path: an int ``pos`` is every row at that position.
+    uniform_pos = None  # the batch's one decode position, if it has one
     if mode != "decode":
         positions = torch.arange(s, device=dev)
     else:
         if not torch.is_tensor(pos):
+            uniform_pos = pos
             pos = torch.full((b,), pos, dtype=torch.int32, device=dev)
         positions = pos.reshape(b, 1)
     if not cfg.use_rope:
@@ -172,6 +217,8 @@ def _hidden(
                 f"{cfg.name}: a prefill of {s} rows cannot hold the "
                 f"{nv}-row vision prefix")
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    if mode != "decode":
+        x = constrain(x, rules, "batch", "seq", None)
     encoder_out = None
     if cfg.encoder_decoder:
         if mode == "decode":
@@ -183,12 +230,12 @@ def _hidden(
                     "encoder_frames")
             encoder_out = _encode(
                 cfg, params, encoder_frames,
-                mode="train" if mode == "train" else "prefill")
+                mode="train" if mode == "train" else "prefill", rules=rules)
             if out_cache is not None:
                 out_cache["encoder_out"].copy_(encoder_out)
     if mode == "train":
         x, stats = _train_layers(cfg, params, x, positions, encoder_out,
-                                 remat)
+                                 remat, rules)
         return norm(x, params["final_norm"], cfg), None, stats
     n_pos = len(cfg.pattern)
     new_layers: list[list[dict]] = [[] for _ in range(n_pos)]
@@ -202,7 +249,8 @@ def _hidden(
             x, nc, moe = _apply_layer(
                 cfg, spec, _slice(params[f"pos{i}"], g), x, mode=mode,
                 positions=positions, cache=c, pos=pos, cache_len=clen,
-                last=last, encoder_out=encoder_out,
+                last=last, encoder_out=encoder_out, rules=rules,
+                uniform_pos=uniform_pos,
             )
             if out_cache is not None:
                 for name, leaf in nc.items():
@@ -242,33 +290,40 @@ def _apply_layer(
     pos: torch.Tensor | None = None, cache_len: int = 0,
     last: torch.Tensor | None = None,
     encoder_out: torch.Tensor | None = None, causal: bool = True,
+    rules: AxisRules | None = None, uniform_pos: int | None = None,
 ) -> tuple[torch.Tensor, dict | None, tuple | None]:
-    """One pre-norm layer (src/repro/models/model.py:145-187): ``(x, the
+    """One pre-norm layer (src/repro/models/model.py:145-201): ``(x, the
     mixer's cache, (aux, dropped_frac, topi) of an MoE MLP or None)``."""
     h = norm(x, p["norm_mixer"], cfg)
     if spec.mixer == "attn":
         y, nc = attn_forward(
             p["attn"], h, cfg, spec, mode=mode, positions=positions,
             cache=cache, pos=pos, cache_len=cache_len, causal=causal,
-            encoder_out=encoder_out,
+            encoder_out=encoder_out, rules=rules, uniform_pos=uniform_pos,
         )
     elif spec.mixer == "mla":
         y, nc = mla_forward(
             p["mla"], h, cfg, mode=mode, positions=positions, cache=cache,
-            pos=pos, cache_len=cache_len,
+            pos=pos, cache_len=cache_len, rules=rules,
         )
     else:
         y, nc = mamba_forward(p["mamba"], h, cfg, mode=mode, cache=cache,
-                              last=last)
+                              last=last, rules=rules)
     x = x + y
     moe = None
     if spec.mlp == "dense":
-        x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg)
+        x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg,
+                            rules=rules)
     elif spec.mlp == "moe":
         y, aux, drop, topi = moe_forward(
-            p["moe"], norm(x, p["norm_mlp"], cfg), cfg, mode=mode)
+            p["moe"], norm(x, p["norm_mlp"], cfg), cfg, mode=mode,
+            rules=rules)
         x = x + y
         moe = (aux, drop, topi)
+    if mode != "decode":
+        # Decode streams are tiny (s = 1) and stay unpinned, as in the
+        # reference.
+        x = constrain(x, rules, "batch", "seq", None)
     return x, nc, moe
 
 
@@ -292,6 +347,7 @@ def _moe_stats(cfg: ModelConfig, auxes: list, dropped: list, dev) -> dict:
 def _train_layers(
     cfg: ModelConfig, params: dict, x: torch.Tensor,
     positions: torch.Tensor, encoder_out: torch.Tensor | None, remat: bool,
+    rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """The decoder stack in train mode: ``(x, {"aux", "dropped_frac"})``.
     With ``remat`` each group runs under ``torch.utils.checkpoint`` (the
@@ -308,7 +364,7 @@ def _train_layers(
         for i, spec in enumerate(cfg.pattern):
             x, _, moe = _apply_layer(
                 cfg, spec, layers[i][g], x, mode="train",
-                positions=positions, encoder_out=encoder_out,
+                positions=positions, encoder_out=encoder_out, rules=rules,
             )
             moes += [] if moe is None else [moe[:2]]
         if not moes:
@@ -330,7 +386,8 @@ def _train_layers(
 
 
 def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
-            mode: str = "prefill") -> torch.Tensor:
+            mode: str = "prefill",
+            rules: AxisRules | None = None) -> torch.Tensor:
     """Whisper's bidirectional encoder over the (stubbed) frame embeddings
     (b, encoder_seq, d): sinusoidal positions, then ``n_encoder_layers``
     pre-norm layers of non-causal attention (no cache) and a dense MLP,
@@ -348,7 +405,7 @@ def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     for p in layers:
         x, _, _ = _apply_layer(cfg, spec, p, x, mode=mode,
                                positions=positions, cache_len=s,
-                               causal=False)
+                               causal=False, rules=rules)
     return norm(x, enc["final_norm"], cfg)
 
 
@@ -371,9 +428,13 @@ def _unbind(tree: dict, n: int) -> list[dict]:
     return [{k: v[g] for k, v in flat.items()} for g in range(n)]
 
 
-def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: ModelConfig, params: dict, x: torch.Tensor,
+          rules: AxisRules | None = None) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
+    # (b, s, vocab), or a prefill's last row (b, vocab).
+    logits = constrain(logits, rules, "batch",
+                       *(None,) * (logits.ndim - 2), "vocab")
     if cfg.logit_softcap is not None:
         c = cfg.logit_softcap
         logits = (torch.tanh(logits.float() / c) * c).to(logits.dtype)
@@ -382,8 +443,13 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
         # In place, and safe under autograd: no backward saves this tensor
         # (the matmul saves its inputs, tanh its own output, which the
         # scale by c copies), and the masked columns get a zero gradient,
-        # as under the reference's ``where``.
-        logits[..., cfg.vocab:] = -1e30
+        # as under the reference's ``where``.  Over DTensors it is the
+        # reference's ``where`` (DTensor has no rule for the slice fill).
+        if is_dtensor(logits):
+            col = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(col < cfg.vocab, logits, -1e30)
+        else:
+            logits[..., cfg.vocab:] = -1e30
     return logits
 
 
@@ -400,6 +466,7 @@ def forward(
     vision_embeds: torch.Tensor | None = None,
     encoder_frames: torch.Tensor | None = None,
     remat: bool = True,
+    rules: AxisRules | None = None,
 ) -> tuple:
     """Run the model: ``tokens`` (b, s) int — s == 1 in decode mode with
     ``pos`` the position of the new token, an int or a (b,) tensor of
@@ -412,13 +479,15 @@ def forward(
     fraction of (token, choice) assignments the MoE capacity bound
     dropped, over the MoE layers, "topi": per-layer expert choices (not
     in train mode)}``.  ``vision_embeds`` / ``encoder_frames``: the
-    frontend stubs' inputs."""
+    frontend stubs' inputs.  ``rules`` (an ``AxisRules``) lays out the
+    activations of a forward over DTensor parameters and inputs (the
+    reference's sharding constraints; no-ops on plain tensors)."""
     x, new_cache, stats = _hidden(
         cfg, params, tokens, mode=mode, cache=cache, pos=pos,
         cache_len=cache_len, vision_embeds=vision_embeds,
-        encoder_frames=encoder_frames, remat=remat,
+        encoder_frames=encoder_frames, remat=remat, rules=rules,
     )
-    ret = (_head(cfg, params, x), new_cache)
+    ret = (_head(cfg, params, x, rules), new_cache)
     return ret + (stats,) if return_moe_stats else ret
 
 
@@ -429,19 +498,25 @@ def loss_fn(
     labels: torch.Tensor,
     *,
     aux_weight: float = 0.01,
+    rules: AxisRules | None = None,
     **fwd_kwargs,
 ) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross entropy in float32 plus ``aux_weight`` times
     the MoE load-balance loss (src/repro/models/model.py:372-400): ``(total,
     {"xent", "aux", "dropped_frac"})``, every value a device scalar.
     ``fwd_kwargs`` go to :func:`forward` in train mode (``remat``,
-    ``vision_embeds``, ``encoder_frames``)."""
+    ``vision_embeds``, ``encoder_frames``).  Over DTensors the loss is a
+    replicated DTensor scalar."""
     logits, _, stats = forward(
         cfg, params, tokens, mode="train", return_moe_stats=True,
-        **fwd_kwargs,
+        rules=rules, **fwd_kwargs,
     )
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
+    # DTensor has no working rule for a gather along a sharded vocab axis
+    # (its masked partial fails to reduce), so the labels' logits are
+    # gathered from a vocab-replicated view.
+    lf = constrain(lf, rules, "batch", None, None)
     ll = lf.gather(-1, labels.long()[..., None])[..., 0]
     xent = (lse - ll).mean()
     aux = stats["aux"]
@@ -456,6 +531,7 @@ def prefill_step(
     out_cache: dict | None = None,
     vision_embeds: torch.Tensor | None = None,
     encoder_frames: torch.Tensor | None = None,
+    rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Prefill a bucket-padded batch: ``(logits at row last (b, vocab),
     cache, moe_stats)`` (``moe_stats`` as :func:`forward` returns it).
@@ -474,19 +550,20 @@ def prefill_step(
         cfg, params, tokens, mode="prefill", cache=None, pos=None,
         cache_len=cache_len, out_cache=out_cache, last=last,
         vision_embeds=vision_embeds, encoder_frames=encoder_frames,
+        rules=rules,
     )
     x_last = x.index_select(1, last.reshape(1)).squeeze(1)
-    return _head(cfg, params, x_last), cache, stats
+    return _head(cfg, params, x_last, rules), cache, stats
 
 
 def decode_step(
     cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
-    pos: int | torch.Tensor,
+    pos: int | torch.Tensor, *, rules: AxisRules | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """One decode token: ``(logits (b, vocab), cache, moe_stats)``; ``pos``
     is one position for the batch or a (b,) tensor of per-row ones."""
     x, cache, stats = _hidden(
         cfg, params, tokens, mode="decode", cache=cache, pos=pos,
-        cache_len=0,
+        cache_len=0, rules=rules,
     )
-    return _head(cfg, params, x[:, 0]), cache, stats
+    return _head(cfg, params, x[:, 0], rules), cache, stats

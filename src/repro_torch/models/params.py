@@ -18,6 +18,9 @@ onto the other's leaf for leaf.
 * :func:`params_from_numpy` takes the reference ``init_params`` tree as
   numpy arrays (stacked ``(n_groups, ...)`` leaves included), checks every
   shape against the schema and moves it to ``device``.
+* :func:`param_pspecs` is the same tree of PartitionSpecs: each leaf's
+  logical axes (the reference's, a stacked leaf's led by ``"layers"``)
+  through ``AxisRules.spec_for``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ __all__ = [
     "init_params",
     "params_from_numpy",
     "decay_mask",
+    "param_pspecs",
     "count_params",
 ]
 
@@ -47,10 +51,16 @@ class ParamDef:
     """Declarative definition of one parameter tensor."""
 
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...]  # one logical axis name per dim
     init: str = "normal"  # normal | zeros | ones | ssm_a
     dtype: str = "bfloat16"
     scale_axis: int = 0  # fan-in axis for the normal init scale
     stacked: int = 0  # leading axes that stack layers (see _stack)
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} vs logical axes "
+                             f"{self.logical}")
 
 
 Schema = dict[str, Any]  # nested dict of ParamDef
@@ -61,20 +71,20 @@ def _attn_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
     qdim, kvdim = cfg.n_heads * hd, cfg.n_kv_heads * hd
     dt = cfg.dtype
     s: Schema = {
-        "wq": ParamDef((d, qdim), dtype=dt),
-        "wk": ParamDef((d, kvdim), dtype=dt),
-        "wv": ParamDef((d, kvdim), dtype=dt),
-        "wo": ParamDef((qdim, d), dtype=dt),
+        "wq": ParamDef((d, qdim), ("embed", "q_heads"), dtype=dt),
+        "wk": ParamDef((d, kvdim), ("embed", "kv_heads"), dtype=dt),
+        "wv": ParamDef((d, kvdim), ("embed", "kv_heads"), dtype=dt),
+        "wo": ParamDef((qdim, d), ("q_heads", "embed"), dtype=dt),
     }
     if spec.cross_attn:
         # Whisper's decoder attends to the encoder output after its
         # self-attention (src/repro/models/params.py:68-76).
         s.update({
-            "xq": ParamDef((d, qdim), dtype=dt),
-            "xk": ParamDef((d, kvdim), dtype=dt),
-            "xv": ParamDef((d, kvdim), dtype=dt),
-            "xo": ParamDef((qdim, d), dtype=dt),
-            "norm_x": ParamDef((d,), init="ones", dtype=dt),
+            "xq": ParamDef((d, qdim), ("embed", "q_heads"), dtype=dt),
+            "xk": ParamDef((d, kvdim), ("embed", "kv_heads"), dtype=dt),
+            "xv": ParamDef((d, kvdim), ("embed", "kv_heads"), dtype=dt),
+            "xo": ParamDef((qdim, d), ("q_heads", "embed"), dtype=dt),
+            "norm_x": ParamDef((d,), (None,), init="ones", dtype=dt),
         })
     return s
 
@@ -87,14 +97,21 @@ def _mla_schema(cfg: ModelConfig) -> Schema:
     dt = cfg.dtype
     qk = m.qk_nope_dim + m.qk_rope_dim
     return {
-        "wdq": ParamDef((d, m.q_lora_rank), dtype=dt),
-        "wuq": ParamDef((m.q_lora_rank, h * qk), dtype=dt),
-        "q_norm": ParamDef((m.q_lora_rank,), init="ones", dtype=dt),
-        "wdkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_dim), dtype=dt),
-        "kv_norm": ParamDef((m.kv_lora_rank,), init="ones", dtype=dt),
-        "wuk": ParamDef((m.kv_lora_rank, h * m.qk_nope_dim), dtype=dt),
-        "wuv": ParamDef((m.kv_lora_rank, h * m.v_head_dim), dtype=dt),
-        "wo": ParamDef((h * m.v_head_dim, d), dtype=dt),
+        "wdq": ParamDef((d, m.q_lora_rank), ("embed", None), dtype=dt),
+        "wuq": ParamDef((m.q_lora_rank, h * qk), (None, "q_heads"),
+                        dtype=dt),
+        "q_norm": ParamDef((m.q_lora_rank,), (None,), init="ones",
+                           dtype=dt),
+        "wdkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_dim),
+                         ("embed", None), dtype=dt),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init="ones",
+                            dtype=dt),
+        "wuk": ParamDef((m.kv_lora_rank, h * m.qk_nope_dim),
+                        (None, "q_heads"), dtype=dt),
+        "wuv": ParamDef((m.kv_lora_rank, h * m.v_head_dim),
+                        (None, "q_heads"), dtype=dt),
+        "wo": ParamDef((h * m.v_head_dim, d), ("q_heads", "embed"),
+                       dtype=dt),
     }
 
 
@@ -106,18 +123,26 @@ def _mamba_schema(cfg: ModelConfig) -> Schema:
     dtr = s.dt_rank or d // 16
     dt = cfg.dtype
     return {
-        "in_proj": ParamDef((d, 2 * s.d_inner), dtype=dt),
-        "conv_w": ParamDef((s.d_conv, s.d_inner), dtype=dt),
-        "conv_b": ParamDef((s.d_inner,), init="zeros", dtype=dt),
-        "x_proj": ParamDef((s.d_inner, dtr + 2 * s.d_state), dtype=dt),
-        "dt_proj": ParamDef((dtr, s.d_inner), dtype=dt),
-        "dt_bias": ParamDef((s.d_inner,), init="zeros", dtype=dt),
+        "in_proj": ParamDef((d, 2 * s.d_inner), ("embed", "ssm_inner"),
+                            dtype=dt),
+        "conv_w": ParamDef((s.d_conv, s.d_inner), (None, "ssm_inner"),
+                           dtype=dt),
+        "conv_b": ParamDef((s.d_inner,), ("ssm_inner",), init="zeros",
+                           dtype=dt),
+        "x_proj": ParamDef((s.d_inner, dtr + 2 * s.d_state),
+                           ("ssm_inner", None), dtype=dt),
+        "dt_proj": ParamDef((dtr, s.d_inner), (None, "ssm_inner"),
+                            dtype=dt),
+        "dt_bias": ParamDef((s.d_inner,), ("ssm_inner",), init="zeros",
+                            dtype=dt),
         # A_log/D stay f32: the recurrence decay must not round to 1.0 in
         # bf16.
-        "A_log": ParamDef((s.d_inner, s.d_state), init="ssm_a",
-                          dtype="float32"),
-        "D": ParamDef((s.d_inner,), init="ones", dtype="float32"),
-        "out_proj": ParamDef((s.d_inner, d), dtype=dt),
+        "A_log": ParamDef((s.d_inner, s.d_state), ("ssm_inner", None),
+                          init="ssm_a", dtype="float32"),
+        "D": ParamDef((s.d_inner,), ("ssm_inner",), init="ones",
+                      dtype="float32"),
+        "out_proj": ParamDef((s.d_inner, d), ("ssm_inner", "embed"),
+                             dtype=dt),
     }
 
 
@@ -125,11 +150,11 @@ def _mlp_schema(cfg: ModelConfig) -> Schema:
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.dtype
     s: Schema = {
-        "w_in": ParamDef((d, f), dtype=dt),
-        "w_out": ParamDef((f, d), dtype=dt),
+        "w_in": ParamDef((d, f), ("embed", "ff"), dtype=dt),
+        "w_out": ParamDef((f, d), ("ff", "embed"), dtype=dt),
     }
     if cfg.act in ("swiglu", "geglu"):
-        s["w_gate"] = ParamDef((d, f), dtype=dt)
+        s["w_gate"] = ParamDef((d, f), ("embed", "ff"), dtype=dt)
     return s
 
 
@@ -141,28 +166,33 @@ def _moe_schema(cfg: ModelConfig) -> Schema:
     dt = cfg.dtype
     s: Schema = {
         # Router in f32: tiny, and routing decisions are precision-sensitive.
-        "router": ParamDef((d, E), dtype="float32"),
+        "router": ParamDef((d, E), ("embed", None), dtype="float32"),
         # Expert stacks: the init's fan-in is each expert's input width
         # (axis 1).  The reference leaves axis 0, the expert count, which
         # makes seeded expert outputs ~sqrt(d / E) too large (ROADMAP C2).
-        "w_in": ParamDef((E, d, fe), dtype=dt, scale_axis=1),
-        "w_out": ParamDef((E, fe, d), dtype=dt, scale_axis=1),
+        "w_in": ParamDef((E, d, fe), ("expert", "embed", None), dtype=dt,
+                         scale_axis=1),
+        "w_out": ParamDef((E, fe, d), ("expert", None, "embed"), dtype=dt,
+                          scale_axis=1),
     }
     if cfg.act in ("swiglu", "geglu"):
-        s["w_gate"] = ParamDef((E, d, fe), dtype=dt, scale_axis=1)
+        s["w_gate"] = ParamDef((E, d, fe), ("expert", "embed", None),
+                               dtype=dt, scale_axis=1)
     if m.num_shared:
         f_sh = m.num_shared * fe
-        s["shared_in"] = ParamDef((d, f_sh), dtype=dt)
-        s["shared_out"] = ParamDef((f_sh, d), dtype=dt)
+        s["shared_in"] = ParamDef((d, f_sh), ("embed", "ff"), dtype=dt)
+        s["shared_out"] = ParamDef((f_sh, d), ("ff", "embed"), dtype=dt)
         if cfg.act in ("swiglu", "geglu"):
-            s["shared_gate"] = ParamDef((d, f_sh), dtype=dt)
+            s["shared_gate"] = ParamDef((d, f_sh), ("embed", "ff"),
+                                          dtype=dt)
     return s
 
 
 def _layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
     dt = cfg.dtype
     s: Schema = {
-        "norm_mixer": ParamDef((cfg.d_model,), init="ones", dtype=dt),
+        "norm_mixer": ParamDef((cfg.d_model,), (None,), init="ones",
+                               dtype=dt),
     }
     if spec.mixer == "attn":
         s["attn"] = _attn_schema(cfg, spec)
@@ -173,7 +203,8 @@ def _layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Schema:
     else:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.mlp != "none":
-        s["norm_mlp"] = ParamDef((cfg.d_model,), init="ones", dtype=dt)
+        s["norm_mlp"] = ParamDef((cfg.d_model,), (None,), init="ones",
+                                  dtype=dt)
         if spec.mlp == "dense":
             s["mlp"] = _mlp_schema(cfg)
         else:
@@ -187,7 +218,8 @@ def _stack(schema: Schema, n: int) -> Schema:
     for k, v in schema.items():
         if isinstance(v, ParamDef):
             out[k] = ParamDef(
-                shape=(n,) + v.shape, init=v.init, dtype=v.dtype,
+                shape=(n,) + v.shape, logical=("layers",) + v.logical,
+                init=v.init, dtype=v.dtype,
                 scale_axis=v.scale_axis + 1, stacked=v.stacked + 1,
             )
         else:
@@ -201,18 +233,22 @@ def model_schema(cfg: ModelConfig) -> Schema:
     stacked attention + dense-MLP layers and their final norm."""
     dt = cfg.dtype
     s: Schema = {
-        "embed": ParamDef((cfg.vocab_padded, cfg.d_model), dtype=dt),
-        "final_norm": ParamDef((cfg.d_model,), init="ones", dtype=dt),
+        "embed": ParamDef((cfg.vocab_padded, cfg.d_model),
+                          ("vocab", "embed"), dtype=dt),
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones",
+                               dtype=dt),
     }
     if not cfg.tie_embeddings:
-        s["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded), dtype=dt)
+        s["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded),
+                                ("embed", "vocab"), dtype=dt)
     for p, spec in enumerate(cfg.pattern):
         s[f"pos{p}"] = _stack(_layer_schema(cfg, spec), cfg.n_groups)
     if cfg.encoder_decoder:
         enc_layer = _layer_schema(cfg, LayerSpec(mixer="attn", mlp="dense"))
         s["encoder"] = {
             "layers": _stack(enc_layer, cfg.n_encoder_layers),
-            "final_norm": ParamDef((cfg.d_model,), init="ones", dtype=dt),
+            "final_norm": ParamDef((cfg.d_model,), (None,), init="ones",
+                                   dtype=dt),
         }
     return s
 
@@ -307,6 +343,13 @@ def decay_mask(cfg: ModelConfig) -> dict:
     and ``D`` (ROADMAP C14)."""
     return _map_schema(model_schema(cfg),
                        lambda _, d: len(d.shape) - d.stacked >= 2)
+
+
+def param_pspecs(cfg: ModelConfig, rules) -> dict:
+    """The PartitionSpec of every parameter leaf under ``rules`` (an
+    ``AxisRules``), sanitized against its shape."""
+    return _map_schema(model_schema(cfg),
+                       lambda _, d: rules.spec_for(d.shape, d.logical))
 
 
 def count_params(cfg: ModelConfig) -> int:

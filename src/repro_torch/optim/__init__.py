@@ -1,12 +1,12 @@
-"""AdamW with its schedule and the int8 gradient compression
-(counterpart of src/repro/optim/); the ZeRO-1 moment sharding
-(``opt_state_pspecs``) arrives with the mesh."""
+"""AdamW with its schedule, the ZeRO-1 moment specs and the int8 gradient
+compression (counterpart of src/repro/optim/)."""
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_init,
     adamw_update,
     decay_by_rank,
     global_norm,
+    opt_state_pspecs,
 )
 from repro_torch.optim.compression import (
     compress_int8,

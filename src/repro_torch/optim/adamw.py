@@ -12,6 +12,14 @@ every leaf of rank >= 2 (:func:`decay_by_rank`, the default here), and
 its stacked layers' norm gains are rank 2 there (ROADMAP C14); the
 trainer passes ``models.params.decay_mask(cfg)``, which decides from each
 leaf's rank before stacking.
+
+On a mesh the parameters, gradients and moments are DTensors.
+:func:`opt_state_pspecs` lays the moments out ZeRO-1 style (src/repro/
+optim/adamw.py:105-135): each moment takes its parameter's spec plus the
+"data" axis on its first free divisible dim, and :func:`adamw_init`
+allocates them so, sharded for real.  :func:`adamw_update` computes each
+leaf's update in the moment's layout and writes it back in the
+parameter's.
 """
 from __future__ import annotations
 
@@ -20,9 +28,17 @@ import dataclasses
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
+from repro_torch.models.partitioning import (
+    PartitionSpec,
+    is_dtensor,
+    relayout,
+    replicated_ops,
+    spec_to_placements,
+)
+
 __all__ = [
     "AdamWConfig", "adamw_init", "adamw_update", "decay_by_rank",
-    "global_norm",
+    "global_norm", "opt_state_pspecs",
 ]
 
 
@@ -35,15 +51,69 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def adamw_init(params: dict) -> dict:
-    """Zeroed float32 moments beside ``params`` and a step count of 0 (an
-    int32 scalar on the parameters' device)."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def _shard_spec_for_moment(spec: PartitionSpec, shape: tuple[int, ...],
+                           data_divisor: int) -> PartitionSpec:
+    """ZeRO-1: add 'data' to the first unsharded axis divisible by the data
+    axis; keep the param's own spec otherwise."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    if any(p == "data" or (isinstance(p, tuple) and "data" in p)
+           for p in parts):
+        return spec  # FSDP params: moments inherit
+    for i, (p, dim) in enumerate(zip(parts, shape)):
+        if p is None and dim % data_divisor == 0 and dim >= data_divisor:
+            parts[i] = "data"
+            while parts and parts[-1] is None:
+                parts.pop()
+            return PartitionSpec(*parts)
+    return spec
 
+
+def _map_specs(fn, specs, *trees):
+    if isinstance(specs, PartitionSpec):
+        return fn(specs, *trees)
+    return {k: _map_specs(fn, v, *(t[k] for t in trees))
+            for k, v in specs.items()}
+
+
+def opt_state_pspecs(param_specs: dict, param_shapes: dict,
+                     data_axis_size: int, zero1: bool = True) -> dict:
+    """PartitionSpec tree for the optimizer state; ``param_shapes`` is any
+    tree of leaves with a ``.shape`` beside ``param_specs``."""
+    if zero1 and data_axis_size > 1:
+        moment = _map_specs(
+            lambda s, p: _shard_spec_for_moment(s, tuple(p.shape),
+                                                data_axis_size),
+            param_specs, param_shapes)
+    else:
+        moment = param_specs
+    return {"mu": moment, "nu": moment, "step": PartitionSpec()}
+
+
+def adamw_init(params: dict, *, mesh=None, specs: dict | None = None
+               ) -> dict:
+    """Zeroed float32 moments beside ``params`` and a step count of 0 (an
+    int32 scalar on the parameters' device).  With ``mesh`` and ``specs``
+    (:func:`opt_state_pspecs`'s tree) each moment is a DTensor laid out by
+    its spec: every rank allocates its shard only."""
+    if mesh is not None:
+        from torch.distributed.tensor import zeros as dzeros
+
+        def moments(tree, spec_tree):
+            return _map_specs(
+                lambda sp, p: dzeros(
+                    tuple(p.shape), dtype=torch.float32, device_mesh=mesh,
+                    placements=spec_to_placements(mesh, sp)),
+                spec_tree, tree)
+
+        mu, nu = moments(params, specs["mu"]), moments(params, specs["nu"])
+    else:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+        mu, nu = tree_map(zeros, params), tree_map(zeros, params)
     return {
-        "mu": tree_map(zeros, params),
-        "nu": tree_map(zeros, params),
+        "mu": mu,
+        "nu": nu,
         "step": torch.zeros((), dtype=torch.int32,
                             device=tree_leaves(params)[0].device),
     }
@@ -76,6 +146,11 @@ def adamw_update(
     :func:`decay_by_rank`)."""
     if decay is None:
         decay = decay_by_rank(params)
+    with replicated_ops(is_dtensor(tree_leaves(params)[0])):
+        return _update(cfg, params, grads, opt_state, lr, decay)
+
+
+def _update(cfg, params, grads, opt_state, lr, decay):
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -84,13 +159,16 @@ def adamw_update(
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
 
     def upd(p, g, mu, nu, dec):
-        g = g.float() * scale
+        # Over DTensors the update runs in the moment's (ZeRO-1) layout
+        # and is written back in the parameter's.
+        g = relayout(g.float(), mu) * scale
         mu.copy_(cfg.b1 * mu + (1.0 - cfg.b1) * g)
         nu.copy_(cfg.b2 * nu + (1.0 - cfg.b2) * g * g)
         delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+        pf = relayout(p.float(), mu)
         if dec:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+            delta = delta + cfg.weight_decay * pf
+        p.copy_(relayout((pf - lr * delta).to(p.dtype), p))
 
     tree_map(upd, params, grads, opt_state["mu"], opt_state["nu"], decay)
     return params, {"mu": opt_state["mu"], "nu": opt_state["nu"],

@@ -11,8 +11,9 @@ The supervisor wraps a step function with checkpoint/restore:
 
 This is the single-process simulation of the multi-host restart protocol;
 on a real cluster the same logic runs per-host with the coordinator's
-barrier.  The reference's restore doubles as the *elastic* path by taking
-a new mesh's shardings; here that waits for the mesh.
+barrier: with several ranks the manager's ``wait`` is that barrier, so
+every rank restores the same step.  Restore doubles as the *elastic*
+path: ``CheckpointManager.restore`` takes a new mesh's shardings.
 """
 from __future__ import annotations
 
