@@ -306,8 +306,33 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    phase 4's weights serves phase 4's requests: tokens identical, B2
    launched 12 times a prefill and a token, every decode step a graph
    replay.
-10. Print the kernels line (with phase 6's launch counts), then the
-   result line.  Every phase prints its wall time.
+10. Analysis and the direct kernel wrappers.  10a: ``kernels/ops.py``
+   (``matmul``, ``attention``, ``conv2d``: no engine) in bf16 and float32
+   under both backends, at row 1b's GEMM (M 128 with m_true 100, K 768,
+   N 3072), paper-gpt2's prefill q (8, 12, 64, 64) causal and its decode
+   form (one query row over a 256-row cache, per-row kv_len, block_q 1)
+   and ResNet-50's conv2_x at b = 8: every call moves
+   ``launch_counts()`` by exactly one launch of its kernel on the path
+   its dtype and backend name and agrees with its plain version at phase
+   2's tolerances; each wrapper timed (torch.profiler device time) beside
+   its plain version, bound and library call.  10b: the serve-step
+   builders (``make_prefill_step``/``make_decode_step``) on the 1x1 NCCL
+   mesh, paper-gpt2-124m at full width and depth (DTensor weights and
+   cache), batch 8, prompt 64, 8 greedy decode steps, against
+   ``model.prefill_step``/``decode_step`` with no mesh: tokens identical,
+   logits within LOGIT_TOL, whether bit-identical printed; no session is
+   installed and no kernel launches.  10c: the op counts
+   (``roofline.op_counts``) of one gpt2 prefill and decode step (10b's
+   shapes) and one train step (phase 8's), their ``H100_SXM`` roofline
+   terms beside each step's measured device time; then gpt2's weights and
+   a 256-row cache placed on the card: ``tree_device_bytes`` equal to
+   the caching allocator's requested bytes, and within its rounding of
+   ``memory_allocated``'s growth.  10d: ``python -m
+   repro_torch.launch.dryrun`` for gemma2-9b ``decode_32k`` on a fake
+   256-rank world in a subprocess on the host's CPU (the card hidden),
+   beside 10a-10c: exit 0, the cell counted, its time printed.
+11. Print the kernels line (with phase 6's and phase 10a's launch counts),
+   then the result line.  Every phase prints its wall time.
 
 Tolerances (max |kernel - plain| over max |plain|, per case): float32
 1e-5 (f32 accumulation order); bfloat16 2^-7 for the GEMMs, grouped and
@@ -4628,6 +4653,479 @@ def phase_distribution(dev, kernels, serve_info: dict, phase8: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: kernels/ops.py, the serve-step builders, the roofline and the
+# dry run on the card's machine
+# ---------------------------------------------------------------------------
+
+OPS_DTYPES = (torch.bfloat16, torch.float32)
+OPS_GEMM = (128, 100, 768, 3072)  # M, m_true, K, N: row 1b's shape
+OPS_ATTN = (8, 12, 64, 64, 256)  # b, heads, prompt, head_dim, decode cache
+OPS_BACKENDS = ("cuda_core", "tensor_core")
+BUILD_ARCH, BUILD_B, BUILD_S, BUILD_STEPS = "paper-gpt2-124m", 8, 64, 8
+DRYRUN_CELL = ("gemma2-9b", "decode_32k")
+DRYRUN_TIMEOUT = 300
+
+
+def ops_launch(kernels, fn, want: dict, where: str):
+    """``fn()`` once, failing unless ``launch_counts()`` moved by exactly
+    ``want`` (every other counter still)."""
+    before = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)}
+    if moved != want:
+        fail(f"phase 10a: {where} moved the launch counters by {moved}, "
+             f"not {want}")
+    return out
+
+
+def phase_ops(dev, kernels, errs: dict) -> tuple[list[dict], dict]:
+    """10a: ``kernels/ops.py`` on the card, bf16 and float32, each wrapper
+    under both backends at the shapes of rows 1b, 2a/2b and 4: every call
+    one launch of its kernel on the path its dtype and backend name, held
+    against its plain version at phase 2's tolerances.  Returns rows for
+    the kernels line (timed at the bf16 tensor-core and float32 CUDA-core
+    paths; ``launches`` is the wrapper's checked calls in that dtype) and
+    the launches per counter over the phase's checked calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import (
+        attention_path,
+        check_attention_backend,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.conv import conv_weight_matrix, im2col
+    from repro_torch.kernels.gemm import (
+        check_backend,
+        kernel_path,
+        vortex_gemm_plain,
+    )
+
+    g = torch.Generator().manual_seed(10)
+    M, m_true, K, N = OPS_GEMM
+    b, H, s, hd, kvb = OPS_ATTN
+    cname, hw, cin, cout, stride = RESNET_CONVS[0]
+    cb = CONV_BATCHES[-1]
+    launches: dict = {}
+    rows = []
+    for dt in OPS_DTYPES:
+        a = torch.randn(M, K, generator=g).to(dev, dt)
+        bmat = torch.randn(K, N, generator=g).to(dev, dt)
+        q = torch.randn(b, H, s, hd, generator=g).to(dev, dt)
+        k, v = (torch.randn(b, H, s, hd, generator=g).to(dev, dt)
+                for _ in range(2))
+        qd = torch.randn(b, H, 1, hd, generator=g).to(dev, dt)
+        kd, vd = (torch.randn(b, H, kvb, hd, generator=g).to(dev, dt)
+                  for _ in range(2))
+        kv_len = torch.randint(1, kvb + 1, (b,), generator=g).to(dev)
+        x = torch.randn(cb, hw, hw, cin, generator=g).to(dev, dt)
+        w = (torch.randn(3, 3, cin, cout, generator=g)
+             * (9 * cin) ** -0.5).to(dev, dt)
+        dl: dict = {}  # this dtype's calls per wrapper
+        worst: dict = {}
+        for be in OPS_BACKENDS:
+            tag = f"{str(dt).removeprefix('torch.')} {be}"
+            gpath = kernel_path(check_backend("ops", be, 128, 128, 128), dt)
+            apath = attention_path("prefill", check_attention_backend(
+                "prefill", be, 128, 128, hd), dt)
+            cases = (
+                ("matmul", "vortex_gemm", f"vortex_gemm.{gpath}",
+                 lambda be=be: ops.matmul(a, bmat, m_true, backend=be),
+                 lambda: vortex_gemm_plain(a, bmat, m_true), TOL[dt]),
+                ("attention prefill", "flash_attention_prefill",
+                 f"flash_attention_{apath}",
+                 lambda be=be: ops.attention(q, k, v, backend=be),
+                 lambda: flash_attention_plain(q, k, v), ATTN_TOL[dt]),
+                ("attention decode", "flash_attention_decode",
+                 "flash_attention_decode.split_kv",
+                 lambda be=be: ops.attention(qd, kd, vd, kv_len, block_q=1,
+                                             causal=False, backend=be),
+                 lambda: flash_attention_plain(qd, kd, vd, kv_len,
+                                               causal=False), ATTN_TOL[dt]),
+                ("conv2d", "vortex_gemm", f"vortex_gemm.{gpath}",
+                 lambda be=be: ops.conv2d(x, w, stride=stride, backend=be),
+                 lambda: vortex_gemm_plain(*_im2col_operands(
+                     x, w, stride, im2col, conv_weight_matrix)).reshape(
+                         cb, hw - 2, hw - 2, cout), TOL[dt]),
+            )
+            for what, total, path, fn, plain, tol in cases:
+                out = ops_launch(kernels, fn, {total: 1, path: 1},
+                                 f"ops.{what} ({tag})")
+                err = check(f"phase 10a ops.{what} {tag}", out, plain(), tol)
+                worst[what] = max(worst.get(what, 0.0), err)
+                errs[total] = max(errs[total], err)
+                dl[what] = dl.get(what, 0) + 1
+                for key in (total, path):
+                    launches[key] = launches.get(key, 0) + 1
+        print(f"phase 10a: ops.matmul/attention/conv2d {dt}: one launch a "
+              f"call on the path each backend and dtype name, within "
+              f"{TOL[dt]:.3g} / {ATTN_TOL[dt]:.3g} of the plain versions")
+        be = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+        nb = a.element_size()
+        src_attn = ("src/repro_torch/csrc/attention_tc.cu"
+                    if (be, dt) == ("tensor_core", torch.bfloat16)
+                    else "src/repro_torch/csrc/attention.cu")
+        mask = torch.arange(kvb, device=dev)[None, None, None, :] < \
+            kv_len[:, None, None, None]
+        x_lib = x.permute(0, 3, 1, 2)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cm = cb * (hw - 2) ** 2
+        dkv = int(kv_len.sum())
+        specs = (
+            ("ops.matmul", "src/repro_torch/csrc/gemm.cu",
+             "src/repro/kernels/gemm.py:110", "matmul",
+             lambda: ops.matmul(a, bmat, m_true, backend=be),
+             lambda: vortex_gemm_plain(a, bmat, m_true),
+             lambda: torch.matmul(a, bmat),
+             nb * (m_true * K + K * N + M * N), 2.0 * m_true * N * K,
+             f"row 1b: M={M} m_true={m_true} N={N} K={K} blocks=(128,128,"
+             f"128)"),
+            ("ops.attention (prefill)", src_attn,
+             "src/repro/kernels/attention.py:125", "attention prefill",
+             lambda: ops.attention(q, k, v, backend=be),
+             lambda: flash_attention_plain(q, k, v),
+             lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    is_causal=True),
+             nb * 4 * b * H * s * hd, 4.0 * hd * b * H * s * (s + 1) / 2,
+             f"rows 2a: q=({b},{H},{s},{hd}) causal blocks=(128,128)"),
+            ("ops.attention (decode)",
+             "src/repro_torch/csrc/attention_decode.cu",
+             "src/repro/kernels/attention.py:125", "attention decode",
+             lambda: ops.attention(qd, kd, vd, kv_len, block_q=1,
+                                   causal=False, backend=be),
+             lambda: flash_attention_plain(qd, kd, vd, kv_len, causal=False),
+             lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                    attn_mask=mask),
+             nb * (2 * b * H * hd + 2 * H * dkv * hd), 4.0 * hd * H * dkv,
+             f"row 2b: q=({b},{H},1,{hd}) cache {kvb} kv_len sum {dkv} "
+             f"block_k=128"),
+            ("ops.conv2d", "src/repro_torch/kernels/conv.py",
+             "src/repro/kernels/conv.py:36", "conv2d",
+             lambda: ops.conv2d(x, w, stride=stride, backend=be),
+             lambda: vortex_gemm_plain(*_im2col_operands(
+                 x, w, stride, im2col, conv_weight_matrix)),
+             lambda: F.conv2d(x_lib, w_lib, stride=stride),
+             nb * (cb * hw * hw * cin + 9 * cin * cout + cm * cout),
+             2.0 * cm * cout * 9 * cin,
+             f"row 4: ResNet-50 {cname} x=({cb},{hw},{hw},{cin}) 3x3 "
+             f"{cin}->{cout}: im2col + gemm.cu at M={cm} N={cout} "
+             f"K={9 * cin}"),
+        )
+        for name, src, rep, what, fn, plain, lib, nbytes, flops, shape in \
+                specs:
+            bnd, by = bound_ms(nbytes, flops, dt)
+            rows.append(timed(
+                {"name": f"{name} {str(dt).removeprefix('torch.')}",
+                 "route": "cuda", "source": src, "replaces": rep,
+                 "launches": dl[what], "max_abs_err": worst[what],
+                 "bound_ms": bnd, "bound_by": by,
+                 "shape": f"phase 10a {shape} {be} "
+                          f"{str(dt).removeprefix('torch.')}"},
+                ms=fn, plain_ms=plain, library_ms=lib))
+    torch.cuda.synchronize()
+    return rows, launches
+
+
+def _im2col_operands(x, w, stride, im2col, conv_weight_matrix):
+    cols, _ = im2col(x, w.shape[0], w.shape[1], stride)
+    return cols, conv_weight_matrix(w)
+
+
+def build_inputs(cfg, dev):
+    g = torch.Generator().manual_seed(100)
+    return torch.randint(0, cfg.vocab, (BUILD_B, BUILD_S), generator=g).to(dev)
+
+
+def phase_builders(dev, kernels, smi: str) -> dict:
+    """10b: ``make_prefill_step``/``make_decode_step`` on the 1x1 NCCL mesh
+    (DTensor weights and cache) against ``model.prefill_step`` and
+    ``decode_step`` with no mesh, paper-gpt2-124m at full width and depth,
+    batch 8, prompt 64, 8 greedy decode steps, no session installed (as
+    the reference's dry run): tokens identical, logits within LOGIT_TOL."""
+    from repro_torch import vortex
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.models.partitioning import (
+        distribute_tree,
+        make_rules,
+        replicated_ops,
+    )
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.step import (
+        make_decode_step,
+        make_prefill_step,
+        shard_batch,
+    )
+
+    if vortex.installed_engine() is not None:
+        fail("phase 10b: a vortex session is installed")
+    cfg = get_config(BUILD_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    tokens = build_inputs(cfg, dev)
+    cache_len = BUILD_S + BUILD_STEPS
+    kernels.reset_launch_counts()
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache, _ = M.prefill_step(cfg, params, tokens,
+                                          cache_len=cache_len,
+                                          last=BUILD_S - 1)
+        plain_logits, plain_toks = [logits], []
+        for i in range(BUILD_STEPS):
+            tok = logits[:, :cfg.vocab].argmax(-1)
+            plain_toks.append(tok)
+            logits, cache, _ = M.decode_step(cfg, params, cache, tok[:, None],
+                                             BUILD_S + i)
+            plain_logits.append(logits)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    mesh = meshes.make_host_mesh()
+    try:
+        rules = make_rules(mesh, fsdp=cfg.fsdp, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
+        sp = distribute_tree(mesh, params, param_pspecs(cfg, rules))
+        prefill = make_prefill_step(cfg, rules, cache_len)
+        decode = make_decode_step(cfg, rules, cache_len)
+        t0 = time.perf_counter()
+        with torch.no_grad(), replicated_ops():
+            logits, cache = prefill(sp, shard_batch({"tokens": tokens},
+                                                    rules))
+            mesh_logits, mesh_toks = [full(logits)], []
+            for i in range(BUILD_STEPS):
+                tok = full(logits)[:, :cfg.vocab].argmax(-1)
+                mesh_toks.append(tok)
+                toks = shard_batch({"tokens": tok[:, None]}, rules)["tokens"]
+                logits, cache = decode(sp, cache, toks, BUILD_S + i)
+                mesh_logits.append(full(logits))
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+    finally:
+        meshes.destroy()
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        fail(f"phase 10b: kernels launched with no session: {counts}")
+    for i, (a, c) in enumerate(zip(plain_toks, mesh_toks)):
+        if not torch.equal(a, c):
+            fail(f"phase 10b: step {i}'s greedy tokens differ")
+    worst = max(rel_err(c[:, :cfg.vocab], a[:, :cfg.vocab])[1]
+                for a, c in zip(plain_logits, mesh_logits))
+    if not worst <= LOGIT_TOL:
+        fail(f"phase 10b: logits rel {worst} > {LOGIT_TOL}")
+    bitwise = all(torch.equal(a, c) for a, c in zip(plain_logits,
+                                                    mesh_logits))
+    print(f"phase 10b: make_prefill_step/make_decode_step on the 1x1 NCCL "
+          f"mesh, {cfg.name} full width and depth, batch {BUILD_B}, prompt "
+          f"{BUILD_S}, {BUILD_STEPS} decode steps: tokens identical, logits "
+          f"rel {worst:.3e} (<= {LOGIT_TOL}), bit-identical={bitwise}; "
+          f"no session, 0 kernel launches; host wall {mesh_s:.2f}s on the "
+          f"mesh vs {plain_s:.2f}s plain on {smi}")
+    return {"cfg": cfg, "params": params, "tokens": tokens,
+            "bitwise": bitwise, "worst": worst}
+
+
+def phase_roofline(dev, info: dict, smi: str) -> dict:
+    """10c: the port's op counts of one gpt2-124m prefill and decode step
+    (10b's shapes) and one train step (phase 8's), each step's H100_SXM
+    roofline terms beside its measured device time; then
+    ``tree_device_bytes`` of gpt2's weights and a 256-row cache against
+    ``torch.cuda.memory_allocated``'s growth when they are placed."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import (
+        count_params,
+        init_params,
+        param_pspecs,
+    )
+    from repro_torch.models.partitioning import make_rules
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline import (
+        H100_SXM,
+        count_costs,
+        roofline_report,
+        tree_device_bytes,
+    )
+    from repro_torch.train.step import make_train_step
+
+    cfg, params, tokens = info["cfg"], info["params"], info["tokens"]
+    s = BUILD_S
+    cache = M.make_cache(cfg, BUILD_B, s + 1, device=dev)
+    tok1 = tokens[:, :1]
+    hp = train_hparams()
+    opt = adamw_init(params)
+    tparams = {k: v for k, v in params.items()}
+    train = make_train_step(cfg, hp)
+    batch = train_batch(cfg, 0, dev)
+
+    def prefill():
+        with torch.no_grad():
+            return M.prefill_step(cfg, params, tokens, cache_len=s + 1,
+                                  last=s - 1)
+
+    def decode():
+        with torch.no_grad():
+            return M.decode_step(cfg, params, cache, tok1, s)
+
+    def step():
+        return train(tparams, opt, batch)
+
+    out = {}
+    for name, fn, spec in (
+            ("prefill", prefill, ShapeSpec("prefill", s, BUILD_B, "prefill")),
+            ("decode", decode, ShapeSpec("decode", s, BUILD_B, "decode")),
+            ("train", step, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"))):
+        _, costs = count_costs(fn)
+        torch.cuda.synchronize()
+        rep = roofline_report(
+            arch=cfg.name, shape=spec, mesh_name="1", chips=1, costs=costs,
+            cost_analysis=None, cfg=cfg, params=count_params(cfg),
+            active_params=cfg.active_param_count(), chip=H100_SXM)
+        iters = 5 if name == "train" else 20
+        ms = device_ms(fn, iters=iters, warmup=2)
+        bound = max(rep.compute_s, rep.memory_s, rep.collective_s) * 1e3
+        out[name] = {"flops": costs.flops, "bytes": costs.memory_bytes,
+                     "compute_ms": rep.compute_s * 1e3,
+                     "memory_ms": rep.memory_s * 1e3,
+                     "dominant": rep.dominant, "device_ms": ms,
+                     "useful_ratio": rep.useful_ratio}
+        print(f"phase 10c: {cfg.name} {name} ({spec.global_batch} x "
+              f"{spec.seq_len}): counted {costs.flops:.4g} FLOPs, "
+              f"{costs.memory_bytes:.4g} bytes; H100_SXM terms compute "
+              f"{rep.compute_s * 1e3:.4f} ms, memory {rep.memory_s * 1e3:.4f}"
+              f" ms, collective {rep.collective_s * 1e3:.4f} ms, dominant "
+              f"{rep.dominant}, useful {rep.useful_ratio:.3f}; measured "
+              f"device {ms:.4f} ms ({bound / ms:.1%} of it at the bound) on "
+              f"{smi}")
+    del opt, tparams, batch, cache
+    free_cuda()
+
+    rules = make_rules(MeshShape((1, 1), ("data", "model")),
+                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    sizes = {"data": 1, "model": 1}
+
+    def requested() -> int:
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    torch.cuda.synchronize()
+    m0, r0 = torch.cuda.memory_allocated(), requested()
+    # Drawn on the host and moved leaf by leaf: nothing transient on the
+    # card while the placement is measured.
+    p2 = init_params(cfg, torch.Generator().manual_seed(1), device=dev)
+    c2 = M.make_cache(cfg, 1, 256, device=dev)
+    torch.cuda.synchronize()
+    grown, req = torch.cuda.memory_allocated() - m0, requested() - r0
+    want = (tree_device_bytes(p2, param_pspecs(cfg, rules), sizes)
+            + tree_device_bytes(c2, M.cache_pspecs(cfg, rules, 1, 256),
+                                sizes))
+    leaves = list(tree_leaves(p2).values()) + list(tree_leaves(c2).values())
+    # The caching allocator rounds a block under 1 MiB to 512 bytes, and a
+    # larger one to its 2 MiB segment granularity or leaves an unsplit
+    # remainder under 1 MiB in it: at most 2 MiB a leaf.
+    slack = sum(512 if t.numel() * t.element_size() < 2**20 else 2**21
+                for t in leaves)
+    if req != want or not 0 <= grown - want <= slack:
+        fail(f"phase 10c: tree_device_bytes {want:.0f} vs requested "
+             f"{req} and memory_allocated growth {grown} (slack {slack} "
+             f"over {len(leaves)} leaves)")
+    print(f"phase 10c: tree_device_bytes of {cfg.name}'s weights and a "
+          f"256-row cache {want:.0f} B = the allocator's requested bytes "
+          f"{req}; memory_allocated grew {grown} B (+{grown - want:.0f} B "
+          f"over {len(leaves)} leaves, within the allocator's rounding of "
+          f"{slack} B) on {smi}")
+    out["bytes"] = {"tree": want, "allocated": grown}
+    del p2, c2
+    return out
+
+
+def start_dryrun_cell() -> tuple:
+    """10d's subprocess: one dry-run cell (gemma2-9b decode_32k, full
+    width and depth) on a fake 256-rank world on the host's CPU, the
+    card hidden; it runs while 10a-10c use the card."""
+    tmp = tempfile.TemporaryDirectory(prefix="dryrun-")
+    out = os.path.join(tmp.name, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    arch, shape = DRYRUN_CELL
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT), env=env)
+    return proc, tmp, out, time.perf_counter()
+
+
+def finish_dryrun_cell(started: tuple, smi: str) -> dict:
+    """10d: the subprocess exits 0 within DRYRUN_TIMEOUT of its start and
+    its cell is counted; its time is printed."""
+    proc, tmp, out, t0 = started
+    arch, shape = DRYRUN_CELL
+    try:
+        _, err = proc.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"phase 10d: the dry run took over {DRYRUN_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    with tmp:
+        if proc.returncode != 0:
+            fail(f"phase 10d: the dry run exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+        with open(out) as f:
+            r = json.load(f)[f"{arch}|{shape}|single"]
+    if "error" in r or "roofline" not in r:
+        fail(f"phase 10d: {r.get('error', r)}")
+    roof = r["roofline"]
+    print(f"phase 10d: dry run {arch} {shape} on a fake 256-rank world "
+          f"(torch {torch.__version__}, CPU): exit 0 in {wall:.1f}s beside "
+          f"10a-10c, state {r['state_gib_per_device']:.3f} GiB/dev, counted "
+          f"in {r['compile_seconds']:.1f}s ({r['ops_dispatched']} ops): "
+          f"{roof['flops']:.4g} FLOPs, {roof['memory_bytes']:.4g} bytes, "
+          f"{roof['collective_bytes']:.4g} collective bytes a device, "
+          f"dominant {roof['dominant']} (V5E terms compute "
+          f"{roof['compute_s']:.4g}s memory {roof['memory_s']:.4g}s "
+          f"collective {roof['collective_s']:.4g}s); memory_analysis "
+          f"{r['memory_analysis']}; {smi}")
+    return {"wall_s": wall, "cell": r}
+
+
+def phase_analysis(dev, kernels, errs: dict, smi: str) -> dict:
+    """Phase 10: 10d's subprocess started, 10a-10c, then 10d waited for;
+    each timed."""
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        print(f"phase {name}: wall_s={time.perf_counter() - t0:.1f}",
+              flush=True)
+        return res
+
+    dry = start_dryrun_cell()
+    try:
+        rows, launches = part("10a", phase_ops, dev, kernels, errs)
+        built = part("10b", phase_builders, dev, kernels, smi)
+        roof = part("10c", phase_roofline, dev, built, smi)
+        del built
+        free_cuda()
+    except BaseException:  # fail() exits: stop the subprocess first
+        dry[0].kill()
+        dry[0].communicate()
+        raise
+    dry = part("10d", finish_dryrun_cell, dry, smi)
+    return {"rows": rows, "launches": launches, "10c": roof, "10d": dry}
+
+
 def loss_trend(res, what: str, ceiling: float) -> tuple[float, float]:
     """The means of a run's first and last 5 losses (by step index),
     after checking that every step ran and every loss is finite and
@@ -4765,6 +5263,13 @@ def main() -> int:
                f"{DIST_LOSS_TOL} of phase 8, the seq-sharded decode over 2 "
                f"ranks matches, the host-mesh server's tokens equal phase "
                f"4's", upto=n_before_7)
+    analysis = phase(
+        "10", phase_analysis, dev, kernels, errs, smi,
+        done="kernels/ops.py launches each kernel once a call and agrees, "
+             "the serve-step builders' tokens equal the plain steps', the "
+             "roofline's bytes match the allocation, the dry-run cell ran",
+        upto=n_before_7)
+    rows = rows + analysis["rows"]
     cache_root.cleanup()
     print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
     for r in rows:
@@ -4775,7 +5280,8 @@ def main() -> int:
               f"[{r['shape']}; torch.profiler device time] on {smi}")
     print(smi)
     print(json.dumps({"kernels": rows, "card": smi,
-                      "phase6_launches": bench_info["launches"]}))
+                      "phase6_launches": bench_info["launches"],
+                      "phase10a_launches": analysis["launches"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -38,3 +38,21 @@ from repro_torch.core.workloads import (
     make_workload,
     register_workload,
 )
+
+__all__ = [n for n in dir() if not n.startswith("_")] + [
+    "VortexEngine",
+    "VortexGemm",
+]
+
+_LAZY_SHIMS = ("VortexEngine", "VortexGemm")
+
+
+def __getattr__(name: str):
+    # The deprecation shims resolve lazily (PEP 562), so importing
+    # repro_torch.core never pulls repro_torch.vortex, which imports core
+    # modules.  `from repro_torch.core import VortexEngine` still works.
+    if name in _LAZY_SHIMS:
+        from repro_torch.core import engine
+
+        return getattr(engine, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

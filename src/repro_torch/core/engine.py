@@ -1033,3 +1033,14 @@ class VortexKernel:
             "calibration_seconds": s.calibration_seconds,
             "table_swaps": s.table_swaps,
         }
+
+
+def __getattr__(name: str):
+    # The deprecation shims live with the public API (vortex/compat.py)
+    # and stay importable from their historical home; the import is
+    # deferred so core never pulls vortex at import time.
+    if name in ("VortexEngine", "VortexGemm"):
+        from repro_torch.vortex import compat
+
+        return getattr(compat, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

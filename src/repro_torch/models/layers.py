@@ -46,6 +46,7 @@ rows and the partial softmaxes merge with three all-reduces.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -63,9 +64,12 @@ from repro_torch.models.partitioning import (
     on_full_values,
     spec_to_placements,
 )
-from repro_torch.vortex import session
+from repro_torch.vortex import _deprecation, session
 
 __all__ = [
+    "set_attention_engine",
+    "get_attention_engine",
+    "attention_engine",
     "rmsnorm",
     "layernorm",
     "norm",
@@ -93,6 +97,47 @@ __all__ = [
 ATTN_CHUNK = 1024
 
 _MODES = ("prefill", "decode", "train")
+
+
+# set_attention_engine / get_attention_engine / attention_engine are the
+# deprecated pre-session surface (src/repro/models/layers.py:69-106); they
+# read and write the same context variable as vortex.use.
+
+
+def set_attention_engine(engine):
+    """Deprecated: install (or clear, with None) the engine
+    :func:`attn_forward` routes prefill attention through; returns the
+    previous one.  Use ``vortex.use(engine)``: scoped, exception-safe and
+    local to the calling context (this shim writes the same context-local
+    session)."""
+    _deprecation.warn_deprecated(
+        "models.layers.set_attention_engine",
+        "repro_torch.vortex.use(engine) (NOTE the shim writes the "
+        "context/thread-local session, not a process-wide global: "
+        "multi-threaded harnesses must install per serving thread)",
+    )
+    return session.install(engine)
+
+
+def get_attention_engine():
+    """Deprecated: the engine :func:`attn_forward` currently routes
+    through, or None.  Use ``repro_torch.vortex.installed_engine()``."""
+    _deprecation.warn_deprecated(
+        "models.layers.get_attention_engine",
+        "repro_torch.vortex.installed_engine()",
+    )
+    return session.installed_engine()
+
+
+@contextlib.contextmanager
+def attention_engine(engine):
+    """Deprecated: scoped engine install.  Use ``vortex.use(engine)``
+    (this shim delegates to it)."""
+    _deprecation.warn_deprecated(
+        "models.layers.attention_engine", "repro_torch.vortex.use(engine)"
+    )
+    with session.use(engine):
+        yield engine
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -197,6 +242,62 @@ def _window_slice(
     k = torch.gather(k_cache, 2, idx.expand(b, hkv, window, k_cache.shape[-1]))
     v = torch.gather(v_cache, 2, idx.expand(b, hkv, window, v_cache.shape[-1]))
     return k, v, start
+
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` with ``pad`` zero rows appended to its second-to-last (the
+    cache's sequence) axis.  Over a DTensor whose sequence axis is not
+    sharded each rank pads its own shard: torch 2.11's DTensor gives
+    ``F.pad``'s output one placement on a mesh of several dims, which
+    ``torch.stack`` then refuses."""
+    if not pad:
+        return t
+    if is_dtensor(t):
+        from torch.distributed.tensor import DTensor, Shard
+
+        ax = t.ndim - 2
+        pl = tuple(t.placements)
+        if len(pl) == t.device_mesh.ndim and not any(
+                isinstance(p, Shard) and p.dim % t.ndim == ax for p in pl):
+            shape = t.shape[:ax] + (t.shape[ax] + pad, t.shape[-1])
+            return DTensor.from_local(
+                F.pad(t.to_local(), (0, 0, 0, pad)), t.device_mesh, pl,
+                run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+    return F.pad(t, (0, 0, 0, pad))
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor,
+                pos: torch.Tensor, axis: int) -> None:
+    """In place, for every batch row ``r``: the cache's row ``r`` at
+    position ``pos[r]`` on its sequence ``axis`` becomes ``new[r]``
+    (``new`` is the cache's shape without ``axis``): the (rows, pos) index
+    pairs select one cache row per batch row.  Over a DTensor cache each
+    rank writes what its own shard holds (DTensor has no in-place
+    ``index_put_`` that keeps a sharded layout): the rows of its batch
+    slice whose position falls in its slice of the sequence."""
+    lead = (slice(None),) * (axis - 1)
+    if not is_dtensor(cache):
+        rows = torch.arange(new.shape[0], device=pos.device)
+        cache[(rows,) + lead + (pos.long(),)] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, off = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    full = new.full_tensor() if is_dtensor(new) else new
+    for i, d in enumerate(d for d in range(cache.ndim) if d != axis):
+        full = full.narrow(i, off[d], shape[d])
+    pos = pos.full_tensor() if is_dtensor(pos) else pos
+    at = pos.expand(cache.shape[0]).narrow(0, off[0], shape[0]).long()
+    at = at - off[axis]
+    valid = ((at >= 0) & (at < shape[axis])).view((-1,) + (1,) * (full.ndim - 1))
+    local = cache.to_local()
+    idx = (torch.arange(shape[0], device=local.device),) + lead + (
+        at.clamp(0, shape[axis] - 1),)
+    local[idx] = torch.where(valid, full.to(local.dtype), local[idx])
 
 
 def _decode_attend(
@@ -470,10 +571,8 @@ def attn_forward(
         # scheduler's shared one.
         # Each row's k/v lands at its own position: the (rows, pos) index
         # pairs select one cache row per batch row.
-        rows = torch.arange(b, device=pos.device)
-        at = pos.long()
-        cache["k"][rows, :, at] = k[:, :, 0].to(cache["k"].dtype)
-        cache["v"][rows, :, at] = v[:, :, 0].to(cache["v"].dtype)
+        _write_rows(cache["k"], k[:, :, 0], pos, 2)
+        _write_rows(cache["v"], v[:, :, 0], pos, 2)
         out = _decode_attend(
             q, cache["k"], cache["v"], pos, spec.window, cfg.attn_softcap,
             scale,
@@ -500,8 +599,8 @@ def attn_forward(
         if mode == "prefill":
             pad = cache_len - s
             new_cache = {
-                "k": F.pad(k, (0, 0, 0, pad)) if pad else k,
-                "v": F.pad(v, (0, 0, 0, pad)) if pad else v,
+                "k": _pad_rows(k, pad),
+                "v": _pad_rows(v, pad),
             }
     y = _merge_heads(out) @ p["wo"]
 
@@ -576,11 +675,9 @@ def mla_forward(
     if mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and a position")
-        rows = torch.arange(b, device=pos.device)
-        at = pos.long()
         ckv_c, kr_c = cache["ckv"], cache["k_rope"]
-        ckv_c[rows, at] = c_kv[:, 0].to(ckv_c.dtype)
-        kr_c[rows, at] = k_rope[:, 0, 0].to(kr_c.dtype)
+        _write_rows(ckv_c, c_kv[:, 0], pos, 1)
+        _write_rows(kr_c, k_rope[:, 0, 0], pos, 1)
         # score_h(t) = (W_uk_h^T q_nope_h) . c_t + q_rope_h . kr_t
         wuk = p["wuk"].reshape(c, H, nope).float()
         q_abs = torch.einsum("bhqn,chn->bhqc", q_nope.float(), wuk)
@@ -607,8 +704,8 @@ def mla_forward(
         if mode == "prefill":
             pad = cache_len - s
             new_cache = {
-                "ckv": F.pad(c_kv, (0, 0, 0, pad)),
-                "k_rope": F.pad(k_rope[:, 0], (0, 0, 0, pad)),
+                "ckv": _pad_rows(c_kv, pad),
+                "k_rope": _pad_rows(k_rope[:, 0], pad),
             }
     else:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")

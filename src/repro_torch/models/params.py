@@ -37,6 +37,7 @@ __all__ = [
     "ParamDef",
     "model_schema",
     "init_params",
+    "abstract_params",
     "params_from_numpy",
     "decay_mask",
     "param_pspecs",
@@ -310,6 +311,17 @@ def init_params(
             t = t.mul_(std).to(dtype=dtype, device=device)
         drawn[path] = t
     return _map_schema(schema, lambda p, d: drawn[p])
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``device="meta"`` tensors: each leaf's shape
+    and dtype, no storage (the dry run's stand-in; the reference's
+    ``abstract_params``, src/repro/models/params.py:279)."""
+    return _map_schema(
+        model_schema(cfg),
+        lambda _, d: torch.empty(d.shape, dtype=_DTYPES[d.dtype],
+                                 device="meta"),
+    )
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:

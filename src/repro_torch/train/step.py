@@ -25,7 +25,10 @@ parameters' own layout by default; the reference's pin of its float32
 accumulator, step.py:88-99), and AdamW updates in the moments' ZeRO-1
 layout.  The loss and the metrics come back as plain tensors.
 
-The prefill and decode steps live in models/model.py.  The reference's
+``make_prefill_step`` and ``make_decode_step`` are the reference's serve
+steps (step.py:137-170) over models/model.py's ``prefill_step`` and
+``decode_step``, under ``rules``; the dry run (launch/dryrun.py) is their
+caller.  The reference's
 int8 cross-pod hop is described in its optim/compression.py but no step
 of the JAX package runs it, so none runs here.
 """
@@ -37,7 +40,9 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.models.model import decode_step as _decode_step
 from repro_torch.models.model import loss_fn
+from repro_torch.models.model import prefill_step as _prefill_step
 from repro_torch.models.params import decay_mask
 from repro_torch.models.partitioning import (
     AxisRules,
@@ -51,7 +56,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
 
 __all__ = ["TrainHParams", "accumulate_grads", "make_train_step",
-           "shard_batch", "train_input_specs", "serve_input_specs"]
+           "make_prefill_step", "make_decode_step", "shard_batch",
+           "train_input_specs", "serve_input_specs"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -182,6 +188,40 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, *,
         return params, opt_state, {"loss": loss, "lr": lr, **parts}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, rules: AxisRules | None,
+                      cache_len: int):
+    """``prefill_step(params, batch) -> (last_logits (b, vocab), cache)``:
+    ``batch`` holds ``tokens`` (b, s) with no pad, and the modality extras.
+    The logits are those of row s - 1 (the reference's ``logits[:, -1]``);
+    the MoE statistics are dropped."""
+
+    def prefill_step(params, batch):
+        extras = {k: batch[k] for k in EXTRAS if k in batch}
+        tokens = batch["tokens"]
+        logits, cache, _ = _prefill_step(
+            cfg, params, tokens, cache_len=cache_len,
+            last=tokens.shape[1] - 1, rules=rules, **extras)
+        return logits, cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, rules: AxisRules | None,
+                     cache_len: int):
+    """``decode_step(params, cache, tokens (b, 1), pos) -> (logits (b,
+    vocab), cache)`` with ``pos`` one position for the whole batch (the
+    reference's scalar ``pos``; a (b,) ``pos`` on a sequence-sharded cache
+    raises ``PerRowPosError``).  The cache is ``cache_len`` long and is
+    updated in place; the MoE statistics are dropped."""
+
+    def decode_step(params, cache, tokens, pos):
+        logits, cache, _ = _decode_step(cfg, params, cache, tokens, pos,
+                                        rules=rules)
+        return logits, cache
+
+    return decode_step
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ from typing import TYPE_CHECKING, Iterator
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.vortex.engine import Engine
 
-__all__ = ["use", "current_engine", "installed_engine", "default_engine"]
+__all__ = ["use", "install", "current_engine", "installed_engine",
+           "default_engine"]
 
 _ENGINE: contextvars.ContextVar["Engine | None"] = contextvars.ContextVar(
     "repro_torch_vortex_engine", default=None
@@ -48,6 +49,16 @@ def use(engine: "Engine") -> Iterator["Engine"]:
         yield engine
     finally:
         _ENGINE.reset(token)
+
+
+def install(engine: "Engine | None") -> "Engine | None":
+    """Imperatively replace the current context's session, returning the
+    previous one.  Prefer :func:`use`; this exists for the deprecated
+    ``set_attention_engine`` shim: unlike :func:`use` it cannot restore
+    across an exception for you."""
+    prev = _ENGINE.get()
+    _ENGINE.set(engine)
+    return prev
 
 
 def installed_engine() -> "Engine | None":
