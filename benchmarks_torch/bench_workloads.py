@@ -196,10 +196,14 @@ def _bench_hot_path(smoke: bool, *, device="cuda",
                     hardware: str = "h100_sxm") -> dict[str, dict]:
     """Aligned vs unaligned steady-state dispatch on the SAME bucket.
 
-    Per kind: the unaligned extent is below the bucket (staging + masked
-    launch + output slice), the aligned extent the bucket itself
-    (zero-copy launch) — the same executable, so the ratio isolates the
-    cost the padding-free path adds at the boundary.  Conv uses a
+    Per kind: the unaligned extent is below the bucket, the aligned extent
+    the bucket itself (zero-copy launch) — the same executable, so the
+    ratio isolates the cost the padding-free path adds at the boundary.
+    On the card the unaligned call launches on its own operands (no
+    staging copy, no output slice: ``folded_per_unaligned_call``); on the
+    CPU it stages, launches masked and slices the output back
+    (``copies_per_unaligned_call``).  The two sum to the reference's
+    boundary copies per unaligned call.  Conv uses a
     1x1-kernel im2col view so the probe extents are exactly reachable.
     Each window is host wall-clock around synchronized calls: host staging
     plus device time.
@@ -313,13 +317,23 @@ def _bench_hot_path(smoke: bool, *, device="cuda",
                 sum(k_launched.values()) / max(calls, 1)
             ),
             "kernel_launches": k_launched,
-            # The staging kernel's launches per unaligned call: one for
-            # every staged operand of the call on the card, 0 on the CPU.
+            # The staging kernel's launches per unaligned call: 0 on the
+            # card (the launch reads the operands where they are) and on
+            # the CPU (plain copies).
             "stage_launches_per_unaligned_call": staged / max(unaligned, 1),
+            # Boundary copies made per unaligned call (the CPU's staging)
+            # and boundaries crossed with none (the card's launch on the
+            # operands at their own extents).
             "copies_per_unaligned_call": (
                 (
                     after["stage_copies"] + after["unstage_copies"]
                     - before["stage_copies"] - before["unstage_copies"]
+                ) / max(unaligned, 1)
+            ),
+            "folded_per_unaligned_call": (
+                (
+                    after["folded_stages"] + after["folded_unstages"]
+                    - before["folded_stages"] - before["folded_unstages"]
                 ) / max(unaligned, 1)
             ),
             "padded_calls": after["padded_calls"] - before["padded_calls"],
@@ -926,6 +940,7 @@ def main() -> None:
             f"launches_per_call={h['launches_per_call']:.2f};"
             f"kernel_launches_per_call={h['kernel_launches_per_call']:.2f};"
             f"copies_per_unaligned_call={h['copies_per_unaligned_call']:.1f};"
+            f"folded_per_unaligned_call={h['folded_per_unaligned_call']:.1f};"
             f"padded_calls={h['padded_calls']}",
         )
 

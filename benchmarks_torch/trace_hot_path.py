@@ -4,16 +4,18 @@ kind traced per operation, aligned against unaligned.
 The cases are ``bench_workloads._bench_hot_path``'s (a bf16 GEMM 2304
 wide, prefill attention with 8/4 heads of 64, a 1x1 conv2d 1536 wide),
 each at the aligned extent (the bucket itself: zero-copy launch) and at
-the largest unaligned extent the same executable serves (staging + masked
-launch + output slice).
+the largest unaligned extent the same executable serves (on the card one
+launch on the operands at their true extents; a tree from before that
+change stages them, launches masked and slices the output back).
 
 First the untraced steady state: host wall-clock per synchronized call,
 interleaved min-vs-min (``core/timing.py``), the ratio the gate reads.
 Then the same calls under ``torch.profiler`` (CPU and CUDA activities),
 with ``record_function`` ranges wrapped around the dispatch engine's
 steps -- select, ``_entry_for``, ``stage_view``, ``runtime_scalars``,
-``staged_shapes``, the pool's ``acquire`` and ``release``, each operand's
-staging copy, the launch and ``finalize`` -- so each step's host µs per
+``staged_shapes``, the check whether the launch reads the operands in
+place, the pool's ``acquire`` and ``release``, each operand's staging
+copy, the launch and ``finalize`` -- so each step's host µs per
 call (the range's CPU time over the calls) stands beside the aten
 operators it issued.  The profiler adds its own cost to every range: read
 the per-step numbers against each other, and the untraced wall-clock for
@@ -58,7 +60,8 @@ _STEPS = (
 )
 _WORKLOAD_STEPS = ("stage_view", "runtime_scalars", "staged_shapes",
                    "finalize")
-_MODULE_FUNCS = (("_stage_into", "stage_copy"),)
+_MODULE_FUNCS = (("_stage_into", "stage_copy"),
+                 ("_launch_folds", "fold_check"))
 
 
 def _ranged(fn, name: str):

@@ -38,14 +38,28 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    operand with the pad tails untouched.
 3. Main path 1: ``vortex.ops.gemm`` at dynamic M in {1, bucket-1, bucket,
    bucket+1, a prime} — exactly one kernel launch per call, 0 padded calls,
-   one staging launch (csrc/stage.cu) per unaligned call.
+   and every unaligned call launched on its own operand: 0 staging
+   launches (csrc/stage.cu), 0 copies, one ``folded_stages`` and one
+   ``folded_unstages`` a call, no staging set made.
    Phases 3, 3b, 4 and 4b also check that every bf16 launch of the GEMM,
    the grouped GEMM and prefill attention took the tensor-core path, and
    every decode-attention launch the split-kv kernel (the launch counters).
 3b. Main path 1b: ``vortex.ops.conv2d`` at ResNet-50 shapes (He et al.
    2016, Table 1; bf16, batch 1, 3, 8): conv2_x 3x3 64->64 on 58x58 and
    conv3_x 3x3 128->128 stride 2 on 57x57 — one GEMM launch per call,
-   0 padded calls, agreement with the plain version.
+   0 padded calls, agreement with the plain version, and phase 3's
+   checks of the unaligned calls (the im2col matrix read in place).
+3c. Every kernel path of an engine dispatch at a true extent one row
+   below its bucket, launched on the caller's own operands (allocations
+   that run on in NaN past the operand): the GEMM at ``tensor_core`` and
+   ``cuda_core`` in bf16 and float32 (N = K = 768), the grouped GEMM at
+   both backends (granite's widths, counts of 0, C - 1, C and seeded ones,
+   NaN past each count), prefill attention at both backends (paper-gpt2's
+   12 heads of 64), decode with a per-row kv_len (0 and the whole cache
+   among the rows) and with one kv_len, and conv2d (3x3, 64 -> 64).  Each
+   makes one launch on the path its backend and dtype name, no staging
+   launch and no pool set, counts its operands off the bucket as
+   ``folded_stages``, and is bit-identical to ``call_padded``.
 4. Main path 2: ``VortexServer`` serving paper-gpt2-124m at full width
    (seeded torch init), 8 requests of batch 1-8 and prompt 4-64,
    max_new 8, max_cache 256, after ``warmup`` captured the decode graph
@@ -105,8 +119,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    bit-identical to ``eager=True``, first-token logits within LOGIT_TOL
    of the "aot" prefill; NaN-tailed handles forwarded into the GEMM,
    prefill attention and decode attention (over the chain's own k/v
-   buffers), each bit-identical to the staged call and within tolerance
-   of the plain version; two chained ``generate()`` runs, every decode
+   buffers), each bit-identical to the engine's call on the true-extent
+   operands and within tolerance of the plain version; a handle whose
+   buffer is off its bucket restages and a lazy output at an unaligned
+   extent stages (one ``stage_copy`` launch each, the launches row 5
+   reports), each bit-identical to the folded call; two chained
+   ``generate()`` runs, every decode
    step one replay; then gemma2-9b at full width with 2 layers through
    the chain (window 4096, softcaps 50/30, d = 256).
 4j. MLA and Mamba: deepseek-v2-236b (MLA, 2 shared and 160 routed
@@ -170,8 +188,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    time is one compiled ``flex_attention`` call (a tanh softcap
    ``score_mod``, a causal-window or per-row kv_len block mask,
    ``enable_gqa``), held against the plain version before it is timed.
-   The staging copy at the hot path's unaligned attention call (three
-   operands), its library call one ``torch._foreach_copy_``.  Rows 1b
+   The staging copy at the hot path's attention shape (three operands),
+   its library call one ``torch._foreach_copy_``.  Rows 1b
    and 1c: the chain's MLP-in GEMM (K 768, N 3072) and LM head (K 768,
    N 50432) at m = 128, beside ``torch.matmul``.
 6. The benchmark suite's serving snapshot at full width on the card
@@ -187,7 +205,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    eager "aot" prefill's µs), with 0 prefill captures in the timed
    windows.  Fails unless
    every engine call is one engine launch and one kernel launch with 0
-   padded calls and every unaligned call one staging launch, every token
+   padded calls and every unaligned call no staging launch and no copy
+   (its 2, 4 or 2 boundaries all folded into the launch), every token
    and every batched step is one decode step of
    12 ``decode_attention`` launches with 0 padded calls, every decode
    step inside the timed windows one graph replay with 0 captures, every MoE
@@ -743,6 +762,30 @@ def all_tensor_core(counts: dict, where: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def pool_allocs(kern) -> int:
+    """Staging-buffer sets the engine kernel's entries ever made."""
+    return sum(e.pool.allocs for e in kern._exec_cache.values()
+               if e.pool is not None)
+
+
+def folded_calls(delta: dict, staged: int, kerns, operands: int,
+                 unstages: bool, where: str) -> None:
+    """Fails unless every unaligned call in ``delta`` (a DispatchStats
+    difference) launched on its own operands: no staging launch, no copy,
+    ``operands`` folded stages (and one folded unstage) a call, and no
+    staging set ever made for the engine kernels ``kerns``."""
+    n = delta["unaligned_calls"]
+    want = {"stage_copies": 0, "unstage_copies": 0,
+            "folded_stages": operands * n,
+            "folded_unstages": n if unstages else 0}
+    got = {k: delta[k] for k in want}
+    sets = sum(pool_allocs(k) + len(k.staging_sets()) for k in kerns)
+    if not n or staged or got != want or sets:
+        fail(f"{where}: {n} unaligned calls made {staged} staging launches "
+             f"and {sets} pool sets, counters {got}; expected {want}, none "
+             f"and none")
+
+
 def phase_gemm(dev, kernels) -> dict:
     from repro_torch import vortex
     from repro_torch.kernels.gemm import vortex_gemm_plain
@@ -768,18 +811,19 @@ def phase_gemm(dev, kernels) -> dict:
     staged = kernels.launch_counts()["stage_copy"]
     torch.cuda.synchronize()
     after = op.stats()["dispatch"]
-    padded = after["padded_calls"] - before["padded_calls"]
-    unaligned = after["unaligned_calls"] - before["unaligned_calls"]
+    delta = {k: after[k] - before[k] for k in after}
+    unaligned = delta["unaligned_calls"]
     print(f"main path gemm: M={ms} bucket={bucket} kernel_launches={launches} "
-          f"engine_launches={after['launches'] - before['launches']} "
-          f"padded_calls={padded} "
-          f"stage_copies={after['stage_copies'] - before['stage_copies']} "
-          f"stage_launches={staged} for {unaligned} unaligned calls")
-    if launches != len(ms) or padded != 0:
+          f"engine_launches={delta['launches']} "
+          f"padded_calls={delta['padded_calls']} "
+          f"stage_copies={delta['stage_copies']} "
+          f"folded_stages={delta['folded_stages']} "
+          f"folded_unstages={delta['folded_unstages']} "
+          f"stage_launches={staged} for {unaligned} unaligned calls "
+          f"(pool sets made: {pool_allocs(op.kernel)})")
+    if launches != len(ms) or delta["padded_calls"] != 0:
         fail("gemm main path: expected one launch per call and 0 padded calls")
-    if staged != unaligned or not unaligned:
-        fail(f"gemm main path: {staged} staging launches for {unaligned} "
-             f"unaligned calls")
+    folded_calls(delta, staged, [op.kernel], 1, True, "gemm main path")
     all_tensor_core(kernels.launch_counts(), "gemm main path")
     worst = 0.0
     for a, out in zip(inputs, outs):
@@ -791,8 +835,7 @@ def phase_gemm(dev, kernels) -> dict:
         fail(f"gemm main path disagrees with the plain version: {worst}")
     sel = op.select(bucket)
     return {"launches": launches, "M": bucket, "N": d, "K": d,
-            "blocks": sel.strategy.l1, "backend": sel.strategy.backend,
-            "stage_launches": staged}
+            "blocks": sel.strategy.l1, "backend": sel.strategy.backend}
 
 
 # ---------------------------------------------------------------------------
@@ -826,13 +869,19 @@ def phase_conv(dev, kernels) -> dict:
             if kernels.launch_counts()["vortex_gemm"] - n0 != 1:
                 fail("vortex.ops.conv2d did not make exactly one GEMM launch")
     launches = kernels.launch_counts()["vortex_gemm"]
+    staged = kernels.launch_counts()["stage_copy"]
     torch.cuda.synchronize()
     st = eng.stats()["conv2d"]
     print(f"main path conv2d: calls={len(inputs)} kernel_launches={launches} "
           f"engine_launches={st['launches']} padded_calls={st['padded_calls']} "
-          f"stage_copies={st['stage_copies']}")
+          f"stage_copies={st['stage_copies']} "
+          f"folded_stages={st['folded_stages']} "
+          f"folded_unstages={st['folded_unstages']} stage_launches={staged} "
+          f"for {st['unaligned_calls']} unaligned calls")
     if launches != len(inputs) or st["padded_calls"] != 0:
         fail("conv2d main path: expected one launch per call and 0 padded")
+    folded_calls(st, staged, eng.kernels().values(), 1, True,
+                 "conv2d main path")
     all_tensor_core(kernels.launch_counts(), "conv2d main path")
     for (name, stride, x), out in zip(inputs, outs):
         w = weights[name]
@@ -851,6 +900,165 @@ def phase_conv(dev, kernels) -> dict:
     return {"launches": launches, "name": name, "b": b, "hw": hw,
             "cin": cin, "cout": cout, "stride": stride, "M": m,
             "blocks": sel.strategy.l1, "backend": sel.strategy.backend}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: every kernel path folded at a true extent one row off its bucket
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (label, kind, backend, dtype, the path counter the launch must move).
+FOLD_CASES = (
+    ("gemm tensor_core bf16", "gemm", "tensor_core", BF16,
+     "vortex_gemm.tensor_core"),
+    ("gemm cuda_core bf16", "gemm", "cuda_core", BF16,
+     "vortex_gemm.cuda_core"),
+    ("gemm tensor_core f32", "gemm", "tensor_core", F32,
+     "vortex_gemm.cuda_core"),
+    ("gemm cuda_core f32", "gemm", "cuda_core", F32, "vortex_gemm.cuda_core"),
+    ("grouped tensor_core bf16", "grouped_gemm", "tensor_core", BF16,
+     "vortex_grouped_gemm.tensor_core"),
+    ("grouped cuda_core bf16", "grouped_gemm", "cuda_core", BF16,
+     "vortex_grouped_gemm.cuda_core"),
+    ("prefill tensor_core bf16", "attention", "tensor_core", BF16,
+     "flash_attention_prefill.tensor_core"),
+    ("prefill cuda_core bf16", "attention", "cuda_core", BF16,
+     "flash_attention_prefill.cuda_core"),
+    ("decode per-row kv_len bf16", "decode_attention", "tensor_core", BF16,
+     "flash_attention_decode.split_kv"),
+    ("decode kv_len bf16", "decode_attention", "cuda_core", BF16,
+     "flash_attention_decode.split_kv"),
+    ("conv2d tensor_core bf16", "conv2d", "tensor_core", BF16,
+     "vortex_gemm.tensor_core"),
+)
+# Widths: (full = the main paths', small = the memcheck run's).  gemm N = K;
+# grouped (G, E, K, N) at granite's expert widths; attention (b, heads,
+# head_dim) at paper-gpt2's; conv (cin, cout) at ResNet-50's conv2_x.
+FOLD_WIDTHS = {
+    False: {"gemm": 768, "grouped": (64, 32, 1024, 512),
+            "attention": (2, 12, 64), "decode": (8, 12, 64),
+            "conv": (64, 64), "extent": 100},
+    True: {"gemm": 64, "grouped": (4, 2, 64, 32), "attention": (1, 2, 64),
+           "decode": (2, 2, 64), "conv": (16, 16), "extent": 40},
+}
+
+
+def poisoned(shape, dtype, dev, g, tail: int) -> torch.Tensor:
+    """Seeded values in a tensor whose allocation runs on ``tail``
+    elements past its end in NaN: a kernel that reads past the operand's
+    last row reads NaN."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + tail,), float("nan"), dtype=dtype, device=dev)
+    buf[:n] = torch.randn(n, generator=g).to(dev, dtype)
+    return buf[:n].view(shape)
+
+
+def fold_args(kind: str, label: str, m: int, dtype, dev, widths: dict, g):
+    """The call args of one phase-3c case at dynamic extent ``m``, and its
+    params; each dynamic operand is followed in its allocation by
+    ``widths["tail"]`` NaN elements."""
+    def rnd(*shape):
+        return poisoned(shape, dtype, dev, g, widths["tail"])
+
+    if kind == "gemm":
+        d = widths["gemm"]
+        return (rnd(m, d), rnd(d, d)), {}
+    if kind == "grouped_gemm":
+        G, E, K, N = widths["grouped"]
+        x = rnd(G, m, K)
+        counts = torch.randint(0, m + 1, (G,), generator=g)
+        counts[0], counts[1], counts[-1] = 0, m, m - 1
+        for i, c in enumerate(counts.tolist()):
+            x[i, c:] = float("nan")  # never read: past the group's count
+        return (x, rnd(E, K, N), counts.to(dev, torch.int32)), {}
+    if kind == "attention":
+        b, h, d = widths["attention"]
+        return (rnd(b, h, m, d), rnd(b, h, m, d), rnd(b, h, m, d)), \
+            {"causal": True}
+    if kind == "decode_attention":
+        b, h, d = widths["decode"]
+        if "per-row" in label:
+            rows = torch.randint(1, m + 1, (b,), generator=g)
+            rows[0], rows[-1] = m, 0  # the whole cache, and an empty row
+            kv_len = rows.to(dev, torch.int32)
+        else:
+            kv_len = m - 3
+        return (rnd(b, h, 1, d), rnd(b, h, m, d), rnd(b, h, m, d), kv_len), {}
+    cin, cout = widths["conv"]
+    # A 3x3 VALID conv over (m + 2) x 3 pixels: M = b * h' * w' = m.
+    return (rnd(1, m + 2, 3, cin),
+            torch.randn(3, 3, cin, cout, generator=g).mul_(
+                (9 * cin) ** -0.5).to(dev, dtype)), {}
+
+
+def fold_extent(kern, kind, label, dtype, dev, widths, g):
+    """(m, its selection, operands off their bucket): the extent nearest
+    the widths' own at which an operand stands one row short of its
+    bucket."""
+    wl = kern.workload
+    e = widths["extent"]
+    for m in sorted(range(2, 4 * e), key=lambda m: (abs(m - e), m)):
+        sel = kern.select(m)
+        args, _ = fold_args(kind, label, m, dtype, dev, widths, g)
+        view = wl.stage_view(*args)
+        gaps = [b - n for i, s in enumerate(wl.staged_shapes(sel, *view))
+                if s is not None
+                for b, n in zip(s, view[i].shape) if b != n]
+        if 1 in gaps:
+            return m, sel, len([x for x in gaps if x])
+    fail(f"phase 3c {label}: no extent one row off its bucket")
+
+
+def phase_fold(dev, kernels, small: bool = False, tail: int = 4096) -> dict:
+    """Phase 3c: each kernel path of an engine dispatch at a true extent
+    one row below its bucket, launched on the caller's own operands: one
+    launch on the path its backend and dtype name, no staging launch, no
+    pool set, ``folded_stages`` = the operands off their bucket, the
+    output at the true extent, finite and bit-identical to
+    ``call_padded`` (the zero-padded bucket-shaped launch).  The dynamic
+    operands' allocations run on ``tail`` elements in NaN, so a read past
+    an operand's last row shows.  ``small`` runs the memcheck widths
+    (benchmarks_torch/fold_memcheck.py)."""
+    from repro_torch import vortex
+
+    widths = dict(FOLD_WIDTHS[small], tail=tail)
+    g = torch.Generator().manual_seed(14)
+    folded = {}
+    for label, kind, backend, dtype, path in FOLD_CASES:
+        eng = vortex.Engine(backends=(backend,))
+        probe, params = fold_args(kind, label, widths["extent"], dtype, dev,
+                                  widths, g)
+        kern = eng.op_kernel(kind, probe, params)
+        wl = kern.workload
+        m, sel, off = fold_extent(kern, kind, label, dtype, dev, widths, g)
+        args, params = fold_args(kind, label, m, dtype, dev, widths, g)
+        eng.dispatch(kind, *args, **params)  # builds the executable
+        torch.cuda.synchronize()
+        n0, st0 = kernels.launch_counts(), kern.dispatch_stats.as_dict()
+        out = eng.dispatch(kind, *args, **params)
+        torch.cuda.synchronize()
+        n1, st1 = kernels.launch_counts(), kern.dispatch_stats.as_dict()
+        launched = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+        delta = {k: st1[k] - st0[k] for k in st1}
+        want = {path.split(".")[0]: 1, path: 1}
+        if launched != want or delta["launches"] != 1 or not off:
+            fail(f"phase 3c {label}: launches {launched} (expected {want}), "
+                 f"engine launches {delta['launches']}, {off} operands off "
+                 f"the bucket")
+        folded_calls(delta, launched.get("stage_copy", 0), [kern], off,
+                     wl.unstages, f"phase 3c {label}")
+        ref = kern.call_padded(*args)
+        torch.cuda.synchronize()
+        same = out.shape == ref.shape and torch.equal(out, ref)
+        print(f"phase 3c {label}: {kind} extent {m} in bucket {sel.bucket} "
+              f"tile {sel.strategy.l1} path {path}: {off} operands read at "
+              f"their own extent, output {tuple(out.shape)}, bit-identical "
+              f"to call_padded={same}")
+        if not same or not torch.isfinite(out).all():
+            fail(f"phase 3c {label}: the folded launch differs from "
+                 f"call_padded or is not finite")
+        folded[label] = {"bucket": sel.bucket, "extent": m, "path": path}
+    return folded
 
 
 # ---------------------------------------------------------------------------
@@ -1296,14 +1504,20 @@ def chain_prefill(kernels, server, aot, b: int, s: int, rng,
             "launched": launched}
 
 
-def chain_forwarding(dev, server) -> None:
+def chain_forwarding(dev, server) -> int:
     """Phase 4h on the card: handles with NaN-poisoned tails forward into
     the hand-written kernels.  A gemm handle at the MLP's width, q/k/v
     handles into prefill attention, and the chain's own k/v cache buffers
     (tails poisoned) into decode attention: each forwarded result is
-    bit-identical to the engine's staged call on the clean true-extent
-    operands and within tolerance of the plain version, with ``forwarded``
-    counted and no stage copy."""
+    bit-identical to the engine's call on the clean true-extent operands
+    (which launches on them as they are) and within tolerance of the
+    plain version, with ``forwarded`` counted and no stage copy.  Then the
+    two engine paths that keep the staging copy on the card: a handle
+    whose buffer is off its bucket restages, and a lazy output at an
+    unaligned extent stages (a LazyBucket is bucket-shaped); each makes
+    one ``stage_copy`` launch and is bit-identical to the folded call.
+    Returns those staging launches."""
+    from repro_torch import kernels
     from repro_torch.core.engine import LazyBucket
     from repro_torch.core.workloads import GemmWorkload
     from repro_torch.kernels.attention import flash_attention_plain
@@ -1344,6 +1558,31 @@ def chain_forwarding(dev, server) -> None:
     check(f"phase 4h forwarded gemm handle m={m} in bucket {bucket} "
           f"(K={d}, N={ff})", out, vortex_gemm_plain(clean, w), TOL[dt])
 
+    # The staging copy's engine paths: a restaged handle (buffer rows m,
+    # extent m - 1, both in the bucket) and a lazy output.
+    n0 = kernels.launch_counts()["stage_copy"]
+    buf = a[:m].clone()
+    buf[m - 1:] = nan
+    out, delta = forwarded(
+        kern, lambda: kern(LazyBucket(buf, m - 1, 0, kern.dispatch_stats), w))
+    folded = kern(clean[:m - 1].contiguous(), w)
+    st0 = kern.dispatch_stats.as_dict()
+    lazy = kern(clean, w, lazy=True)
+    st1 = kern.dispatch_stats.as_dict()
+    torch.cuda.synchronize()
+    restaged = kernels.launch_counts()["stage_copy"] - n0
+    if delta != {"forwarded": 0, "stage_copies": 1, "launches": 1} \
+            or st1["stage_copies"] - st0["stage_copies"] != 1 \
+            or restaged != 2 or not isinstance(lazy, LazyBucket) \
+            or not torch.equal(out, folded) \
+            or not torch.equal(lazy.realize(), staged):
+        fail(f"phase 4h: restaged handle {delta}, lazy output "
+             f"{type(lazy).__name__}, {restaged} staging launches, or a "
+             f"result differs from the folded call")
+    print(f"phase 4h: a handle off its bucket restaged and a lazy output "
+          f"staged: {restaged} stage_copy launches, both bit-identical to "
+          f"the folded call")
+
     # Prefill attention: q/k/v handles with NaN tails past m.
     H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     params = {"causal": True, "window": None, "softcap": cfg.attn_softcap}
@@ -1366,6 +1605,7 @@ def chain_forwarding(dev, server) -> None:
              f"the staged call")
     check(f"phase 4h forwarded q/k/v handles m={m} in bucket {sb}", out,
           flash_attention_plain(*clean, m), ATTN_TOL[dt])
+    return restaged
 
 
 def chain_decode_forwarding(dev, server, cache, b: int, s: int) -> None:
@@ -1423,7 +1663,7 @@ def phase_chain(dev, kernels, serve_info: dict) -> dict:
         for sig, n in r["per_sig"].items():
             per_sig[sig] = per_sig.get(sig, 0) + n
         results.append(r)
-    chain_forwarding(dev, server)
+    stage_launches = chain_forwarding(dev, server)
     chain_decode_forwarding(dev, server, results[0]["cache"], 1,
                             CHAIN_CASES[0][1])
 
@@ -1457,7 +1697,7 @@ def phase_chain(dev, kernels, serve_info: dict) -> dict:
         fail("phase 4h: kv pool leases leaked")
     m = results[0]["bp"] * results[0]["sp"]
     info = {"engine": server.engine, "per_sig": per_sig, "m": m,
-            "prefills": len(CHAIN_CASES)}
+            "prefills": len(CHAIN_CASES), "stage_launches": stage_launches}
     del server, results
     free_cuda()
 
@@ -3169,10 +3409,11 @@ def phase_stage(dev, kernels, errs: dict) -> None:
 
 
 def stage_row(dev, launches: int, errs: dict) -> dict:
-    """Row 5: the staging copy at the hot path's unaligned attention call
-    (phase 6): q, k, v into their 256-row buckets in one launch.  Its
-    launches are phase 3's (one per unaligned ``vortex.ops.gemm`` call);
-    phase 6 prints its own."""
+    """Row 5: the staging copy at the shape the hot path's unaligned
+    attention call staged before its launch read the operands in place
+    (q, k, v into their 256-row buckets in one launch).  Its launches are
+    phase 4h's: the engine paths that still stage on the card (a restaged
+    handle, a lazy output); phase 6 prints its own."""
     from repro_torch.kernels.stage import StagePlan, stage_copy_plain
 
     g = torch.Generator().manual_seed(12)
@@ -3204,8 +3445,10 @@ def stage_row(dev, launches: int, errs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 PHASE6_KERNELS = ("vortex_gemm", "flash_attention_prefill",
-                  "flash_attention_decode", "vortex_grouped_gemm",
-                  "stage_copy")
+                  "flash_attention_decode", "vortex_grouped_gemm")
+# The reference's boundary copies per unaligned hot-path call: one per
+# dynamic operand and one for the output (q, k and v for attention).
+HOT_PATH_BOUNDARIES = {"gemm": 2.0, "attention": 4.0, "conv2d": 2.0}
 
 
 def check_serving_payload(p: dict) -> None:
@@ -3220,10 +3463,15 @@ def check_serving_payload(p: dict) -> None:
                  f"{h['kernel_launches_per_call']} kernel launches per call")
         if h["padded_calls"] != 0:
             fail(f"phase 6 hot_path/{kind}: {h['padded_calls']} padded calls")
-        if h["stage_launches_per_unaligned_call"] != 1.0:
+        if (h["stage_launches_per_unaligned_call"] != 0.0
+                or h["copies_per_unaligned_call"] != 0.0
+                or h["folded_per_unaligned_call"] != HOT_PATH_BOUNDARIES[kind]):
             fail(f"phase 6 hot_path/{kind}: "
-                 f"{h['stage_launches_per_unaligned_call']} staging launches "
-                 f"per unaligned call")
+                 f"{h['stage_launches_per_unaligned_call']} staging launches, "
+                 f"{h['copies_per_unaligned_call']} copies and "
+                 f"{h['folded_per_unaligned_call']} folded boundaries per "
+                 f"unaligned call (expected 0, 0 and "
+                 f"{HOT_PATH_BOUNDARIES[kind]})")
     dec, cb, moe = p["decode"], p["continuous_batching"], p["moe"]
     layers = dec["n_layers"]
     if (dec["launches_per_token"] != 1.0 or dec["padded_calls"] != 0
@@ -3344,7 +3592,7 @@ def phase_bench(kernels, smi: str) -> dict:
           f"{moe['tolerance']:.3g}), bit_identical "
           f"{moe['bit_identical_to_dense']}, dropped_frac "
           f"{moe['dropped_frac']:.4f} on {smi}")
-    totals = {k: counts[k] for k in PHASE6_KERNELS}
+    totals = {k: counts[k] for k in PHASE6_KERNELS + ("stage_copy",)}
     print(f"phase 6: serving_payload(smoke=False) in {wall:.1f}s, kernel "
           f"launches {totals}")
     return {"launches": totals, "wall_s": wall}
@@ -5197,6 +5445,9 @@ def main() -> int:
                       done="vortex.ops.gemm main path ok")
     conv_info = phase("3b", phase_conv, dev, kernels,
                       done="vortex.ops.conv2d main path ok")
+    phase("3c", phase_fold, dev, kernels,
+          done="every kernel path launched on its own operands one row off "
+               "its bucket, bit-identical to call_padded")
     serve_info = phase("4", phase_serve, dev, kernels, ARCHS[0],
                        done=f"VortexServer main path on {ARCHS[0]} ok")
     moe_info = phase("4b", phase_serve, dev, kernels, ARCHS[1],
@@ -5234,7 +5485,7 @@ def main() -> int:
                                .manual_seed(6), ", granite 16/8")
         rows += dense_attention_rows(g2_info, dense_info, errs)
         rows += phase_time_moe_conv(dev, moe_info, conv_info, errs)
-        rows.append(stage_row(dev, gemm_info["stage_launches"], errs))
+        rows.append(stage_row(dev, chain_info["stage_launches"], errs))
         return rows + mm_info["rows"] + ev_info["rows"]
 
     rows = phase("5", phase5, done="kernels timed")

@@ -10,16 +10,22 @@ Runtime stage:
   4. given the actual shape, select strategy + launch geometry + backend
      (selector.py) — a bisect into the offline-materialized selection table
      on the hot path,
-  5. fetch the executable for the induced bucket and make ONE launch,
-     staging unaligned extents into engine-owned bucket buffers.
+  5. fetch the executable for the induced bucket and make ONE launch:
+     on the card on the operands as they are, on the CPU staging
+     unaligned extents into engine-owned bucket buffers.
 
 Executables: ``impl="cuda"`` launches the hand-written Hopper kernels
 (kernels/, csrc/); ``impl="torch"`` runs their plain PyTorch versions (the
 CPU lowering, counterpart of the reference's ``impl="xla"``).  PyTorch runs
 eagerly, so the reference's one AOT program per bucket becomes one kernel
 launch per call (and, inside a served decode step, one node of the step's
-CUDA graph: launch/graphs.py).  An unaligned call stages every operand in
-one launch of the staging kernel (kernels/stage.py).
+CUDA graph: launch/graphs.py).  On the card an unaligned call launches
+the bucket's kernel on the caller's own operands: the kernels take every
+extent at launch time and mask at the operands' own rows, so there is no
+staging copy, no buffer checkout and no output slice (``_launch_folds``).
+Elsewhere -- the CPU's plain versions, a strided operand, lazy outputs,
+forwarded handles -- an unaligned call stages every operand into engine-owned bucket buffers
+(on the card in one launch of the staging kernel, kernels/stage.py).
 
 A candidate that raises at executable build or launch walks the
 degradation ladder (``_degrade``, DESIGN.md §11): it is quarantined and
@@ -68,6 +74,7 @@ from repro_torch.runtime import faults
 
 __all__ = [
     "DispatchStats",
+    "KernelDispatchStats",
     "KernelLibraryError",
     "LadderExhaustedError",
     "LazyBucket",
@@ -124,6 +131,18 @@ def _on_card(args: tuple) -> bool:
     return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
 
 
+def _launch_folds(impl: str, wl: Workload, view: tuple,
+                  unaligned: list[int]) -> bool:
+    """Whether an unaligned call launches the bucket's executable on its
+    own operands (``view``) with no staging copy: the hand-written kernels
+    (``impl="cuda"``) of a workload that ``stages_in_launch``, with every
+    operand off its bucket (the ``unaligned`` positions) on the card and
+    dense, as the kernels take them.  The CPU's plain versions, and a
+    strided operand, keep staging into engine buffers."""
+    return impl == "cuda" and wl.stages_in_launch and all(
+        view[i].is_cuda and view[i].is_contiguous() for i in unaligned)
+
+
 @dataclasses.dataclass
 class DispatchStats:
     """Per-call accounting for the serving hot path, with the reference's
@@ -132,8 +151,10 @@ class DispatchStats:
     ``launches`` counts executions of the ONE per-bucket executable;
     ``stage_copies``/``unstage_copies`` count the O(true-size) boundary
     copies an unaligned extent pays (the in-place copy into an engine
-    buffer / the output slice back).  ``padded_calls`` counts calls on the
-    zero-pad reference path.
+    buffer / the output slice back), copies that were made: a launch on
+    the card that reads its operands in place makes none
+    (:class:`KernelDispatchStats` counts those boundaries).
+    ``padded_calls`` counts calls on the zero-pad reference path.
 
     ``forwarded`` counts :class:`LazyBucket` operands whose buffer entered
     the next launch directly -- an op boundary crossed with NO unstage and
@@ -165,6 +186,24 @@ class DispatchStats:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class KernelDispatchStats(DispatchStats):
+    """One :class:`VortexKernel`'s DispatchStats: the reference's fields,
+    and the boundaries its launches crossed with no copy.
+
+    ``folded_stages`` counts operands an unaligned launch read at their
+    own extent, ``folded_unstages`` outputs it wrote at the true extent
+    (on the card, ``_launch_folds``).  So ``stage_copies +
+    folded_stages`` and ``unstage_copies + folded_unstages`` are the
+    reference's ``stage_copies`` and ``unstage_copies`` on every device:
+    one per dynamic operand and one per sliced output of each unaligned
+    call.
+    """
+
+    folded_stages: int = 0
+    folded_unstages: int = 0
 
 
 class LazyBucket:
@@ -510,7 +549,7 @@ class VortexKernel:
             set(denylist.get(self._sig_key)) if denylist is not None
             else set()
         )
-        self.dispatch_stats = DispatchStats()
+        self.dispatch_stats = KernelDispatchStats()
         t0 = time.perf_counter()
         backends = backends or tuple(hw.backends)
         scored: dict[str, ScoredLattice] = {}
@@ -631,10 +670,16 @@ class VortexKernel:
 
           * bucket-aligned extent — the call args are the inputs directly:
             zero copies, one launch;
-          * unaligned extent — dynamic args are copied in place into
-            engine-owned bucket buffers (O(true-size) writes, no allocation,
-            no zero fill; the pad tail keeps stale bytes the kernel masks),
-            then one launch, then the output slice back to the true extent.
+          * unaligned extent, on the card — one launch of the bucket's
+            kernel on the args as they are: it reads each at its own
+            extent and writes the output at the true extent
+            (``_launch_folds``; counted as ``folded_stages`` and
+            ``folded_unstages``);
+          * unaligned extent, otherwise — dynamic args are copied in place
+            into engine-owned bucket buffers (O(true-size) writes, no
+            allocation, no zero fill; the pad tail keeps stale bytes the
+            kernel masks), then one launch, then the output slice back to
+            the true extent.
 
         The returned tensor is the launch's own fresh output (or a view of
         it), never an engine buffer, so a caller may mutate it freely.
@@ -716,6 +761,18 @@ class VortexKernel:
                 return LazyBucket(out, m, wl.staged_out_axis, st,
                                   self._stats_lock)
             return wl.finalize(sel, out, *args)
+        if not lazy_out and _launch_folds(self._impl, wl, view, unaligned):
+            # The bucket's kernel on the operands as they are: no pool
+            # checkout, no staging copy, the output at the true extent.  A
+            # lazy output keeps staging: a LazyBucket is bucket-shaped.
+            with self._stats_lock:
+                st.calls += 1
+                st.unaligned_calls += 1
+                st.folded_stages += len(unaligned)
+                st.launches += 1
+                if wl.unstages:
+                    st.folded_unstages += 1
+            return wl.finalize(sel, entry.run(*view, *scalars), *args)
         device = view[unaligned[0]].device
         stream = _stream_key(device)
         need = tuple((i, shapes[i], view[i].dtype) for i in unaligned)
@@ -973,7 +1030,8 @@ class VortexKernel:
                 setattr(st, name, getattr(st, name) + n)
 
     def staging_sets(self) -> list[_BufferSet]:
-        """Every pooled staging-buffer set of every executable entry."""
+        """Every pooled staging-buffer set of every executable entry (none
+        where every call launched on its own operands)."""
         return [s for e in list(self._exec_cache.values())
                 if e.pool is not None for s in e.pool.retained]
 

@@ -271,6 +271,16 @@ class Workload:
     #
     # ``prepare`` (zero-pad the args to the bucket) is the REFERENCE path,
     # functionally identical; ``call_padded`` runs it for parity tests.
+    #
+    # On the card a workload that declares ``stages_in_launch`` skips
+    # steps 2 and 3: its executable takes every extent at launch time and
+    # masks at the operands' own extents, so the engine launches it on the
+    # view args as they are (core/engine.py ``_launch_folds``).  The
+    # bucket still fixes everything that could change a result's bits --
+    # the tile, the backend, the form and the decode split count -- and
+    # the operands fix the pitches and the rows read and written, so the
+    # output comes back at the true extent and bit-identical to the
+    # zero-padded call.
 
     # Whether the workload implements the staging contract below (the
     # calibrator measures only such workloads).
@@ -278,6 +288,9 @@ class Workload:
     # Whether finalize() slices a bucket-shaped output on unaligned calls
     # (decode attention's output never depends on the bucket).
     unstages: ClassVar[bool] = True
+    # Whether the hand-written executable takes the view args at their own
+    # extents, as the paragraph above sets out.
+    stages_in_launch: ClassVar[bool] = False
     # -- lazy handle (bucket-to-bucket) contract --------------------------
     # Call-arg positions that may arrive as engine LazyBucket handles --
     # bucket-shaped buffers whose tail rows past the true extent are
@@ -328,12 +341,15 @@ class Workload:
     def finalize(self, sel, out, *args):
         """Slice the bucket-shaped output back to the true extents of the
         RAW call args (a view of the launch's own fresh output, never of
-        an engine buffer)."""
+        an engine buffer); an output a launch already wrote at the true
+        extent comes back as it is."""
         raise NotImplementedError
 
     def build_executable(self, sel, *, impl: str) -> Callable:
         """Build the bucket-shaped executable for a runtime selection:
-        ``fn(*bucket_args, *runtime_scalars) -> bucket-shaped out``.
+        ``fn(*bucket_args, *runtime_scalars) -> bucket-shaped out`` (with
+        ``stages_in_launch``, the same launch on args at their true
+        extents gives the output at the true extent).
         ``impl`` is ``"cuda"`` (the hand-written kernel) or ``"torch"``
         (its plain version).  Raises :class:`SelectionDeviationError`
         rather than adjusting the selected tile."""
@@ -370,6 +386,7 @@ class GemmWorkload(Workload):
 
     kind: ClassVar[str] = "gemm"
     supports_staging: ClassVar[bool] = True
+    stages_in_launch: ClassVar[bool] = True
     # Rows of A @ B are independent: a garbage A tail stays in the output
     # tail.
     consumes_staged: ClassVar[dict[int, str]] = {0: "rowlocal"}
@@ -418,7 +435,7 @@ class GemmWorkload(Workload):
 
     def finalize(self, sel, out, a, b):
         m = a.shape[0]
-        return out.narrow(0, 0, m) if sel.padded_m != m else out
+        return out.narrow(0, 0, m) if out.shape[0] != m else out
 
     def build_executable(self, sel, *, impl: str):
         m1, n1, k1 = sel.strategy.l1
@@ -498,6 +515,7 @@ class GroupedGemmWorkload(Workload):
 
     kind: ClassVar[str] = "grouped_gemm"
     supports_staging: ClassVar[bool] = True
+    stages_in_launch: ClassVar[bool] = True
     # x could in principle arrive as a bucket handle on axis 1, but
     # LazyBucket forwarding is axis-0/row oriented: opted out, as in the
     # reference.
@@ -568,7 +586,7 @@ class GroupedGemmWorkload(Workload):
 
     def finalize(self, sel, out, x, w, counts):
         c = x.shape[1]
-        return out.narrow(1, 0, c) if sel.padded_m != c else out
+        return out.narrow(1, 0, c) if out.shape[1] != c else out
 
     def build_executable(self, sel, *, impl: str):
         m1, n1, k1 = sel.strategy.l1
@@ -640,6 +658,7 @@ class AttentionWorkload(Workload):
 
     kind: ClassVar[str] = "attention"
     supports_staging: ClassVar[bool] = True
+    stages_in_launch: ClassVar[bool] = True
     dynamic_tile_axes: ClassVar[tuple[int, ...]] = (0, 2)
     # q rows are independent queries (rowlocal on the seq axis); k/v rows
     # past the kv_len scalar are score-masked AND value-zeroed in-kernel.
@@ -747,7 +766,7 @@ class AttentionWorkload(Workload):
 
     def finalize(self, sel, out, q, k, v):
         sq = q.shape[-2]
-        return out.narrow(2, 0, sq) if sel.bucket[0] != sq else out
+        return out.narrow(2, 0, sq) if out.shape[2] != sq else out
 
     def build_executable(self, sel, *, impl: str):
         pq, _, pkv = sel.bucket
@@ -765,7 +784,7 @@ class AttentionWorkload(Workload):
                 return flash_attention(
                     q, k, v, kv_len, block_q=m1, block_k=k1,
                     backend=backend, causal=causal, window=window,
-                    softcap=softcap,
+                    softcap=softcap, bucket=(pq, pkv),
                 )
 
         elif impl == "torch":
@@ -912,7 +931,7 @@ class DecodeAttentionWorkload(AttentionWorkload):
                 return flash_attention(
                     q, k, v, kv_len, q_offset=kv_len - 1,
                     block_q=1, block_k=k1, backend=backend, causal=False,
-                    window=window, softcap=softcap,
+                    window=window, softcap=softcap, bucket=(1, pkv),
                 )
 
         elif impl == "torch":
@@ -976,6 +995,7 @@ class Conv2dWorkload(Workload):
 
     kind: ClassVar[str] = "conv2d"
     supports_staging: ClassVar[bool] = True
+    stages_in_launch: ClassVar[bool] = True
     # stage_view is im2col, not the identity: a raw bucket buffer is not a
     # valid executable input, so handles always realize before dispatch.
     consumes_staged: ClassVar[dict[int, str]] = {}
@@ -1047,9 +1067,11 @@ class Conv2dWorkload(Workload):
     def finalize(self, sel, out, x, w):
         ho, wo = self._out_hw(x)
         m = x.shape[0] * ho * wo
-        # out[:m] of the launch's fresh (padded_m, cout) output is
-        # contiguous, so the reshape is a view of it.
-        return out.narrow(0, 0, m).view(x.shape[0], ho, wo, self.cout)
+        # out[:m] of the launch's fresh (rows, cout) output is contiguous,
+        # so the reshape is a view of it.
+        if out.shape[0] != m:
+            out = out.narrow(0, 0, m)
+        return out.view(x.shape[0], ho, wo, self.cout)
 
     def build_executable(self, sel, *, impl: str):
         # The executable is the GEMM kernel on the im2col matrix; the

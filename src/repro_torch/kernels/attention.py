@@ -42,7 +42,7 @@ __all__ = [
     "flash_attention", "flash_attention_plain", "flash_decode_split_plain",
     "attention_smem_bytes", "AttentionTcPlan", "tensor_core_attention_plan",
     "attention_form", "check_attention_backend", "attention_path",
-    "decode_splits", "LAUNCHES",
+    "decode_splits", "decode_geometry", "LAUNCHES",
 ]
 
 # Launches of the CUDA kernels, counted where they are launched and nowhere
@@ -172,6 +172,23 @@ def decode_splits(
     return per * block_k, -(-blocks // per)
 
 
+def decode_geometry(
+    rows: int, kv_len, skv: int, block_k: int, sms: int,
+    kv_bucket: int | None = None,
+) -> tuple[int, int]:
+    """(keys per split, number of splits) of one decode launch: the rule
+    of :func:`decode_splits` over the keys the launch may visit, which are
+    ``kv_len`` when it is one number and the key extent otherwise.  The
+    key extent is ``kv_bucket`` when given, else the cache's own ``skv``:
+    an engine executable passes its bucket, so a call on a cache at its
+    true extent splits as the bucket-shaped call does (the same splits,
+    the same merge order, the same bits)."""
+    keys = skv if kv_bucket is None else kv_bucket
+    if _is_scalar(kv_len):
+        keys = min(int(kv_len), keys)
+    return decode_splits(rows, keys, block_k, sms)
+
+
 def flash_attention_plain(
     q, k, v, kv_len=None, q_offset=None, *, causal=True, window=None,
     softcap=None,
@@ -285,11 +302,22 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    bucket: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Multi-head attention, q (b, hq, sq, d), k/v (b, hkv, skv, d).
 
     ``kv_len``/``q_offset`` are Python ints shared by the batch, or (b,)
     vectors (one extent per batch row).  Blocks are honoured verbatim.
+
+    ``bucket`` is the (query, key) extent the launch's geometry is chosen
+    for, ``(sq, skv)`` when None.  The form and the decode kernel's split
+    count come from it (:func:`decode_geometry`); the pitches, the rows
+    read and the rows written come from the operands.  An engine
+    executable passes its bucket, so a call at the operands' true extents
+    runs the bucket's kernel with the bucket's splits: each output row
+    keeps its tile, its key loop and its merge order, and is
+    bit-identical to the zero-padded call (a tile wholly past the live
+    rows did no work there either).
 
     ``backend`` is the selected strategy's backend.  The (form, backend,
     tile, head_dim) tuple is validated first, on every device
@@ -310,7 +338,7 @@ def flash_attention(
         raise OperandError(f"flash_attention: window={window} must be >= 1")
     if softcap is not None and not softcap > 0:
         raise OperandError(f"flash_attention: softcap={softcap} must be > 0")
-    form = attention_form(sq, block_q)
+    form = attention_form(sq if bucket is None else bucket[0], block_q)
     plan = check_attention_backend(form, backend, block_q, block_k, d)
     if q.device.type == "cpu":
         return flash_attention_plain(
@@ -367,9 +395,10 @@ def flash_attention(
             _DTYPE_CODE[q.dtype], stream,
         )
     else:
-        kv_keys = min(kv_s, skv) if info is None else skv
-        split_keys, nsplit = decode_splits(
-            b * hkv, kv_keys, block_k, _sm_count(q.device.index or 0))
+        split_keys, nsplit = decode_geometry(
+            b * hkv, kv_s if info is None else info, skv, block_k,
+            _sm_count(q.device.index or 0),
+            None if bucket is None else bucket[1])
         part = tickets = None
         if nsplit > 1:
             part = torch.empty(b * hkv * nsplit * (hq // hkv) * (d + 2),

@@ -64,6 +64,7 @@ def test_hot_path_counters_keep_the_reference_meanings(payload):
         assert h["launches_per_call"] == 1.0, kind
         assert h["padded_calls"] == 0 and h["fallbacks"] == 0, kind
         assert h["copies_per_unaligned_call"] == copies[kind], kind
+        assert h["folded_per_unaligned_call"] == 0.0, kind  # the card's
         assert h["unaligned_extent"] < h["aligned_extent"], kind
         assert h["kernel_launches_per_call"] == 0.0  # plain versions here
         assert h["stage_launches_per_unaligned_call"] == 0.0
