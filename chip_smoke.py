@@ -347,9 +347,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    a 256-row cache placed on the card: ``tree_device_bytes`` equal to
    the caching allocator's requested bytes, and within its rounding of
    ``memory_allocated``'s growth.  10d: ``python -m
-   repro_torch.launch.dryrun`` for gemma2-9b ``decode_32k`` on a fake
-   256-rank world in a subprocess on the host's CPU (the card hidden),
-   beside 10a-10c: exit 0, the cell counted, its time printed.
+   repro_torch.launch.dryrun`` for gemma2-9b ``decode_32k`` at full depth
+   on a fake 256-rank world, and the five other cells of
+   tests/test_torch_dryrun_ref.py at one layer group in two more
+   processes, on the host's CPU (the card hidden), beside 10a-10c: every
+   process exits 0, every cell counted with no error, the decode cell's
+   all-gather under its embedding table's bytes (ROADMAP C16), each
+   cell's time printed.
 11. Print the kernels line (with phase 6's and phase 10a's launch counts),
    then the result line.  Every phase prints its wall time.
 
@@ -4912,7 +4916,32 @@ OPS_ATTN = (8, 12, 64, 64, 256)  # b, heads, prompt, head_dim, decode cache
 OPS_BACKENDS = ("cuda_core", "tensor_core")
 BUILD_ARCH, BUILD_B, BUILD_S, BUILD_STEPS = "paper-gpt2-124m", 8, 64, 8
 DRYRUN_CELL = ("gemma2-9b", "decode_32k")
+DRYRUN_TABLE_BYTES = 256000 * 3584 * 2  # gemma2-9b's bf16 embedding table
+# The other cells of tests/test_torch_dryrun_ref.py (ROADMAP C17-C20),
+# counted at one layer group, in two subprocesses: each train cell leads
+# one.
+DRYRUN_GROUP_CELLS = (
+    (("h2o-danube-3-4b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+     ("whisper-small", "prefill_32k")),
+    (("phi4-mini-3.8b", "train_4k"), ("gemma2-9b", "prefill_32k")),
+)
 DRYRUN_TIMEOUT = 300
+_DRYRUN_GROUPS = """
+import json, sys, time
+from repro_torch.launch.dryrun import lower_cell
+out = {}
+for arch, shape in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    try:
+        r = lower_cell(arch, shape, multi_pod=False, groups=1)
+        r.pop("op_names")
+    except Exception as e:  # recorded per cell
+        r = {"error": f"{type(e).__name__}: {e}"[:2000]}
+    r["wall_s"] = time.perf_counter() - t0
+    out[arch + "|" + shape] = r
+    with open(sys.argv[1], "w") as f:
+        json.dump(out, f)
+"""
 
 
 def ops_launch(kernels, fn, want: dict, where: str):
@@ -5297,55 +5326,94 @@ def phase_roofline(dev, info: dict, smi: str) -> dict:
 
 
 def start_dryrun_cell() -> tuple:
-    """10d's subprocess: one dry-run cell (gemma2-9b decode_32k, full
-    width and depth) on a fake 256-rank world on the host's CPU, the
-    card hidden; it runs while 10a-10c use the card."""
+    """10d's subprocesses, on the host's CPU with the card hidden, beside
+    10a-10c: one dry-run cell (gemma2-9b decode_32k, full width and
+    depth) through the CLI, and DRYRUN_GROUP_CELLS at one layer group."""
     tmp = tempfile.TemporaryDirectory(prefix="dryrun-")
-    out = os.path.join(tmp.name, "dryrun.json")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     arch, shape = DRYRUN_CELL
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", "single", "--out", out],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=str(ROOT), env=env)
-    return proc, tmp, out, time.perf_counter()
+    out = os.path.join(tmp.name, "dryrun.json")
+    runs = [(["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+              shape, "--mesh", "single", "--out", out], out)]
+    for i, cells in enumerate(DRYRUN_GROUP_CELLS):
+        out = os.path.join(tmp.name, f"groups{i}.json")
+        runs.append((["-c", _DRYRUN_GROUPS, out, json.dumps(cells)], out))
+    procs = [(subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True,
+                               cwd=str(ROOT), env=env), out)
+             for args, out in runs]
+    return procs, tmp, time.perf_counter()
+
+
+def stop_dryrun_cells(started: tuple) -> None:
+    for proc, _ in started[0]:
+        proc.kill()
+        proc.communicate()
+
+
+def _roof_line(roof: dict) -> str:
+    return (f"{roof['flops']:.4g} FLOPs, {roof['memory_bytes']:.4g} bytes, "
+            f"{roof['collective_bytes']:.4g} collective bytes a device "
+            f"({', '.join(f'{k} {v:.4g}' for k, v in sorted(roof['collective_by_kind'].items()))}), "
+            f"dominant {roof['dominant']}")
 
 
 def finish_dryrun_cell(started: tuple, smi: str) -> dict:
-    """10d: the subprocess exits 0 within DRYRUN_TIMEOUT of its start and
-    its cell is counted; its time is printed."""
-    proc, tmp, out, t0 = started
-    arch, shape = DRYRUN_CELL
-    try:
-        _, err = proc.communicate(
-            timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        fail(f"phase 10d: the dry run took over {DRYRUN_TIMEOUT} s")
+    """10d: every subprocess exits 0 within DRYRUN_TIMEOUT of its start;
+    every cell is counted with no error, and the full-depth decode cell's
+    all-gather does not hold its embedding table (ROADMAP C16).  Each
+    cell's time is printed."""
+    procs, tmp, t0 = started
+    errs = []
+    for proc, _ in procs:
+        try:
+            _, err = proc.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop_dryrun_cells(started)
+            fail(f"phase 10d: the dry run took over {DRYRUN_TIMEOUT} s")
+        errs.append(err)
     wall = time.perf_counter() - t0
     with tmp:
-        if proc.returncode != 0:
-            fail(f"phase 10d: the dry run exited {proc.returncode}: "
-                 f"{err[-2000:]}")
-        with open(out) as f:
-            r = json.load(f)[f"{arch}|{shape}|single"]
+        for (proc, _), err in zip(procs, errs):
+            if proc.returncode != 0:
+                fail(f"phase 10d: a dry run exited {proc.returncode}: "
+                     f"{err[-2000:]}")
+        res = []
+        for _, out in procs:
+            with open(out) as f:
+                res.append(json.load(f))
+    arch, shape = DRYRUN_CELL
+    r = res[0][f"{arch}|{shape}|single"]
     if "error" in r or "roofline" not in r:
         fail(f"phase 10d: {r.get('error', r)}")
     roof = r["roofline"]
+    gathered = roof["collective_by_kind"].get("all-gather", 0)
+    if gathered >= DRYRUN_TABLE_BYTES:
+        fail(f"phase 10d: {arch} {shape} all-gathers {gathered:.4g} bytes a "
+             f"device, as much as its {DRYRUN_TABLE_BYTES} B table (C16)")
     print(f"phase 10d: dry run {arch} {shape} on a fake 256-rank world "
           f"(torch {torch.__version__}, CPU): exit 0 in {wall:.1f}s beside "
           f"10a-10c, state {r['state_gib_per_device']:.3f} GiB/dev, counted "
           f"in {r['compile_seconds']:.1f}s ({r['ops_dispatched']} ops): "
-          f"{roof['flops']:.4g} FLOPs, {roof['memory_bytes']:.4g} bytes, "
-          f"{roof['collective_bytes']:.4g} collective bytes a device, "
-          f"dominant {roof['dominant']} (V5E terms compute "
+          f"{_roof_line(roof)}, all-gather {gathered / DRYRUN_TABLE_BYTES:.2e} "
+          f"of the embedding table (V5E terms compute "
           f"{roof['compute_s']:.4g}s memory {roof['memory_s']:.4g}s "
           f"collective {roof['collective_s']:.4g}s); memory_analysis "
           f"{r['memory_analysis']}; {smi}")
-    return {"wall_s": wall, "cell": r}
+    cells = {}
+    for got, want in zip(res[1:], DRYRUN_GROUP_CELLS):
+        for a, sh in want:
+            c = got.get(f"{a}|{sh}", {"error": "not counted"})
+            if "error" in c:
+                fail(f"phase 10d: {a} {sh} at one group: {c['error']}")
+            cells[f"{a}|{sh}"] = c
+            print(f"phase 10d: {a} {sh} at one layer group: counted in "
+                  f"{c['wall_s']:.1f}s ({c['ops_dispatched']} ops): "
+                  f"{_roof_line(c['roofline'])}; torch {torch.__version__}, "
+                  f"CPU, beside 10a-10c on {smi}")
+    return {"wall_s": wall, "cell": r, "groups1": cells}
 
 
 def phase_analysis(dev, kernels, errs: dict, smi: str) -> dict:
@@ -5366,9 +5434,8 @@ def phase_analysis(dev, kernels, errs: dict, smi: str) -> dict:
         roof = part("10c", phase_roofline, dev, built, smi)
         del built
         free_cuda()
-    except BaseException:  # fail() exits: stop the subprocess first
-        dry[0].kill()
-        dry[0].communicate()
+    except BaseException:  # fail() exits: stop the subprocesses first
+        stop_dryrun_cells(dry)
         raise
     dry = part("10d", finish_dryrun_cell, dry, smi)
     return {"rows": rows, "launches": launches, "10c": roof, "10d": dry}

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.placement import is_dtensor
+
 __all__ = [
     "ref_gemm",
     "ref_grouped_gemm",
@@ -131,6 +133,60 @@ def ref_attention(
     return out.to(q.dtype)
 
 
+def _on_local_heads(q, k, v, rules, **kw) -> torch.Tensor:
+    """:func:`chunked_attention` over DTensors, each rank on its own shard.
+
+    q, K and V are laid out alike on the batch and heads: q and K/V are
+    first pinned on ``heads_act`` and ``kv_heads_act`` as the reference
+    pins them (``pin`` and ``pin5``, src/repro/kernels/ref.py:182-205),
+    then K/V, expanded to q's heads, on ``heads_act``.  Where the kv heads
+    do not divide the model axis (8 or 4 over 16) K/V stay replicated on
+    it while q's heads are sharded; the expanded K/V's pin is then a
+    local slice, and its backward all-gathers the cotangent before
+    ``repeat_interleave``'s backward sums the group.  Unpinned, that sum
+    viewed the head-sharded cotangent, (b, hq, chunk, hd) -> (b, hkv,
+    group, chunk, hd), which DTensor refuses for hkv = 8 over 16 ("Cannot
+    unflatten unevenly sharded tensor", ROADMAP C17), and in a prefill
+    DTensor ran every head on every rank (C20).  Where the q heads do not
+    divide the model axis either (24 or 12 over 16), q's rows take it, as
+    GSPMD splits the reference's prefill attention over the queries: K/V
+    stay whole, each rank's rows are offset by their first row, and K/V's
+    cotangents are partial sums over the model axis.
+
+    Every head and row being independent, the loop then runs on the
+    local shards as plain tensors and its output takes q's layout: over
+    DTensors its einsums flatten the batch and head dims, both sharded,
+    which torch 2.11's DTensor refuses.  ``offset`` and ``kv_len`` are
+    one for the batch (the model's prefill and train calls pass 0 and
+    None)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.models.partitioning import constrain
+
+    group = q.shape[1] // k.shape[1]
+    rows = "seq" if rules.rules.get("heads_act") is None else None
+    q = constrain(q, rules, "batch", "heads_act", rows, None)
+    k, v = (constrain(t, rules, "batch", "kv_heads_act", None, None)
+            for t in (k, v))
+    if group > 1:
+        k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    k, v = (constrain(t, rules, "batch", "heads_act", None, None)
+            for t in (k, v))
+    ql, offset, kv_grads = q.to_local(), kw.pop("offset"), []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        on_rows = isinstance(pq, Shard) and pq.dim == 2
+        if on_rows:
+            offset = offset + q.device_mesh.get_local_rank(i) * ql.shape[2]
+        kv_grads.append(Partial() if on_rows else pk)
+    out = chunked_attention(
+        ql, k.to_local(grad_placements=kv_grads),
+        v.to_local(grad_placements=kv_grads), offset=offset, **kw)
+    shape = q.shape[:-1] + v.shape[-1:]
+    return DTensor.from_local(
+        out, q.device_mesh, q.placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def chunked_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -142,11 +198,16 @@ def chunked_attention(
     chunk: int = 1024,
     offset=0,
     kv_len=None,
+    rules=None,
 ) -> torch.Tensor:
     """Online-softmax attention over kv chunks of ``chunk`` rows, never
     materializing the (sq, skv) scores; same masking contract as
     :func:`ref_attention`.  A Python loop stands in for the reference's
-    ``lax.scan``."""
+    ``lax.scan``.
+
+    With ``rules`` (an ``AxisRules`` on a mesh) and DTensor operands the
+    loop runs on each rank's own rows and heads (:func:`_on_local_heads`);
+    plain tensors ignore ``rules``."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]
@@ -156,6 +217,10 @@ def chunked_attention(
             q, k, v, causal=causal, window=window, softcap=softcap,
             offset=offset, kv_len=kv_len,
         )
+    if rules is not None and rules.mesh is not None and is_dtensor(q):
+        return _on_local_heads(
+            q, k, v, rules, causal=causal, window=window, softcap=softcap,
+            chunk=chunk, offset=offset, kv_len=kv_len)
     dev = q.device
     skv_true = skv
     pad = -skv % chunk

@@ -216,9 +216,19 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(b, s, n, -1).transpose(1, 2).contiguous()
 
 
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+def _merge_heads(x: torch.Tensor, rules: AxisRules | None = None
+                 ) -> torch.Tensor:
+    """(b, h, s, hd) -> (b, s, h * hd).  With ``rules`` the merged heads
+    are laid out ``(batch, None, heads_act)``: forward, it gathers the
+    rows that ``chunked_attention`` sharded where the heads do not divide
+    the model axis; backward, it brings the output projection's
+    cotangent, sharded over the flat width, to the heads' own layout
+    before the reshape's backward views it as (b, s, h, hd).  With 24
+    heads over 16 (phi4-mini) that view failed on the flat shard ("Cannot
+    unflatten unevenly sharded tensor", ROADMAP C18)."""
     b, h, s, hd = x.shape
-    return x.transpose(1, 2).reshape(b, s, h * hd)
+    out = x.transpose(1, 2).reshape(b, s, h * hd)
+    return constrain(out, rules, "batch", None, "heads_act")
 
 
 def _window_slice(
@@ -281,12 +291,18 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor,
         rows = torch.arange(new.shape[0], device=pos.device)
         cache[(rows,) + lead + (pos.long(),)] = new.to(cache.dtype)
         return
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset,
     )
 
-    shape, off = compute_local_shape_and_global_offset(
-        cache.shape, cache.device_mesh, cache.placements)
+    # The shard's extent and offset depend on the placements alone, but
+    # torch reads them through a small index tensor, which FakeTensorMode
+    # refuses as data-dependent (``_local_scalar_dense``, ROADMAP C19):
+    # they are computed with fake mode lifted, a no-op outside it.
+    with unset_fake_temporarily():
+        shape, off = compute_local_shape_and_global_offset(
+            cache.shape, cache.device_mesh, cache.placements)
     full = new.full_tensor() if is_dtensor(new) else new
     for i, d in enumerate(d for d in range(cache.ndim) if d != axis):
         full = full.narrow(i, off[d], shape[d])
@@ -534,9 +550,6 @@ def attn_forward(
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    if mode == "train":
-        # Megatron-SP gather point: the full sequence for the mixer body.
-        x = constrain(x, rules, "batch", None, None)
     q = _split_heads(x @ p["wq"], H)
     k = _split_heads(x @ p["wk"], KV)
     v = _split_heads(x @ p["wv"], KV)
@@ -591,9 +604,13 @@ def attn_forward(
                 softcap=cfg.attn_softcap,
             )
         else:
+            # The reference pins the loop in train mode only, and GSPMD
+            # still splits a prefill's attention 16 ways; unpinned, DTensor
+            # ran every head on every rank of the model axis (ROADMAP C20).
+            # So a prefill takes the pins too.
             out = chunked_attention(
                 q, k, v, causal=causal, window=spec.window,
-                softcap=cfg.attn_softcap, chunk=ATTN_CHUNK,
+                softcap=cfg.attn_softcap, chunk=ATTN_CHUNK, rules=rules,
             )
         new_cache = None
         if mode == "prefill":
@@ -602,7 +619,7 @@ def attn_forward(
                 "k": _pad_rows(k, pad),
                 "v": _pad_rows(v, pad),
             }
-    y = _merge_heads(out) @ p["wo"]
+    y = _merge_heads(out, None if mode == "decode" else rules) @ p["wo"]
 
     if spec.cross_attn:
         if encoder_out is None:
@@ -611,8 +628,9 @@ def attn_forward(
         qx = _split_heads(xn @ p["xq"], H)
         kx = _split_heads(encoder_out @ p["xk"], KV)
         vx = _split_heads(encoder_out @ p["xv"], KV)
-        ox = chunked_attention(qx, kx, vx, causal=False, chunk=ATTN_CHUNK)
-        y = y + _merge_heads(ox) @ p["xo"]
+        ox = chunked_attention(qx, kx, vx, causal=False, chunk=ATTN_CHUNK,
+                               rules=rules)
+        y = y + _merge_heads(ox, rules) @ p["xo"]
     return y, new_cache
 
 
@@ -699,7 +717,8 @@ def mla_forward(
         qh = torch.cat([q_nope, q_rope], dim=-1)
         kh = torch.cat([k_nope, k_rope.expand(b, H, s, rope_d)], dim=-1)
         qh = constrain(qh, rules, "batch", "heads_act", None, None)
-        out = chunked_attention(qh, kh, v, causal=True, chunk=ATTN_CHUNK)
+        out = chunked_attention(qh, kh, v, causal=True, chunk=ATTN_CHUNK,
+                                rules=rules)  # prefill too: C20, as above
         new_cache = None
         if mode == "prefill":
             pad = cache_len - s
@@ -709,7 +728,7 @@ def mla_forward(
             }
     else:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-    y = _merge_heads(out) @ p["wo"]
+    y = _merge_heads(out, None if mode == "decode" else rules) @ p["wo"]
     return y, new_cache
 
 
@@ -1126,10 +1145,6 @@ def moe_forward(
     E, k = m.num_experts, m.top_k
     C = moe_capacity(cfg, s)
     dev = x.device
-    if s > 1:
-        # Routing, sort and dispatch run on seq-replicated activations
-        # (reference layers.py:1000-1008); not at s == 1 (decode).
-        x = constrain(x, rules, "batch", None, None)
     probs, topw, topi = route(p, x, cfg)
     # The routing's index arithmetic (one_hot, argsort, searchsorted,
     # integer gathers) has no DTensor sharding rule: over DTensors it runs

@@ -154,6 +154,32 @@ def cache_pspecs(
     return out
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor,
+           rules: AxisRules | None) -> torch.Tensor:
+    """The (b, s, d) rows of ``tokens``.  Over a DTensor table sharded on
+    the vocabulary each shard gathers the rows it holds and the rows are
+    summed, as GSPMD partitions the reference's ``jnp.take``
+    (src/repro/models/model.py:268): indexing the table would replicate
+    it first (ROADMAP C16).  ``F.embedding`` leaves a masked partial whose
+    mask is spent by its first reduction, and the stream is read twice
+    (the norm and the residual add), so the partial is reduced here, at
+    once, into the residual stream's layout (decode's one row keeps its
+    sequence replicated)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate, Shard
+
+    # An FSDP table is also sharded over "data", which shards the tokens'
+    # batch: the model axis's shard of the table is gathered over it
+    # first, so that the masked partial's mask and the rows it masks have
+    # one batch layout.
+    table = table.redistribute(table.device_mesh, [
+        p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+        for p in table.placements])
+    x = torch.nn.functional.embedding(tokens, table)
+    return constrain(x, rules, "batch", "seq", None)
+
+
 def _hidden(
     cfg: ModelConfig,
     params: dict,
@@ -188,7 +214,7 @@ def _hidden(
     the residual stream's layout between layers (a no-op on plain
     tensors)."""
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params["embed"], tokens, rules)
     if cfg.embed_scale:
         # Gemma's sqrt(d) scale, in f32 then cast (model.py:269-270).
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
@@ -284,6 +310,35 @@ def _hidden(
     return norm(x, params["final_norm"], cfg), new_cache, stats
 
 
+def _gather(h: torch.Tensor, mode: str,
+            rules: AxisRules | None) -> torch.Tensor:
+    """A sublayer's input with its whole sequence, outside decode
+    (Megatron-SP's gather point, which the reference pins before its
+    train-mode mixers and its MoE routing, src/repro/models/layers.py:
+    384, :1007): the projections then flatten only (b, s) with s
+    unsharded, where torch 2.11's DTensor refuses to flatten a sharded
+    sequence under a sharded batch."""
+    if mode == "decode":
+        return h
+    return constrain(h, rules, "batch", None, None)
+
+
+def _scatter(y: torch.Tensor, mode: str,
+             rules: AxisRules | None) -> torch.Tensor:
+    """A sublayer's output, a partial sum of a row-parallel projection
+    over a mesh, reduced into the residual stream's layout ``(batch, seq,
+    None)`` before the residual add, outside decode.  Left to DTensor,
+    the partial rode the add into the next sublayer: whisper's encoder
+    reduced it at the MLP's activation onto its 1,500 frames sharded
+    unevenly 16 ways, a padded shard the next matmul could not view
+    (ROADMAP C18); and the add's backward handed the projection a
+    (batch, seq)-sharded cotangent to flatten, which torch 2.11's DTensor
+    refuses.  Reduced here, the backward gathers the sequence first."""
+    if mode == "decode":
+        return y
+    return constrain(y, rules, "batch", "seq", None)
+
+
 def _apply_layer(
     cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor, *,
     mode: str, positions: torch.Tensor, cache: dict | None = None,
@@ -293,8 +348,13 @@ def _apply_layer(
     rules: AxisRules | None = None, uniform_pos: int | None = None,
 ) -> tuple[torch.Tensor, dict | None, tuple | None]:
     """One pre-norm layer (src/repro/models/model.py:145-201): ``(x, the
-    mixer's cache, (aux, dropped_frac, topi) of an MoE MLP or None)``."""
-    h = norm(x, p["norm_mixer"], cfg)
+    mixer's cache, (aux, dropped_frac, topi) of an MoE MLP or None)``.
+
+    Outside decode, over a mesh, each sublayer reads the whole sequence
+    (:func:`_gather`) and its output joins the sequence-parallel residual
+    stream reduced (:func:`_scatter`).
+    """
+    h = _gather(norm(x, p["norm_mixer"], cfg), mode, rules)
     if spec.mixer == "attn":
         y, nc = attn_forward(
             p["attn"], h, cfg, spec, mode=mode, positions=positions,
@@ -309,16 +369,17 @@ def _apply_layer(
     else:
         y, nc = mamba_forward(p["mamba"], h, cfg, mode=mode, cache=cache,
                               last=last, rules=rules)
-    x = x + y
+    x = x + _scatter(y, mode, rules)
     moe = None
     if spec.mlp == "dense":
-        x = x + mlp_forward(p["mlp"], norm(x, p["norm_mlp"], cfg), cfg,
-                            rules=rules)
+        x = x + _scatter(mlp_forward(
+            p["mlp"], _gather(norm(x, p["norm_mlp"], cfg), mode, rules),
+            cfg, rules=rules), mode, rules)
     elif spec.mlp == "moe":
         y, aux, drop, topi = moe_forward(
-            p["moe"], norm(x, p["norm_mlp"], cfg), cfg, mode=mode,
-            rules=rules)
-        x = x + y
+            p["moe"], _gather(norm(x, p["norm_mlp"], cfg), mode, rules),
+            cfg, mode=mode, rules=rules)
+        x = x + _scatter(y, mode, rules)
         moe = (aux, drop, topi)
     if mode != "decode":
         # Decode streams are tiny (s = 1) and stay unpinned, as in the
@@ -431,6 +492,8 @@ def _unbind(tree: dict, n: int) -> list[dict]:
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor,
           rules: AxisRules | None = None) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if x.ndim == 3:  # every row (train): the whole sequence, as _gather
+        x = constrain(x, rules, "batch", None, None)
     logits = x @ head
     # (b, s, vocab), or a prefill's last row (b, vocab).
     logits = constrain(logits, rules, "batch",
