@@ -4917,14 +4917,23 @@ OPS_BACKENDS = ("cuda_core", "tensor_core")
 BUILD_ARCH, BUILD_B, BUILD_S, BUILD_STEPS = "paper-gpt2-124m", 8, 64, 8
 DRYRUN_CELL = ("gemma2-9b", "decode_32k")
 DRYRUN_TABLE_BYTES = 256000 * 3584 * 2  # gemma2-9b's bf16 embedding table
-# The other cells of tests/test_torch_dryrun_ref.py (ROADMAP C17-C20),
-# counted at one layer group, in two subprocesses: each train cell leads
-# one.
+# The other cells of tests/test_torch_dryrun_ref.py (ROADMAP C17-C22;
+# jamba's prefill and falcon's train cell left out for time), counted at
+# one layer group, in two subprocesses: each train cell leads one.
+DRYRUN_MAMBA_CELL = ("falcon-mamba-7b", "prefill_32k")
+DRYRUN_MOE_CELL = ("jamba-v0.1-52b", "long_500k")
 DRYRUN_GROUP_CELLS = (
     (("h2o-danube-3-4b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
      ("whisper-small", "prefill_32k")),
-    (("phi4-mini-3.8b", "train_4k"), ("gemma2-9b", "prefill_32k")),
+    (("phi4-mini-3.8b", "train_4k"), ("gemma2-9b", "prefill_32k"),
+     DRYRUN_MAMBA_CELL, DRYRUN_MOE_CELL),
 )
+# 2x the reference's collective bytes a device in falcon-mamba-7b's
+# prefill_32k at one group, 4,362,076,160 (tests/dryrun_ref_oracle.py on
+# jax's CPU; no jax on the card's machine), and 1% of one of jamba's
+# bf16 expert matrices: the bounds of ROADMAP C21 and C22.
+DRYRUN_MAMBA_COLLECTIVES = 2 * 4_362_076_160
+DRYRUN_STACK_BYTES = 4096 * 14336 * 2
 DRYRUN_TIMEOUT = 300
 _DRYRUN_GROUPS = """
 import json, sys, time
@@ -4933,7 +4942,7 @@ out = {}
 for arch, shape in json.loads(sys.argv[2]):
     t0 = time.perf_counter()
     try:
-        r = lower_cell(arch, shape, multi_pod=False, groups=1)
+        r = lower_cell(arch, shape, multi_pod=False, groups=1, memory=False)
         r.pop("op_names")
     except Exception as e:  # recorded per cell
         r = {"error": f"{type(e).__name__}: {e}"[:2000]}
@@ -5361,9 +5370,11 @@ def _roof_line(roof: dict) -> str:
 
 def finish_dryrun_cell(started: tuple, smi: str) -> dict:
     """10d: every subprocess exits 0 within DRYRUN_TIMEOUT of its start;
-    every cell is counted with no error, and the full-depth decode cell's
-    all-gather does not hold its embedding table (ROADMAP C16).  Each
-    cell's time is printed."""
+    every cell is counted with no error, the full-depth decode cell's
+    all-gather does not hold its embedding table (ROADMAP C16), Mamba's
+    prefill moves at most 2x the reference's collective bytes (C21) and
+    jamba's long decode gathers no expert matrix (C22).  Each cell's time
+    is printed."""
     procs, tmp, t0 = started
     errs = []
     for proc, _ in procs:
@@ -5413,6 +5424,22 @@ def finish_dryrun_cell(started: tuple, smi: str) -> dict:
                   f"{c['wall_s']:.1f}s ({c['ops_dispatched']} ops): "
                   f"{_roof_line(c['roofline'])}; torch {torch.__version__}, "
                   f"CPU, beside 10a-10c on {smi}")
+    mamba = cells["|".join(DRYRUN_MAMBA_CELL)]["roofline"]
+    if mamba["collective_bytes"] > DRYRUN_MAMBA_COLLECTIVES:
+        fail(f"phase 10d: {' '.join(DRYRUN_MAMBA_CELL)} moves "
+             f"{mamba['collective_bytes']:.4g} collective bytes a device, "
+             f"over {DRYRUN_MAMBA_COLLECTIVES:.4g}: 2x the reference's (C21)")
+    gathered = cells["|".join(DRYRUN_MOE_CELL)]["roofline"][
+        "collective_by_kind"].get("all-gather", 0)
+    if gathered >= 0.01 * DRYRUN_STACK_BYTES:
+        fail(f"phase 10d: {' '.join(DRYRUN_MOE_CELL)} all-gathers "
+             f"{gathered:.4g} bytes a device, 1% or more of an expert's "
+             f"{DRYRUN_STACK_BYTES} B matrix (C22)")
+    print(f"phase 10d: {' '.join(DRYRUN_MAMBA_CELL)} "
+          f"{mamba['collective_bytes']:.4g} collective bytes a device "
+          f"<= {DRYRUN_MAMBA_COLLECTIVES:.4g} (C21); "
+          f"{' '.join(DRYRUN_MOE_CELL)} all-gather {gathered:.4g} bytes, "
+          f"{gathered / DRYRUN_STACK_BYTES:.2e} of an expert's matrix (C22)")
     return {"wall_s": wall, "cell": r, "groups1": cells}
 
 

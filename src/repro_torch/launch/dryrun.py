@@ -173,9 +173,12 @@ def _mem_tracker(out: dict):
         out["error"] = f"{type(e).__name__}: {e}"
 
 
-def _count(kind, cfg, shape, mesh, rules, p_specs, extra) -> tuple:
+def _count(kind, cfg, shape, mesh, rules, p_specs, extra,
+           memory: bool = True) -> tuple:
     """Run the cell's step once on fake DTensors under the op counter:
-    ``(ModuleCosts, op-name counts, memory_analysis, seconds)``."""
+    ``(ModuleCosts, op-name counts, memory_analysis, seconds)``; with
+    ``memory`` once more under the memory tracker (else
+    ``memory_analysis`` is empty)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode(), _strided_shards_outside_fake():
@@ -212,8 +215,9 @@ def _count(kind, cfg, shape, mesh, rules, p_specs, extra) -> tuple:
         # A second run of its own: over the counter, the tracker would see
         # the global DTensor ops instead of the rank's local ones.
         mem: dict = {}
-        with _mem_tracker(mem):
-            run()
+        if memory:
+            with _mem_tracker(mem):
+                run()
     return counter.costs(), dict(counter.op_names), mem, seconds
 
 
@@ -224,10 +228,13 @@ def lower_cell(
     multi_pod: bool,
     do_compile: bool = True,
     groups: int | None = None,
+    memory: bool = True,
 ) -> dict:
     """One cell's record (the reference's keys); ``do_compile=False``
     stops after the state bytes.  ``groups`` cuts the counted model to
-    that many layer groups."""
+    that many layer groups.  ``memory=False`` skips the memory tracker's
+    run of the step, about 40% of a cell's time, for a caller that reads
+    only the counts (``memory_analysis`` is then empty)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     chips = 512 if multi_pod else 256
@@ -298,7 +305,7 @@ def lower_cell(
 
     costs, op_names, mem, seconds = _count(
         shape.kind, run_cfg, shape, mesh, rules, param_pspecs(run_cfg, rules),
-        extra)
+        extra, memory)
     result["compile_seconds"] = seconds
     result["memory_analysis"] = mem
     report = roofline_report(

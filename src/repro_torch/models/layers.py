@@ -47,6 +47,7 @@ rows and the partial softmaxes merge with three all-reduces.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -61,7 +62,7 @@ from repro_torch.models.partitioning import (
     PartitionSpec,
     constrain,
     is_dtensor,
-    on_full_values,
+    on_local_shards,
     spec_to_placements,
 )
 from repro_torch.vortex import _deprecation, session
@@ -761,6 +762,89 @@ def _ssm_chunk_scan(
     return h_all, h_all[:, -1]
 
 
+def _conv_seq(x_in: torch.Tensor, w: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """The causal depthwise conv over a sequence and its SiLU: x_in (b, s,
+    c), w (d_conv, c), bias (c,) -> (b, s, c) in x_in's dtype.  Each
+    channel is a group of its own, so a shard of the channels needs only
+    its own columns of ``w`` and ``bias``."""
+    dc, c = w.shape
+    xt = F.pad(x_in.float().transpose(1, 2), (dc - 1, 0))
+    xc = F.conv1d(xt, w.float().t()[:, None, :], groups=c)
+    return F.silu(xc.transpose(1, 2) + bias).to(x_in.dtype)
+
+
+def _conv_step(state: torch.Tensor, x_in: torch.Tensor, w: torch.Tensor,
+               bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode token's conv: the window of ``state`` (b, d_conv - 1, c)
+    and x_in (b, 1, c) -> (the SiLU'd output (b, 1, c) float32, the next
+    state)."""
+    window = torch.cat([state, x_in], dim=1)  # (b, dc, c)
+    xc = torch.einsum("bkd,kd->bd", window.float(), w.float()) + bias
+    return F.silu(xc)[:, None], window[:, 1:]
+
+
+def _scan_step(h0, dt, xcf, B, C, A, D, z):
+    """One decode token's selective-scan step from the state h0 (b, c, ds),
+    gated by z: ``(y (b, 1, c) in z's dtype, the next state)``."""
+    a = torch.exp(dt[:, 0, :, None] * A)
+    bx = (dt[:, 0] * xcf[:, 0])[..., None] * B[:, 0][:, None, :]
+    h = a * h0 + bx
+    y = (torch.einsum("bds,bs->bd", h, C[:, 0]) + D * xcf[:, 0])[:, None]
+    return (y * F.silu(z.float())).to(z.dtype), h
+
+
+def _scan_seq(dt, xcf, B, C, A, D, z, *, chunk: int, train: bool,
+              last: torch.Tensor | None):
+    """The selective scan over a sequence in chunks of ``chunk`` rows from
+    a zero state, gated by z: ``(y (b, s, c) in z's dtype, the state after
+    the last row)``.  With ``last`` (a prefill) ``dt`` is 0 past it, so
+    the pad rows leave the state as it is (C11); ``train`` checkpoints
+    each chunk."""
+    b, s, c = dt.shape
+    if last is not None:
+        real = torch.arange(s, device=dt.device) <= last.reshape(())
+        dt = torch.where(real[None, :, None], dt, 0.0)
+
+    def chunk_scan(h0, dt_c, x_c, B_c, C_c):
+        a = torch.exp(dt_c[..., None] * A)  # (b, L, c, ds)
+        bx = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
+        h_all, h_last = _ssm_chunk_scan(a, bx, h0)
+        return torch.einsum("blds,bls->bld", h_all, C_c), h_last
+
+    h = torch.zeros((b, c, A.shape[1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        cs = slice(c0, c0 + chunk)
+        args = (h, dt[:, cs], xcf[:, cs], B[:, cs], C[:, cs])
+        if train:
+            # Keep only the chunk's inputs; its (b, L, c, ds) scan is
+            # recomputed in the backward pass.
+            y_c, h = checkpoint(chunk_scan, *args, use_reentrant=False)
+        else:
+            y_c, h = chunk_scan(*args)
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1) + D * xcf
+    return (y * F.silu(z.float())).to(z.dtype), h
+
+
+def _in_proj_halves(w: torch.Tensor, rules: AxisRules | None):
+    """``in_proj``'s x and z column halves, each laid out on
+    ``ssm_inner`` as the whole is: gathered over the axes that split the
+    columns, cut in two, each half cut again to this rank's columns.  It
+    moves at most (d_model, 2 d_inner) of weights a rank, where slicing
+    the product would gather (b, s, 2 d_inner) of activations."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    di = w.shape[1] // 2
+    whole = w.redistribute(w.device_mesh, [
+        Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+        for q in w.placements])
+    return tuple(constrain(h, rules, "embed", "ssm_inner")
+                 for h in (whole[:, :di], whole[:, di:]))
+
+
 def mamba_forward(
     p: dict,
     x: torch.Tensor,
@@ -785,6 +869,16 @@ def mamba_forward(
     Decode takes exactly one token and updates ``conv`` and ``ssm`` in
     place.  Train scans every row, checkpoints each chunk and emits no
     state.
+
+    Over DTensors each rank keeps its own ``ssm_inner`` channels from the
+    in_proj to the out_proj, as GSPMD partitions the reference's grouped
+    conv (ROADMAP C21): the conv and the scan, each channel independent
+    of the others, run on the local shards (:func:`on_local_shards`);
+    only the x_proj's (b, s, dt_rank + 2 d_state) partial sum is reduced
+    between them, and the out_proj leaves a partial for the caller.
+    Outside decode the x and z halves come from in_proj's two column
+    halves (:func:`_in_proj_halves`); a decode's one row gathers its
+    product instead, the smaller of the two.
     """
     ssm = cfg.ssm
     b, s, d = x.shape
@@ -792,9 +886,25 @@ def mamba_forward(
     dtr = ssm.dt_rank or d // 16
     dev = x.device
 
-    xz = x @ p["in_proj"]
-    x_in, z = xz[..., :di], xz[..., di:]
+    if mode != "decode" and is_dtensor(p["in_proj"]):
+        w_x, w_z = _in_proj_halves(p["in_proj"], rules)
+        x_in, z = x @ w_x, x @ w_z
+    else:
+        # A partial sum over the width's axes (FSDP) is reduced on the
+        # rank's columns before they are gathered.
+        xz = constrain(constrain(x @ p["in_proj"], rules, "batch", None,
+                                 "ssm_inner"), rules, "batch", None, None)
+        x_in, z = xz[..., :di], xz[..., di:]
     x_in = constrain(x_in, rules, "batch", None, "ssm_inner")
+    z = constrain(z, rules, "batch", None, "ssm_inner")
+    # The layouts of the channel-sharded (b, s, d_inner) activations and
+    # of the (b, d_inner, d_state) state (unused on plain tensors).
+    lay = lay_h = None
+    if is_dtensor(x_in):
+        from torch.distributed.tensor import Shard
+
+        lay = x_in.placements
+        lay_h = tuple(Shard(1) if q == Shard(2) else q for q in lay)
 
     if mode == "decode":
         if cache is None:
@@ -807,19 +917,13 @@ def mamba_forward(
                 f"got s={s}. Feed multi-token input through mode='prefill' "
                 "(which rebuilds the conv state from the tail) instead."
             )
-        window = torch.cat([cache["conv"], x_in], dim=1)  # (b, dc, di)
-        xc = torch.einsum("bkd,kd->bd", window.float(),
-                          p["conv_w"].float()) + p["conv_b"]
-        xc = F.silu(xc)[:, None]  # (b, 1, di), float32 as the reference's
-        new_conv = window[:, 1:]
+        # float32 (b, 1, di) as the reference's
+        xc, new_conv = on_local_shards(
+            _conv_step, (lay, lay), cache["conv"], x_in, p["conv_w"],
+            p["conv_b"])
     elif mode in ("prefill", "train"):
-        xt = F.pad(x_in.float().transpose(1, 2), (dc - 1, 0))
-        # DTensor takes a conv for a tensor-parallel one and refuses the
-        # depthwise weight: over DTensors it runs on full values.
-        xc = on_full_values(
-            lambda a, w: F.conv1d(a, w, groups=di), xt,
-            p["conv_w"].float().t()[:, None, :])
-        xc = F.silu(xc.transpose(1, 2) + p["conv_b"]).to(x.dtype)
+        xc = on_local_shards(_conv_seq, (lay,), x_in, p["conv_w"],
+                             p["conv_b"])
         if mode == "prefill":
             if last is None:
                 last = torch.full((1,), s - 1, dtype=torch.long, device=dev)
@@ -830,53 +934,30 @@ def mamba_forward(
     else:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
 
-    proj = xc.to(x.dtype) @ p["x_proj"]  # (b, s, dtr + 2*ds)
+    # (b, s, dtr + 2*ds), a partial sum over the channel shards: reduced.
+    proj = constrain(xc.to(x.dtype) @ p["x_proj"], rules, "batch", None,
+                     None)
     dt_r = proj[..., :dtr]
     B = proj[..., dtr:dtr + ds].float()
     C = proj[..., dtr + ds:].float()
     dt = F.softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])  # (b, s, di)
+    dt = constrain(dt, rules, "batch", None, "ssm_inner")
     A = -torch.exp(p["A_log"].float())  # (di, ds)
     xcf = xc.float()
 
     if mode == "decode":
-        a = torch.exp(dt[:, 0, :, None] * A)
-        bx = (dt[:, 0] * xcf[:, 0])[..., None] * B[:, 0][:, None, :]
-        h = a * cache["ssm"] + bx
-        y = (torch.einsum("bds,bs->bd", h, C[:, 0])
-             + p["D"] * xcf[:, 0])[:, None]
+        y, h = on_local_shards(_scan_step, (lay, lay_h), cache["ssm"], dt,
+                               xcf, B, C, A, p["D"], z)
         cache["ssm"].copy_(h)
         cache["conv"].copy_(new_conv)
         new_cache = cache
     else:
-        if mode == "prefill":
-            # Pad rows past ``last`` leave the state as it is (C11).
-            real = torch.arange(s, device=dev) <= last.reshape(())
-            dt = torch.where(real[None, :, None], dt, 0.0)
-
-        def chunk_scan(h0, dt_c, x_c, B_c, C_c):
-            a = torch.exp(dt_c[..., None] * A)  # (b, L, di, ds)
-            bx = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
-            h_all, h_last = _ssm_chunk_scan(a, bx, h0)
-            return torch.einsum("blds,bls->bld", h_all, C_c), h_last
-
-        chunk = min(cfg.scan_chunk, s)
-        h = torch.zeros((b, di, ds), dtype=torch.float32, device=dev)
-        ys = []
-        for c0 in range(0, s, chunk):
-            cs = slice(c0, c0 + chunk)
-            args = (h, dt[:, cs], xcf[:, cs], B[:, cs], C[:, cs])
-            if mode == "train":
-                # Keep only the chunk's inputs; its (b, L, di, ds) scan is
-                # recomputed in the backward pass.
-                y_c, h = checkpoint(chunk_scan, *args, use_reentrant=False)
-            else:
-                y_c, h = chunk_scan(*args)
-            ys.append(y_c)
-        y = torch.cat(ys, dim=1) + p["D"] * xcf
-        new_cache = ({"conv": new_conv, "ssm": h} if mode == "prefill"
-                     else None)
-
-    y = (y * F.silu(z.float())).to(x.dtype)
+        scan = functools.partial(
+            _scan_seq, chunk=min(cfg.scan_chunk, s), train=mode == "train",
+            last=last if mode == "prefill" else None)
+        y, h = on_local_shards(scan, (lay, lay_h), dt, xcf, B, C, A,
+                               p["D"], z)
+        new_cache = {"conv": new_conv, "ssm": h} if mode == "prefill" else None
     return y @ p["out_proj"], new_cache
 
 
@@ -1102,7 +1183,9 @@ def _expert_ffn(
 
     # Over DTensors an FSDP-sharded expert stack is gathered on its
     # "embed" dim first: DTensor's einsum fails to take the stack sharded
-    # on both the expert and the contracted or output width.
+    # on both the expert and the contracted or output width.  A prefill's
+    # and a train step's slabs outweigh it; a decode's keep the stack
+    # sharded (:func:`_expert_ffn_local`).
     w = {k: constrain(p[k], rules, "expert", None, None)
          for k in ("w_in", "w_gate", "w_out") if k in p}
     h = torch.einsum("gecd,edf->gecf", buf, w["w_in"])
@@ -1112,6 +1195,51 @@ def _expert_ffn(
     )
     h = _glu_act(cfg, h, gate)
     return torch.einsum("gecf,efd->gecd", h, w["w_out"])
+
+
+def _embed_sharded(w: torch.Tensor) -> bool:
+    """Whether an expert stack is a DTensor sharded on its ``embed`` width
+    (dim 1 of w_in: FSDP)."""
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(w) and any(isinstance(q, Shard) and q.dim == 1
+                                 for q in w.placements)
+
+
+def _expert_ffn_local(p: dict, buf: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_expert_ffn` of a decode (no gradient) over DTensor stacks
+    sharded on the experts and, FSDP, on ``embed``: the stacks stay as
+    they lie, as the reference leaves the decode's slabs unpinned and
+    GSPMD all-reduces the activations instead of gathering the weights
+    (src/repro/models/layers.py:1054-1064; ROADMAP C22).
+
+    ``buf`` is laid out as the stacks are, the experts and the width on
+    their axes (the batch gathered where it shared one with the width),
+    and each rank runs its own experts on its own ``embed`` slice as
+    plain tensors.  The partial h and gate are reduced over the width's
+    axes before the GLU, which is not linear; the output keeps the
+    rank's slice of the width: (g, E, C, d) laid out as ``buf``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = p["w_in"].device_mesh
+    # The buf dim of each sharded stack dim: (E, d, f) -> (1, 3, -).
+    lay = [Shard({0: 1, 1: 3}[q.dim]) if isinstance(q, Shard) else Replicate()
+           for q in p["w_in"].placements]
+    part = [Partial() if q == Shard(3) else q for q in lay]
+    whole = [Replicate() if q == Shard(3) else q for q in lay]
+    xs = buf.redistribute(mesh, lay).to_local()
+
+    def project(w):
+        h = torch.einsum("gecd,edf->gecf", xs, w.to_local())
+        return DTensor.from_local(h, mesh, part, run_check=False) \
+            .redistribute(mesh, whole).to_local()
+
+    h = project(p["w_in"])
+    gate = project(p["w_gate"]) if "w_gate" in p else None
+    out = torch.einsum("gecf,efd->gecd", _glu_act(cfg, h, gate),
+                       p["w_out"].to_local())
+    return DTensor.from_local(out, mesh, lay, run_check=False)
 
 
 def _replicated(t: torch.Tensor) -> torch.Tensor:
@@ -1180,7 +1308,11 @@ def moe_forward(
         # partition over the EP axis (reference :1054-1065).
         buf = constrain(buf, rules, "batch", "expert", None, None)
     engine = session.installed_engine() if mode != "train" else None
-    out_buf = _expert_ffn(p, buf, cfg, counts, engine, rules)
+    if (s == 1 and mode != "train" and engine is None
+            and _embed_sharded(p["w_in"])):
+        out_buf = _expert_ffn_local(p, buf, cfg)
+    else:
+        out_buf = _expert_ffn(p, buf, cfg, counts, engine, rules)
     if s > 1:
         out_buf = constrain(out_buf, rules, "batch", "expert", None, None)
     out_flat = out_buf.reshape(b, E * C, d)

@@ -170,12 +170,15 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor,
     from torch.distributed.tensor import Replicate, Shard
 
     # An FSDP table is also sharded over "data", which shards the tokens'
-    # batch: the model axis's shard of the table is gathered over it
-    # first, so that the masked partial's mask and the rows it masks have
-    # one batch layout.
+    # batch: where it does, the model axis's shard of the table is
+    # gathered over it first, so that the masked partial's mask and the
+    # rows it masks have one batch layout.  Where the batch is replicated
+    # (long_500k's one row) each rank keeps its slice of the width.
+    batch = (tokens.placements if is_dtensor(tokens)
+             else [Replicate()] * table.device_mesh.ndim)
     table = table.redistribute(table.device_mesh, [
-        p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-        for p in table.placements])
+        p if isinstance(p, Shard) and (p.dim == 0 or isinstance(t, Replicate))
+        else Replicate() for p, t in zip(table.placements, batch)])
     x = torch.nn.functional.embedding(tokens, table)
     return constrain(x, rules, "batch", "seq", None)
 
@@ -323,19 +326,19 @@ def _gather(h: torch.Tensor, mode: str,
     return constrain(h, rules, "batch", None, None)
 
 
-def _scatter(y: torch.Tensor, mode: str,
-             rules: AxisRules | None) -> torch.Tensor:
+def _scatter(y: torch.Tensor, rules: AxisRules | None) -> torch.Tensor:
     """A sublayer's output, a partial sum of a row-parallel projection
     over a mesh, reduced into the residual stream's layout ``(batch, seq,
-    None)`` before the residual add, outside decode.  Left to DTensor,
-    the partial rode the add into the next sublayer: whisper's encoder
-    reduced it at the MLP's activation onto its 1,500 frames sharded
-    unevenly 16 ways, a padded shard the next matmul could not view
-    (ROADMAP C18); and the add's backward handed the projection a
-    (batch, seq)-sharded cotangent to flatten, which torch 2.11's DTensor
-    refuses.  Reduced here, the backward gathers the sequence first."""
-    if mode == "decode":
-        return y
+    None)`` before the residual add.  Left to DTensor, the partial rode
+    the add into the next sublayer: whisper's encoder reduced it at the
+    MLP's activation onto its 1,500 frames sharded unevenly 16 ways, a
+    padded shard the next matmul could not view (ROADMAP C18); and the
+    add's backward handed the projection a (batch, seq)-sharded cotangent
+    to flatten, which torch 2.11's DTensor refuses.  Reduced here, the
+    backward gathers the sequence first.  A decode's partial stream was
+    reduced anew by each reader, and an FSDP weight met it gathered over
+    "data" (C22: jamba's k and v projections); its one row is reduced
+    here too, once."""
     return constrain(y, rules, "batch", "seq", None)
 
 
@@ -350,9 +353,9 @@ def _apply_layer(
     """One pre-norm layer (src/repro/models/model.py:145-201): ``(x, the
     mixer's cache, (aux, dropped_frac, topi) of an MoE MLP or None)``.
 
-    Outside decode, over a mesh, each sublayer reads the whole sequence
-    (:func:`_gather`) and its output joins the sequence-parallel residual
-    stream reduced (:func:`_scatter`).
+    Over a mesh each sublayer's output joins the residual stream reduced
+    (:func:`_scatter`), and outside decode each reads the whole sequence
+    (:func:`_gather`).
     """
     h = _gather(norm(x, p["norm_mixer"], cfg), mode, rules)
     if spec.mixer == "attn":
@@ -369,17 +372,17 @@ def _apply_layer(
     else:
         y, nc = mamba_forward(p["mamba"], h, cfg, mode=mode, cache=cache,
                               last=last, rules=rules)
-    x = x + _scatter(y, mode, rules)
+    x = x + _scatter(y, rules)
     moe = None
     if spec.mlp == "dense":
         x = x + _scatter(mlp_forward(
             p["mlp"], _gather(norm(x, p["norm_mlp"], cfg), mode, rules),
-            cfg, rules=rules), mode, rules)
+            cfg, rules=rules), rules)
     elif spec.mlp == "moe":
         y, aux, drop, topi = moe_forward(
             p["moe"], _gather(norm(x, p["norm_mlp"], cfg), mode, rules),
             cfg, mode=mode, rules=rules)
-        x = x + _scatter(y, mode, rules)
+        x = x + _scatter(y, rules)
         moe = (aux, drop, topi)
     if mode != "decode":
         # Decode streams are tiny (s = 1) and stay unpinned, as in the

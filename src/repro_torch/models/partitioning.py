@@ -45,7 +45,7 @@ __all__ = [
     "distribute_tree",
     "constrain",
     "relayout",
-    "on_full_values",
+    "on_local_shards",
     "replicated_ops",
     "is_dtensor",
 ]
@@ -239,22 +239,43 @@ def replicated_ops(active: bool = True):
     return implicit_replication()
 
 
-def on_full_values(fn, *args):
-    """``fn(*args)`` with every DTensor argument replaced by its full
-    value (a plain tensor, the same on every rank), the result a
-    replicated DTensor on their mesh; plain arguments pass as they are.
-    Differentiable.  For an op DTensor has no rule for: each rank
-    computes the whole of it."""
+def on_local_shards(fn, outs, *args):
+    """``fn(*args)`` on this rank's shards: every DTensor argument is
+    replaced by its local tensor, and each output of ``fn`` becomes a
+    DTensor on their mesh with the placements of the matching entry of
+    ``outs`` (one placements tuple per output; a tensor output takes
+    ``outs[0]``).  Plain arguments pass as they are; with no DTensor
+    argument ``fn(*args)`` is returned as it is.
+
+    For work that keeps each shard to itself (per channel, per row): each
+    output shard depends only on the arguments' shards on the same rank.
+    Differentiable: an argument replicated on a mesh dim over which an
+    output is sharded gets a partial-sum gradient there (each rank saw
+    its part of the outputs), a sharded one its own shard's gradient."""
     dts = [a for a in args if is_dtensor(a)]
     if not dts:
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = dts[0].device_mesh
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*(a.redistribute(mesh, rep).to_local() if is_dtensor(a) else a
-               for a in args))
-    return DTensor.from_local(out, mesh, rep, run_check=False)
+    split = [any(isinstance(o[i], Shard) for o in outs)
+             for i in range(mesh.ndim)]
+
+    def local(a):
+        if not is_dtensor(a):
+            return a
+        if any(isinstance(p, Partial) for p in a.placements):
+            raise ValueError("on_local_shards takes no partial sums: "
+                             "reduce them first")
+        grads = [Partial() if isinstance(p, Replicate) and split[i] else p
+                 for i, p in enumerate(a.placements)]
+        return a.to_local(grad_placements=grads)
+
+    res = fn(*(local(a) for a in args))
+    single = torch.is_tensor(res)
+    res = [DTensor.from_local(r, mesh, o, run_check=False)
+           for r, o in zip((res,) if single else res, outs)]
+    return res[0] if single else tuple(res)
 
 
 def relayout(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
