@@ -1813,6 +1813,8 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
         on_sched(sched)
     real_prefill, real_decode = server.prefill, server.decode_vec
     per_step: list[tuple[int, int]] = []
+    # Each step's active rows and the shared cache's length it ran at.
+    step_rows: list[tuple[int, int]] = []
     secs = {"prefill": 0.0, "decode": 0.0, "copy": 0.0}
     cap: dict = {}
 
@@ -1825,6 +1827,7 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
 
     def decode_vec(cache, tokens, pos):
         active = [r.pos_next for r in sched.rows if r is not None]
+        step_rows.append((len(active), sched.kvb))
         take = compare and not cap and (
             len(set(active)) >= 2 or batch_rows == 1)
         if take:
@@ -1904,14 +1907,14 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
         fail(f"{where}: {padded} padded calls")
     if st["kv_pool"]["leases_active"] != 0:
         fail(f"{where}: kv pool leases leaked: {st['kv_pool']}")
-    rows = [len(p["pos"]) for p in sched.step_positions]
+    rows = [n for n, _ in step_rows]
     print(f"{where}: {cfg.name} n_layers={L} requests={len(reqs)} "
           f"tokens={tokens} steps={steps} rows_per_step_mean="
           f"{np.mean(rows) if rows else 0:.3f} rows_per_step={rows} "
           f"wall_s={wall:.3f} prefill_s={secs['prefill']:.3f} "
           f"decode_s={secs['decode']:.3f} "
           f"other_s={wall - secs['prefill'] - secs['decode']:.3f} "
-          f"kvb={sorted({p['kvb'] for p in sched.step_positions})} "
+          f"kvb={sorted({kvb for _, kvb in step_rows})} "
           f"graph_captures={graphs['decode_graph_captures']} "
           f"graph_replays={graphs['decode_graph_replays']} "
           f"prefill_graph_captures={graphs['prefill_graph_captures']} "
@@ -1954,7 +1957,7 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
     info = {
         "res": [res[rid] for rid in rids], "wall_s": wall, "steps": steps,
         "tokens": tokens, "rows": rows, "secs": secs, "counts": counts,
-        "logit_rel": rel, "kvb": [p["kvb"] for p in sched.step_positions],
+        "logit_rel": rel, "kvb": [kvb for _, kvb in step_rows],
     }
     if "pos" in cap:
         info["step_kv_len"] = (cap["pos"] + 1).tolist()

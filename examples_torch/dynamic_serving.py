@@ -53,16 +53,15 @@ def main() -> None:
     rids = [sched.submit(r) for r in reqs]
     res = sched.drain()
     dt = time.perf_counter() - t0
-    rows = [len(p["pos"]) for p in sched.step_positions]
-    mixed = sum(len(set(p["pos"].tolist())) > 1 for p in sched.step_positions)
+    steps = sched.stats["steps"]
     for i, (rid, r) in enumerate(zip(rids, reqs)):
         print(f"req {i:2d}: tokens {r.tokens.shape} max_new {r.max_new:2d} "
               f"-> {res[rid].shape}")
     tokens = sum(res[rid].size for rid in rids)
     print(f"\n{len(reqs)} requests, {tokens} tokens in {dt:.2f}s on "
-          f"{server.device} ({cfg.name}): {sched.stats['steps']} decode "
-          f"steps, {np.mean(rows):.2f} rows a step ({mixed} steps served "
-          f"rows at different positions), prefill buckets "
+          f"{server.device} ({cfg.name}): {steps} decode steps, "
+          f"{sched.stats['rows_stepped'] / max(steps, 1):.2f} rows a step, "
+          f"prefill buckets "
           f"{server.stats['prefill_buckets']}, decode buckets "
           f"{server.stats['decode_buckets']}")
     sched.close()

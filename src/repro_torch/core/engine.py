@@ -70,7 +70,7 @@ from repro_torch.core.selector import RuntimeSelector, Selection
 from repro_torch.core.workloads import Workload
 from repro_torch.kernels.gemm import OperandError
 from repro_torch.kernels.stage import StagePlan
-from repro_torch.runtime import faults
+from repro_torch.runtime import faults, trace
 
 __all__ = [
     "DispatchStats",
@@ -735,7 +735,9 @@ class VortexKernel:
 
     def _dispatch(self, sel: Selection, m: int, args: tuple,
                   lazy: bool = False):
-        """One dispatch attempt at a fixed Selection (a ladder rung)."""
+        """One dispatch attempt at a fixed Selection (a ladder rung).  Its
+        launch, where a full launch queue blocks the caller, is a
+        ``vx.launch`` span while the tracer is on (runtime/trace.py)."""
         wl = self._wl
         entry = self._entry_for(sel, args)
         st = self.dispatch_stats
@@ -756,7 +758,8 @@ class VortexKernel:
                 st.calls += 1
                 st.aligned_calls += 1
                 st.launches += 1
-            out = entry.run(*view, *scalars)
+            with trace.span("vx.launch"):
+                out = entry.run(*view, *scalars)
             if lazy_out:
                 return LazyBucket(out, m, wl.staged_out_axis, st,
                                   self._stats_lock)
@@ -772,7 +775,9 @@ class VortexKernel:
                 st.launches += 1
                 if wl.unstages:
                     st.folded_unstages += 1
-            return wl.finalize(sel, entry.run(*view, *scalars), *args)
+            with trace.span("vx.launch"):
+                out = entry.run(*view, *scalars)
+            return wl.finalize(sel, out, *args)
         device = view[unaligned[0]].device
         stream = _stream_key(device)
         need = tuple((i, shapes[i], view[i].dtype) for i in unaligned)
@@ -792,7 +797,8 @@ class VortexKernel:
             if wl.unstages and not lazy_out:
                 st.unstage_copies += 1
         try:
-            out = entry.run(*staged, *scalars)
+            with trace.span("vx.launch"):
+                out = entry.run(*staged, *scalars)
         finally:
             # The launch that reads the set is enqueued on this stream; the
             # pool hands the set only to callers on the same stream.  A

@@ -51,6 +51,10 @@ card, as the reference's AOT programs keep what they traced.
 Nothing else falls back: a capture or replay that fails raises.
 :func:`capture_graph` is the one call that needs the card; the CPU tests
 replace it with a stub.
+
+While the tracer is on (runtime/trace.py) each replay is recorded with
+its kind (``StepGraphs.KIND``) and, on the card, timed by a pair of CUDA
+events around it; while it is off a replay pays one attribute check.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ from typing import Callable
 import torch
 
 from repro_torch import kernels
+from repro_torch.runtime import trace
 
 __all__ = ["DecodeGraphs", "GraphMemory", "PrefillGraphs", "StepCounters",
            "StepGraph", "StepGraphs", "capture_graph"]
@@ -183,10 +188,12 @@ class StepGraphs:
     ``step(*inputs)`` is the eager step against the key's cache (it closes
     over the cache), returning the tuple of tensors a replay hands back.
     A subclass names the static inputs: ``_statics(*values)`` makes them
-    on the device, ``_fill(inputs, *values)`` refills them.
+    on the device, ``_fill(inputs, *values)`` refills them, and its
+    ``KIND``.
     """
 
     MAX_GRAPHS = 32
+    KIND: str  # the replay records' kind (runtime/trace.py)
 
     def __init__(self, engine, device: torch.device,
                  memory: GraphMemory | None = None):
@@ -269,7 +276,13 @@ class StepGraphs:
         """Fill the static inputs, replay, count one step; the static
         outputs (callers copy what they hand on)."""
         self._fill(g.inputs, *values)
-        g.graph.replay()
+        tr = trace.ACTIVE
+        if tr is None:
+            g.graph.replay()
+        else:
+            rec = tr.replay_begin(self.KIND, self.device)
+            g.graph.replay()
+            tr.replay_end(rec)
         self.counters.add(g.delta)
         return g.outputs
 
@@ -277,6 +290,8 @@ class StepGraphs:
 class DecodeGraphs(StepGraphs):
     """Decode steps: static inputs ``tokens`` (bp, 1) and ``pos`` (bp,)
     int32 (an int ``pos`` fills the vector)."""
+
+    KIND = "decode"
 
     def _statics(self, tokens, pos) -> tuple:
         inputs = (tokens.to(self.device).clone(),
@@ -302,6 +317,7 @@ class PrefillGraphs(StepGraphs):
     logits."""
 
     MAX_GRAPHS = 16
+    KIND = "prefill"
 
     def _statics(self, tokens, last) -> tuple:
         inputs = (torch.empty(tuple(tokens.shape), dtype=torch.long,

@@ -45,6 +45,12 @@ slice to the engine's background calibrator when ``EngineConfig.
 calibration`` is on (``stats["calibration_slices"]``); the donation is not
 request work, so ``drain()`` still ends when the requests do.
 
+``stats["rows_stepped"]`` sums the active rows over the decode steps.
+While the tracer is on (runtime/trace.py) each ``step()`` is a
+``vx.sched.tick`` span, each admission a ``vx.sched.admit`` span tagged
+with its request id, and each device-to-host read of tokens (a prefill's
+first tokens, a decode step's next ones) a ``vx.sched.readback`` span.
+
 Supported architectures are the uniformly-attention decoders (every mixer
 ``attn``, no cross-attention, vision prefix or encoder stack): the shared
 cache then holds only k/v leaves, whose every read goes through the kv_len
@@ -67,7 +73,7 @@ from repro_torch.launch.serve import (
     RequestError,
     VortexServer,
 )
-from repro_torch.runtime import faults
+from repro_torch.runtime import faults, trace
 from repro_torch.vortex import pow2_bucket
 
 __all__ = ["ContinuousScheduler", "batched_decode_supported"]
@@ -143,11 +149,8 @@ class ContinuousScheduler:
         self.stats = {
             "steps": 0, "launches": 0, "padded_calls": 0,
             "admitted": 0, "retired": 0, "calibration_slices": 0,
-            "request_errors": 0, "deadline_expired": 0,
+            "request_errors": 0, "deadline_expired": 0, "rows_stepped": 0,
         }
-        # Per-step active-row positions (and the bucket they ran at): one
-        # entry per batched decode step.
-        self.step_positions: list[dict] = []
 
     # -- admission queue ----------------------------------------------------
 
@@ -277,13 +280,18 @@ class ContinuousScheduler:
         per-row first token from the prefill argmax at the last real
         prompt position, cache rows copied into free slots, the transient
         per-request buffers released back to the pool."""
+        with trace.span("vx.sched.admit", rid=req.request_id):
+            self._admit_rows(req)
+
+    def _admit_rows(self, req: Request) -> None:
         if faults.ACTIVE is not None:
             faults.ACTIVE.check("scheduler_step")
         srv = self.server
         b, s = req.tokens.shape
         first, rcache, kvb_req = srv.prefill(req.tokens)
         try:
-            first = first.cpu().numpy()  # (bp,)
+            with trace.span("vx.sched.readback"):
+                first = first.cpu().numpy()  # (bp,)
             self._ensure_cache(kvb_req)
             if kvb_req > self.kvb:
                 self._grow(kvb_req)
@@ -345,6 +353,10 @@ class ContinuousScheduler:
         rows that needed the larger bucket; one in the decode step fails
         the rows that shared it.  Nothing propagates out of ``step()``.
         """
+        with trace.span("vx.sched.tick"):
+            return self._tick()
+
+    def _tick(self) -> bool:
         srv = self.server
         worked = self._retire_finished()
         worked |= self._expire_deadlines()
@@ -411,7 +423,8 @@ class ContinuousScheduler:
                 self.cache, torch.from_numpy(tok).to(dev),
                 torch.from_numpy(pos).to(dev),
             )
-            nxt = logits.argmax(-1).cpu().numpy()  # (batch_rows,)
+            with trace.span("vx.sched.readback"):
+                nxt = logits.argmax(-1).cpu().numpy()  # (batch_rows,)
         except Exception as exc:
             # Every row that shared this step resolves to a typed error.
             # Their cache rows may hold this step's k/v; the rows are freed,
@@ -421,11 +434,7 @@ class ContinuousScheduler:
             return True
         self.stats["steps"] += 1
         self.stats["launches"] += 1  # the ONE decode step this tick made
-        self.step_positions.append({
-            "kvb": self.kvb,
-            "pos": np.asarray([row.pos_next for _, row in active]),
-            "slots": np.asarray([slot for slot, _ in active]),
-        })
+        self.stats["rows_stepped"] += len(active)
         for slot, row in active:
             t = int(nxt[slot])
             row.out.append(t)

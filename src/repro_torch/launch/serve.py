@@ -41,6 +41,11 @@ replays the graphs captured for them.  ``decode_stats`` (a DispatchStats)
 counts one step per token, growth copies and pad fallbacks (always 0).  An MoE model's expert FFNs dispatch through the
 grouped-GEMM workload, with the capacity (set by the PADDED prompt length)
 as its dynamic extent; ``mean_dropped_frac`` reports the capacity drops.
+While the tracer is on (runtime/trace.py) each prefill and decode step is
+a ``vx.serve.prefill`` / ``vx.serve.decode`` span, and an MoE model's
+steps also hand out their expert choices (one more static output of a
+graph captured while it is on), whose kept assignments of the real tokens
+are counted on the device into the tracer's routing ring.
 
 Unlike the reference, the first generated token is the argmax at the last
 REAL prompt position (s - 1), not at the last padded position of the
@@ -113,7 +118,7 @@ from repro_torch.models.model import (
 from repro_torch.models.partitioning import make_rules
 from repro_torch.models.params import init_params
 from repro_torch.models.registry import get_config, get_smoke_config
-from repro_torch.runtime import faults
+from repro_torch.runtime import faults, trace
 from repro_torch.vortex import CompiledOp, Engine, EngineConfig, pow2_bucket
 
 __all__ = [
@@ -988,6 +993,10 @@ class VortexServer:
         ``seq_bucket``: one graph replay with graphs on, the eager forward
         with graphs off.  A prompt shorter than the vision prefix raises
         :class:`VisionPrefixError` before any work."""
+        with trace.span("vx.serve.prefill"):
+            return self._prefill(tokens)
+
+    def _prefill(self, tokens: np.ndarray):
         b, s = tokens.shape
         self._check_prompt(s)
         bp = self.batch_bucket(b)
@@ -1003,17 +1012,18 @@ class VortexServer:
         # graphs find the addresses they captured; with graphs off it
         # emits fresh leaves, adopted as leases (the reference's way).
         out = None if self.graphs is None else self.lease_cache(bp, kvb)
-        dropped = None
+        dropped, topi = None, ()
         try:
             if chained:
                 logits, cache = self.prefill_chained(
                     bp, sp, toks.to(self.device), last=s - 1, out_cache=out)
             elif out is None:
-                logits, dropped, cache = self._prefill_eager(
-                    None, toks.to(self.device), s - 1, kvb)
+                logits, dropped, cache, *topi = self._prefill_eager(
+                    None, toks.to(self.device), s - 1, kvb,
+                    routing=self._routing())
             else:
-                logits, dropped = self._prefill_graphed(out, toks, s - 1,
-                                                        kvb)
+                logits, dropped, *topi = self._prefill_graphed(
+                    out, toks, s - 1, kvb)
                 cache = out
         except BaseException:
             if out is not None:
@@ -1023,22 +1033,51 @@ class VortexServer:
             self.stats["chained_prefills"] += 1
         else:
             self._note_moe(dropped)
+        if topi and trace.ACTIVE is not None:
+            live = torch.zeros((bp, sp), dtype=torch.int32,
+                               device=self.device)
+            live[:b, :s] = 1
+            self._count_routing("prefill", topi[0], live)
         if out is None:
             self.adopt_cache(cache)
         return logits.argmax(-1), cache, kvb
 
     def _prefill_eager(self, cache: dict | None, tokens: torch.Tensor,
-                       last, kvb: int):
+                       last, kvb: int, routing: bool = False):
         """The eager ``"aot"`` forward: ``(first-token logits, MoE
         dropped_frac, cache)``, the cache written into ``cache`` in place
-        (with ``cache`` None, emitted fresh)."""
+        (with ``cache`` None, emitted fresh); with ``routing``, the MoE
+        layers' stacked expert choices (layers, bp, sp, top_k) last."""
         with self.engine.use():
             logits, cache, stats = prefill_step(
                 self.cfg, self.params, tokens, cache_len=kvb, last=last,
                 out_cache=cache, rules=self.rules,
                 **self._frontend(tokens.shape[0]),
             )
-        return logits, stats["dropped_frac"], cache
+        out = (logits, stats["dropped_frac"], cache)
+        return out + (torch.stack(stats["topi"]),) if routing else out
+
+    def _routing(self) -> bool:
+        """Whether a step hands out its expert choices: an MoE model while
+        the tracer is on."""
+        return trace.ACTIVE is not None and self.cfg.moe is not None
+
+    def _count_routing(self, kind: str, topi: torch.Tensor,
+                       live: torch.Tensor) -> None:
+        """File one step's kept assignments per (MoE layer, expert) with
+        the tracer, on the device.  ``topi`` (layers, b, s, top_k) are the
+        choices and ``live`` (b, s) marks the real tokens.  Each batch row
+        is a routing group whose experts admit their first
+        ``moe_capacity(s)`` assignments in (token, choice) order, and real
+        tokens precede a row's pad, so a row keeps min(its real tokens'
+        assignments, capacity) per expert."""
+        n, b, s, k = topi.shape
+        src = live[None, :, :, None].expand(n, b, s, k).reshape(n, b, s * k)
+        cnt = torch.zeros((n, b, self.cfg.moe.num_experts),
+                          dtype=torch.int32, device=topi.device)
+        cnt.scatter_add_(2, topi.reshape(n, b, s * k), src)
+        cnt.clamp_(max=moe_capacity(self.cfg, s))
+        trace.ACTIVE.routed(kind, cnt.sum(1, dtype=torch.int32))
 
     def _frontend(self, bp: int) -> dict:
         """The frontend stubs' inputs for a batch bucket, as the
@@ -1071,11 +1110,14 @@ class VortexServer:
                          kvb: int):
         bp, sp = tokens.shape
         self._frontend(bp)  # the stubs' zeros exist before the capture
+        routing = self._routing()
+
+        def step(t, i):
+            out = self._prefill_eager(cache, t, i, kvb, routing)
+            return out[:2] + out[3:]  # the cache is bound, not an output
+
         g = self.prefill_graphs.capture(
-            self._prefill_key(cache, bp, sp),
-            lambda t, i: self._prefill_eager(cache, t, i, kvb)[:2],
-            tokens, last,
-        )
+            self._prefill_key(cache, bp, sp), step, tokens, last)
         self.stats["prefill_graph_captures"] += 1
         return g
 
@@ -1083,9 +1125,10 @@ class VortexServer:
                          last: int, kvb: int | None = None):
         """The ``"aot"`` prefill as one replay of the (bp, sp, cache)
         graph, captured at the key's first use: ``(first-token logits,
-        dropped_frac)``, the graph's static outputs (read them before the
-        next replay).  ``kvb`` is the cache's length (default: its
-        sequence-axis leaves')."""
+        dropped_frac)`` and, from a graph captured while an MoE model's
+        routing was handed out, the expert choices: the graph's static
+        outputs (read them before the next replay).  ``kvb`` is the
+        cache's length (default: its sequence-axis leaves')."""
         bp, sp = tokens.shape
         g = self.prefill_graphs.get(self._prefill_key(cache, bp, sp))
         if g is None:
@@ -1110,37 +1153,57 @@ class VortexServer:
         return self._decode(cache, tokens, pos, self._decode_vec_seen)
 
     def _decode(self, cache: dict, tokens: torch.Tensor, pos, seen: set,
-                kvb: int | None = None):
+                kvb: int | None = None, rows: int | None = None):
         """One decode step of every row (``pos`` an int or (bp,)) against
         a cache of length ``kvb`` (default: its sequence-axis leaves'; a
         Mamba-only cache has none), counted on ``seen``'s (bp, kvb) keys;
         returns the logits, a tensor the caller owns.  With graphs on the
         step is one replay of the key's graph, captured at the key's first
-        step."""
+        step.  With the tracer on, an MoE step's routing is counted over
+        its real rows: those at ``pos > 0`` for a vector ``pos`` (the
+        scheduler's free slots ride at 0), the first ``rows`` (default:
+        all) for an int."""
+        with trace.span("vx.serve.decode"):
+            return self._decode_step(cache, tokens, pos, seen, kvb, rows)
+
+    def _decode_step(self, cache, tokens, pos, seen, kvb, rows):
         bp = tokens.shape[0]
         if kvb is None:
             kvb = self._cache_len(cache)
         self._note(seen, (bp, kvb), "decode_buckets", "decode_bucket_hits")
         if self.graphs is None:
-            logits, dropped = self._step(cache, tokens, pos)
+            logits, dropped, *topi = self._step(cache, tokens, pos,
+                                                self._routing())
         else:
             key = self._graph_key(cache, bp, pos, kvb)
             g = self.graphs.get(key)
             if g is None:
                 g = self._capture(cache, tokens, pos, kvb)
-            logits, dropped = self.graphs.replay(g, tokens, pos)
+            logits, dropped, *topi = self.graphs.replay(g, tokens, pos)
             self.stats["decode_graph_replays"] += 1
             logits = logits.clone()  # never hand out the static output
         self._note_moe(dropped)
+        if topi and trace.ACTIVE is not None:
+            if torch.is_tensor(pos):
+                live = pos > 0
+            else:
+                live = torch.arange(bp, device=self.device) < (
+                    bp if rows is None else rows)
+            self._count_routing("decode", topi[0],
+                                live.to(torch.int32)[:, None])
         return logits
 
-    def _step(self, cache: dict, tokens: torch.Tensor, pos):
-        """The eager decode step: ``(logits, MoE dropped_frac)``."""
+    def _step(self, cache: dict, tokens: torch.Tensor, pos,
+              routing: bool = False):
+        """The eager decode step: ``(logits, MoE dropped_frac)``, and with
+        ``routing`` the MoE layers' stacked expert choices (layers, bp,
+        1, top_k)."""
         with self.engine.use():
             logits, _, stats = decode_step(
                 self.cfg, self.params, cache, tokens, pos, rules=self.rules
             )
-        return logits, stats["dropped_frac"]
+        out = (logits, stats["dropped_frac"])
+        return out + (torch.stack(stats["topi"]),) if routing else out
 
     def _graph_key(self, cache: dict, bp: int, pos,
                    kvb: int | None = None) -> tuple:
@@ -1157,9 +1220,11 @@ class VortexServer:
         # before the capture, so the replay advances it once.
         state = [leaf for entry in cache.values() if isinstance(entry, dict)
                  for name, leaf in entry.items() if name in ("conv", "ssm")]
+        routing = self._routing()
         g = self.graphs.capture(
             self._graph_key(cache, tokens.shape[0], pos, kvb),
-            lambda t, p: self._step(cache, t, p), tokens, pos, state=state,
+            lambda t, p: self._step(cache, t, p, routing), tokens, pos,
+            state=state,
         )
         self.stats["decode_graph_captures"] += 1
         return g
@@ -1188,7 +1253,7 @@ class VortexServer:
                 else:
                     st.aligned_calls += 1
                 logits = self._decode(cache, tok[:, None], pos,
-                                      self._decode_seen, kvb)
+                                      self._decode_seen, kvb, rows=b)
                 st.launches += 1
                 tok = logits.argmax(-1)
                 out.append(tok.cpu().numpy())

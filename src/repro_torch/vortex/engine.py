@@ -25,6 +25,7 @@ from repro_torch.core.analyzer import (
 from repro_torch.core.engine import VortexKernel
 from repro_torch.core.hardware import get_hardware
 from repro_torch.core.workloads import WORKLOADS, Workload, make_workload
+from repro_torch.runtime import trace
 from repro_torch.vortex.config import EngineConfig
 from repro_torch.vortex.handle import CompiledOp
 
@@ -262,8 +263,11 @@ class Engine:
         :class:`~repro_torch.core.engine.LazyBucket` handles), ``kwargs``
         the workload parameters.  ``lazy=True`` asks for the output as a
         LazyBucket handle -- best-effort, see ``VortexKernel.__call__``.
-        This is what ``vortex.ops.<kind>(...)`` invokes."""
-        return self.op_kernel(kind, args, kwargs)(*args, lazy=lazy)
+        This is what ``vortex.ops.<kind>(...)`` invokes; a ``vx.dispatch``
+        span while the tracer is on (runtime/trace.py), whose kernel
+        launch is a ``vx.launch`` span inside it."""
+        with trace.span("vx.dispatch"):
+            return self.op_kernel(kind, args, kwargs)(*args, lazy=lazy)
 
     # -- introspection ------------------------------------------------------
 

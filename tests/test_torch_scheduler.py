@@ -70,6 +70,21 @@ def _serial(server, reqs):
     return [server.generate(r) for r in reqs]
 
 
+def _record_steps(monkeypatch, server, sched) -> list[dict]:
+    """Each batched step's active-row positions and the shared cache's
+    length it ran at, read where the scheduler calls ``decode_vec``."""
+    steps: list[dict] = []
+    real = server.decode_vec
+
+    def decode_vec(cache, tokens, pos):
+        steps.append({"kvb": sched.kvb, "pos": np.asarray(
+            [r.pos_next for r in sched.rows if r is not None])})
+        return real(cache, tokens, pos)
+
+    monkeypatch.setattr(server, "decode_vec", decode_vec)
+    return steps
+
+
 def _assert_clean(server, sched):
     assert sched.stats["launches"] == sched.stats["steps"]
     assert sched.stats["padded_calls"] == 0
@@ -78,7 +93,7 @@ def _assert_clean(server, sched):
     assert pool["leases_active"] == 0, pool
 
 
-def test_batched_matches_serial_token_identical(server):
+def test_batched_matches_serial_token_identical(server, monkeypatch):
     """Five concurrent requests of 1-2 rows at mixed prompt lengths, four
     slots: batched greedy decode reproduces the serial tokens, with at
     least one genuinely mixed-progress step, and every attention layer
@@ -91,12 +106,14 @@ def test_batched_matches_serial_token_identical(server):
 
     before = server.engine.stats()["decode_attention"]["launches"]
     sched = ContinuousScheduler(server, batch_rows=4)
+    steps = _record_steps(monkeypatch, server, sched)
     rids = [sched.submit(r) for r in reqs]
     res = sched.drain()
     for rid, ser in zip(rids, serial):
         assert np.array_equal(res[rid], ser), rid
+    assert len(steps) == sched.stats["steps"]
     mixed = [
-        s for s in sched.step_positions
+        s for s in steps
         if len(set(s["pos"].tolist())) >= 2
     ]
     assert mixed, "no step ever served two rows at different positions"
@@ -105,7 +122,7 @@ def test_batched_matches_serial_token_identical(server):
     _assert_clean(server, sched)
 
 
-def test_bucket_boundary_staggering(server):
+def test_bucket_boundary_staggering(server, monkeypatch):
     """Rows at kvb-1 / kvb / kvb+1 in ONE step: three prompts at adjacent
     lengths cross the first kv bucket boundary together, so one step
     serves a row inside the old bucket, one at it and one past it; the
@@ -124,15 +141,16 @@ def test_bucket_boundary_staggering(server):
     serial = _serial(server, reqs)
 
     sched = ContinuousScheduler(server, batch_rows=4)
+    steps = _record_steps(monkeypatch, server, sched)
     rids = [sched.submit(r) for r in reqs]
     res = sched.drain()
     for rid, ser in zip(rids, serial):
         assert np.array_equal(res[rid], ser), rid
     straddled = [
-        s for s in sched.step_positions
+        s for s in steps
         if {boundary - 1, boundary, boundary + 1} <= set(s["pos"].tolist())
     ]
-    assert straddled, [sorted(s["pos"].tolist()) for s in sched.step_positions]
+    assert straddled, [sorted(s["pos"].tolist()) for s in steps]
     # The straddling step ran at the GROWN bucket (one step, one shape).
     assert all(s["kvb"] > boundary for s in straddled)
     _assert_clean(server, sched)
