@@ -1074,17 +1074,22 @@ def phase_fold(dev, kernels, small: bool = False, tail: int = 4096) -> dict:
 @contextlib.contextmanager
 def grouped_launches_by_form(kernels, server, per_form: dict):
     """Count the grouped-GEMM launches of every prefill and decode step
-    the server makes (``per_form``) and check each step's count.  A
+    the server makes (``per_form``; ``<form>_stacked`` the tensor-core
+    launches whose m-tiles stack groups) and check each step's count.  A
     graphed decode step counts the launches its replay adds (the ones its
     capture recorded)."""
     real = {"prefill": server.prefill, "decode": server._decode}
 
     def counted(form):
         def step(*args, **kwargs):
-            n0 = kernels.launch_counts()["vortex_grouped_gemm"]
+            c0 = kernels.launch_counts()
             out = real[form](*args, **kwargs)
-            n = kernels.launch_counts()["vortex_grouped_gemm"] - n0
+            c1 = kernels.launch_counts()
+            n = c1["vortex_grouped_gemm"] - c0["vortex_grouped_gemm"]
             per_form[form] += n
+            per_form[f"{form}_stacked"] = per_form.get(f"{form}_stacked", 0) + (
+                c1["vortex_grouped_gemm.stacked"]
+                - c0["vortex_grouped_gemm.stacked"])
             per_form[f"{form}_forwards"] += 1
             per_form["per_forward"].add(n)
             return out
@@ -1200,7 +1205,9 @@ def phase_serve(dev, kernels, arch: str) -> dict:
         gg = st["grouped_gemm"]
         dropped = server.mean_dropped_frac()
         print(f"grouped_gemm: launches prefill={per_form['prefill']} "
-              f"decode={per_form['decode']} per forward="
+              f"decode={per_form['decode']} stacked prefill="
+              f"{per_form.get('prefill_stacked', 0)} decode="
+              f"{per_form.get('decode_stacked', 0)} per forward="
               f"{sorted(per_form['per_forward'])} engine={gg} "
               f"mean dropped_frac={dropped:.6f}")
         if (per_form["prefill"] != per_layer * len(reqs)
@@ -1818,11 +1825,17 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
     secs = {"prefill": 0.0, "decode": 0.0, "copy": 0.0}
     cap: dict = {}
 
+    stacked = {"prefill": set(), "decode": set()}  # stacked grouped launches
+
     def prefill(tokens):
+        n0 = kernels.launch_counts()["vortex_grouped_gemm.stacked"]
         t = time.perf_counter()
         out = real_prefill(tokens)
         torch.cuda.synchronize()
         secs["prefill"] += time.perf_counter() - t
+        stacked["prefill"].add((
+            server.batch_bucket(tokens.shape[0]),
+            kernels.launch_counts()["vortex_grouped_gemm.stacked"] - n0))
         return out
 
     def decode_vec(cache, tokens, pos):
@@ -1852,6 +1865,8 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
             n["flash_attention_decode.split_kv"]
             - n0["flash_attention_decode.split_kv"],
         ))
+        stacked["decode"].add(n["vortex_grouped_gemm.stacked"]
+                              - n0["vortex_grouped_gemm.stacked"])
         if take:
             cap["logits"] = logits.clone()
         return logits
@@ -1907,6 +1922,15 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
         fail(f"{where}: {padded} padded calls")
     if st["kv_pool"]["leases_active"] != 0:
         fail(f"{where}: kv pool leases leaked: {st['kv_pool']}")
+    # Every MoE projection of a batched bf16 decode step stacks its one-row
+    # groups (r = batch_rows, C = 1); a one-row prefill is one group.
+    n_moe = cfg.n_groups * sum(sp.mlp == "moe" for sp in cfg.pattern)
+    want = 3 * n_moe if batch_rows > 1 and cfg.dtype == "bfloat16" else 0
+    one_row = {n for bp, n in stacked["prefill"] if bp == 1}
+    if stacked["decode"] - {want} or one_row - {0}:
+        fail(f"{where}: stacked grouped-GEMM launches a decode step "
+             f"{sorted(stacked['decode'])} (expected {want}), a one-row "
+             f"prefill {sorted(one_row)} (expected 0)")
     rows = [n for n, _ in step_rows]
     print(f"{where}: {cfg.name} n_layers={L} requests={len(reqs)} "
           f"tokens={tokens} steps={steps} rows_per_step_mean="
@@ -1919,6 +1943,9 @@ def serve_scheduled(kernels, server, reqs, *, batch_rows: int, where: str,
           f"graph_replays={graphs['decode_graph_replays']} "
           f"prefill_graph_captures={graphs['prefill_graph_captures']} "
           f"prefill_graph_replays={graphs['prefill_graph_replays']} "
+          f"stacked grouped launches a prefill (bp, n)="
+          f"{sorted(stacked['prefill'])} "
+          f"a decode step={sorted(stacked['decode'])} "
           f"kernel_launches={counts} kv_pool={st['kv_pool']}")
 
     rel = None
@@ -2453,7 +2480,9 @@ def phase_mla_mamba(dev, kernels, errs, smi: str) -> dict:
               f"{steps} decode steps, each one replay; attention launches "
               f"prefill={counts['flash_attention_prefill']} decode="
               f"{counts['flash_attention_decode']}; grouped launches "
-              f"prefill={per_form['prefill']} decode={per_form['decode']}; "
+              f"prefill={per_form['prefill']} decode={per_form['decode']} "
+              f"(stacked {per_form.get('prefill_stacked', 0)}, "
+              f"{per_form.get('decode_stacked', 0)}); "
               f"mean dropped_frac={server.mean_dropped_frac():.6f}")
         res = {"cfg": cfg, "counts": counts, "per_form": per_form,
                "wall_s": wall, "tokens": sum(o.size for o in outs),
@@ -3237,12 +3266,14 @@ def routed_counts(g, bp: int, s: int, E: int, k: int, C: int) -> list[int]:
 
 def grouped_rows(dev, moe_info, errs, g, tag: str = "", gw=None) -> list:
     """Rows for the grouped GEMM's prefill and decode forms at the shapes
-    an MoE server gave the kernel (its first projection), each held
-    against the plain version first.  The routing counts draw from ``g``,
-    the operands from ``gw`` (default ``g``; a generator on the card
-    draws a large expert stack there)."""
+    an MoE server gave the kernel (its first projection: the slabs at
+    their true capacity C, as the engine launches the bucket's kernel on
+    them), each held against the plain version first.  The routing counts
+    draw from ``g``, the operands from ``gw`` (default ``g``; a generator
+    on the card draws a large expert stack there)."""
     from repro_torch.core.workloads import GroupedGemmWorkload
     from repro_torch.kernels.grouped_gemm import (
+        stacked_grid,
         vortex_grouped_gemm,
         vortex_grouped_gemm_plain,
     )
@@ -3269,12 +3300,14 @@ def grouped_rows(dev, moe_info, errs, g, tag: str = "", gw=None) -> list:
         bm, bn, bk = sel.strategy.l1
         be = sel.strategy.backend
         counts = routed_counts(g, bp, s, E, k, C)
-        x = torch.randn(G, cp, d, generator=gw, device=gw.device).to(dev, dt)
+        x = torch.randn(G, C, d, generator=gw, device=gw.device).to(dev, dt)
         for i, n in enumerate(counts):
-            x[i, n:] = float("nan")  # staged routing pad
+            x[i, n:] = float("nan")  # routing pad
         cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
-        rows_valid = torch.arange(cp, device=dev)[None, :] < cnt[:, None]
-        xm = torch.where(rows_valid[..., None], x, 0.0).reshape(E, r * cp, d)
+        rows_valid = torch.arange(C, device=dev)[None, :] < cnt[:, None]
+        xm = torch.where(rows_valid[..., None], x, 0.0).reshape(E, r * C, d)
+        stacked = stacked_grid(G, E, C, bm).stacked if be == "tensor_core" \
+            else False
 
         def kernel_call():
             return vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
@@ -3286,7 +3319,7 @@ def grouped_rows(dev, moe_info, errs, g, tag: str = "", gw=None) -> list:
         errs["vortex_grouped_gemm"] = max(errs["vortex_grouped_gemm"], err)
         valid = sum(counts)
         used = sum(1 for e in range(E) if any(counts[e * r:(e + 1) * r]))
-        nbytes = 2 * (valid * d + used * d * fe + G * cp * fe) + 4 * G
+        nbytes = 2 * (valid * d + used * d * fe + G * C * fe) + 4 * G
         bnd, by = bound_ms(nbytes, 2.0 * valid * d * fe, dt)
         rows.append(timed(
             {
@@ -3296,9 +3329,10 @@ def grouped_rows(dev, moe_info, errs, g, tag: str = "", gw=None) -> list:
                 "launches": moe_info["per_form"][form],
                 "max_abs_err": errs["vortex_grouped_gemm"],
                 "bound_ms": bnd, "bound_by": by,
-                "shape": f"{cfg.name} x=({G},{cp},{d}) w=({E},{d},{fe}) "
-                         f"C={C} rows={valid} experts={used} "
-                         f"blocks=({bm},{bn},{bk}) {be} bf16",
+                "shape": f"{cfg.name} x=({G},{C},{d}) in a {cp}-row "
+                         f"bucket w=({E},{d},{fe}) rows={valid} "
+                         f"experts={used} blocks=({bm},{bn},{bk}) {be} "
+                         f"stacked={stacked} bf16",
             },
             ms=kernel_call,
             plain_ms=lambda: vortex_grouped_gemm_plain(x, w, cnt),
@@ -3933,7 +3967,7 @@ def phase_served_calibration(dev, kernels, smi: str) -> dict:
             times = {}
             for which, p in picks.items():
                 bm, bn, bk = p.strategy.l1
-                x = torch.randn(G, p.padded_m, d, generator=g).to(dev, dt)
+                x = torch.randn(G, C, d, generator=g).to(dev, dt)
                 for i, n in enumerate(counts):
                     x[i, n:] = float("nan")
 

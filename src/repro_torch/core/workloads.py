@@ -493,10 +493,16 @@ class GroupedGemmWorkload(Workload):
     ride into the kernel as a ``(G,)`` int32 DEVICE vector, and one launch
     covers all G groups at any routing skew.
 
-    Selection prices the per-group ``(C, N, K)`` view: G multiplies every
-    candidate's time alike, so the per-group argmin is the whole-launch
-    argmin and the gemm lattice applies verbatim (``lattice_key`` is the
-    literal gemm signature).  :meth:`flops` reports the G-scaled work.
+    Selection prices the per-group ``(C, N, K)`` view, as the reference
+    does: the gemm lattice applies verbatim (``lattice_key`` is the
+    literal gemm signature) and the per-group argmin is taken as the
+    launch's tile.  That is kept on purpose, though it is no longer the
+    launch's geometry: on the card the tensor-core kernel tiles M over each
+    expert's ``r*C`` stacked rows where that takes fewer m-tiles
+    (kernels/grouped_gemm.py ``stacked_grid``), so G does not multiply
+    every candidate's time alike.  Pricing the stacked view would be a
+    change to selection of its own.  :meth:`flops` reports the G-scaled
+    work.
 
     Call signature: ``grouped_gemm(x, w, counts)``.  Rows of ``x[g]`` at
     or past ``counts[g]`` may hold anything; the matching output rows are

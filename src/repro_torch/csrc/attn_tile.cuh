@@ -1,6 +1,6 @@
 // Device helpers of the tensor-core attention kernel (csrc/attention_tc.cu).
 //
-// The GEMM's wgmma helpers (csrc/tc_tile.cuh) are fixed to one form: A and B
+// The GEMMs' wgmma helpers (csrc/wgmma.cuh) are fixed to one form: A and B
 // from shared-memory descriptors, A K-major, B N-major.  Attention needs two
 // others:
 //
@@ -29,7 +29,7 @@
 //   is its N (SBO).
 //
 // The copy, fence and descriptor primitives are csrc/sm90.cuh's, shared with
-// the GEMMs' tc_tile.cuh.
+// the GEMMs' wgmma.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,6 +1,6 @@
 // Copy, fence and descriptor primitives shared by the wgmma kernels' device
-// headers (csrc/tc_tile.cuh for the GEMMs, csrc/attn_tile.cuh for
-// attention), for sm_90a.
+// headers (csrc/wgmma.cuh and csrc/tc_tile.cuh for the GEMMs,
+// csrc/attn_tile.cuh for attention), for sm_90a.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,4 +1,6 @@
-// Tensor-core tile shared by csrc/gemm.cu and csrc/grouped_gemm.cu (sm_90a).
+// Tensor-core tile of csrc/gemm.cu (sm_90a).  The wgmma wrappers, the plan
+// check and the built variants are csrc/wgmma.cuh's, which the stacked
+// grouped kernel (csrc/grouped_gemm.cu) shares; its tile loop is its own.
 //
 // One CTA computes one selected layer-1 tile (block_m, block_n, block_k) of
 // out[g] = x[g] @ w[g / r] (G = 1, r = 1 for the plain GEMM) in bf16 with f32
@@ -44,12 +46,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "wgmma.cuh"
 
 namespace {
 namespace tc {
-
-constexpr int kMaxThreads = 4 * kWarpgroup;
 
 struct Args {
   const __nv_bfloat16* x;  // (G, rows, K) row-major
@@ -60,90 +60,6 @@ struct Args {
   int block_m, block_n, block_k;
   int wm, wn, stages;
   int vec_x, vec_w, vec_out;  // 16-byte copies allowed (aligned rows)
-};
-
-// wgmma.mma_async m64nNk16, f32 += bf16 (A K-major, B N-major), on the
-// 64 x N accumulator fragment d (N / 2 floats a thread).
-template <int N> struct Wgmma;
-
-template <> struct Wgmma<8> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(1)
-        : "memory");
-  }
-};
-
-template <> struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(1)
-        : "memory");
-  }
-};
-
-template <> struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(1)
-        : "memory");
-  }
-};
-
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1)
-        : "memory");
-  }
-};
-
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1)
-        : "memory");
-  }
 };
 
 // Fills one ring slot with k-step k0 / block_k: the first a_rows rows of the
@@ -339,44 +255,29 @@ int launch_variant(const Args& p, dim3 grid, int threads, int smem, cudaStream_t
   return (int)cudaGetLastError();
 }
 
+struct DenseLaunch {
+  const Args& p;
+  dim3 grid;
+  int threads, smem;
+  cudaStream_t s;
+  template <int NW, int A> int run() const {
+    return launch_variant<NW, A>(p, grid, threads, smem, s);
+  }
+};
+
 // Launches the tile plan (wm, wn, nw, atoms, stages, smem) over G groups of
 // p.gm m-tiles each: grid = (G * gm, cdiv(N, block_n)).  A plan that does
 // not describe the tile, or a variant that is not built, is refused with
 // cudaErrorInvalidValue before anything runs.
 inline int launch(Args p, int G, int nw, int atoms, int smem, cudaStream_t s) {
-  const int bm = p.block_m, bn = p.block_n, bk = p.block_k;
-  const int wgs = p.wm * p.wn;
-  if (bm <= 0 || bn <= 0 || bk <= 0 || p.wm <= 0 || p.wn <= 0 || wgs > 4 || nw <= 0 ||
-      bm % (64 * p.wm) || bn % (8 * p.wn) || bk % 16 || (bn / p.wn) % nw ||
-      atoms != (bm / p.wm / 64) * (bn / p.wn / nw) || p.stages < 2 || p.stages > 4)
-    return (int)cudaErrorInvalidValue;
-  const int64_t stage = 2LL * ((int64_t)bm * bk + (int64_t)bk * bn);
-  const int64_t stage_out = 2LL * bm * (bn + 8);
-  const int64_t need = p.stages * stage > stage_out ? p.stages * stage : stage_out;
-  if (smem < need || smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  if (atoms > 8) return (int)cudaErrorInvalidValue;  // keeps the variant key unambiguous
+  if (const int e = check_plan(p.block_m, p.block_n, p.block_k, p.wm, p.wn, p.stages, nw,
+                               atoms, smem))
+    return e;
   const int64_t blocks_x = (int64_t)G * p.gm;
-  const int blocks_y = (p.N + bn - 1) / bn;
+  const int blocks_y = (p.N + p.block_n - 1) / p.block_n;
   if (blocks_x > 2147483647LL || blocks_y > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks_x, blocks_y);
-  const int threads = wgs * kWarpgroup;
-  switch (nw * 16 + atoms) {
-    case 8 * 16 + 1: return launch_variant<8, 1>(p, grid, threads, smem, s);
-    case 8 * 16 + 2: return launch_variant<8, 2>(p, grid, threads, smem, s);
-    case 8 * 16 + 4: return launch_variant<8, 4>(p, grid, threads, smem, s);
-    case 8 * 16 + 8: return launch_variant<8, 8>(p, grid, threads, smem, s);
-    case 16 * 16 + 1: return launch_variant<16, 1>(p, grid, threads, smem, s);
-    case 16 * 16 + 2: return launch_variant<16, 2>(p, grid, threads, smem, s);
-    case 16 * 16 + 4: return launch_variant<16, 4>(p, grid, threads, smem, s);
-    case 16 * 16 + 8: return launch_variant<16, 8>(p, grid, threads, smem, s);
-    case 32 * 16 + 1: return launch_variant<32, 1>(p, grid, threads, smem, s);
-    case 32 * 16 + 2: return launch_variant<32, 2>(p, grid, threads, smem, s);
-    case 32 * 16 + 4: return launch_variant<32, 4>(p, grid, threads, smem, s);
-    case 64 * 16 + 1: return launch_variant<64, 1>(p, grid, threads, smem, s);
-    case 64 * 16 + 2: return launch_variant<64, 2>(p, grid, threads, smem, s);
-    case 128 * 16 + 1: return launch_variant<128, 1>(p, grid, threads, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_variant(nw, atoms, DenseLaunch{p, dim3((unsigned)blocks_x, blocks_y),
+                                             p.wm * p.wn * kWarpgroup, smem, s});
 }
 
 }  // namespace tc

@@ -42,7 +42,7 @@ BACKENDS = ("tensor_core", "cuda_core")
 TENSOR_CORE_ATOM = (64, 8, 16)  # wgmma m64nNk16, bf16
 SMEM_PER_BLOCK = 232448  # the most shared memory one block may use
 _MAX_STAGES = 4
-# (atom width, atoms per warpgroup) pairs built in csrc/tc_tile.cuh: at most
+# (atom width, atoms per warpgroup) pairs built in csrc/wgmma.cuh: at most
 # 64 f32 accumulators a thread.
 _TC_VARIANTS = frozenset({
     (8, 1), (8, 2), (8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (16, 8),

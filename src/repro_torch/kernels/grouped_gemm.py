@@ -12,12 +12,20 @@ and the selected tile (block_m, block_n, block_k) is honoured verbatim.
 Bound on the H100: the bytes of the expert weights and the output (see
 the note in csrc/grouped_gemm.cu).  The kernel has the same two paths as
 csrc/gemm.cu: a wgmma tile on a cp.async ring for bf16 at a
-``tensor_core`` strategy, f32 FMAs on the CUDA cores otherwise.  A tensor
-on the CPU takes :func:`vortex_grouped_gemm_plain`; a CUDA tensor launches
-the kernel or raises.  ``counts`` stays on the device: the kernel reads it there, so
+``tensor_core`` strategy, f32 FMAs on the CUDA cores otherwise.  The
+tensor-core path tiles M over each expert's stacked rows: x ``(G, C, K)``
+is the ``(E, r*C, K)`` tensor, so one m-tile may hold rows of several
+groups of one expert and each expert's weight strip is read once for all
+of them, wherever that takes fewer m-tiles (:func:`stacked_grid`).  A decode, whose every batch row is its
+own one-row group, gains the most; with ``r = 1`` the launch is one
+group's per m-tile, as on the CUDA-core path.  A tensor on the CPU takes
+:func:`vortex_grouped_gemm_plain`; a CUDA tensor launches the kernel or
+raises.  ``counts`` stays on the device: the kernel reads it there, so
 the wrapper never waits for routing to finish.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,17 +33,43 @@ from repro_torch.kernels.gemm import (OperandError, check_backend, kernel_path,
                                       validate_blocks)
 from repro_torch.kernels.ref import ref_grouped_gemm
 
-__all__ = ["vortex_grouped_gemm", "vortex_grouped_gemm_plain", "LAUNCHES"]
+__all__ = [
+    "vortex_grouped_gemm", "vortex_grouped_gemm_plain", "stacked_grid",
+    "StackedGrid", "LAUNCHES",
+]
 
 # Launches of the CUDA kernel, counted where it is launched and nowhere
-# else: the total, and each path (``kernel_path``) on its own.
+# else: the total, each path (``kernel_path``) on its own, and the
+# tensor-core launches whose m-tiles stack groups (``stacked_grid``).
 # chip_smoke.py zeroes them around the main path.
 LAUNCHES = {
     "vortex_grouped_gemm": 0, "vortex_grouped_gemm.tensor_core": 0,
-    "vortex_grouped_gemm.cuda_core": 0,
+    "vortex_grouped_gemm.cuda_core": 0, "vortex_grouped_gemm.stacked": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class StackedGrid(NamedTuple):
+    """The m-extent of a tensor-core launch (``m_tiles``, the grid's x) and
+    whether some m-tile holds rows of more than one group (``stacked``)."""
+
+    m_tiles: int
+    stacked: bool
+
+
+def stacked_grid(G: int, E: int, C: int, block_m: int) -> StackedGrid:
+    """The tensor-core path's m-tiles.  Stacked, each walks one expert's
+    ``r*C`` rows (``r = G // E`` groups of ``C``): ``E * cdiv(r*C, block_m)``
+    of them.  A launch stacks where that is fewer than one group a tile,
+    ``G * cdiv(C, block_m)``, which needs ``r > 1`` and ``C % block_m != 0``
+    (a tile then holds rows of more than one group) and fails where the
+    remainder of ``C`` is most of a tile (``r = 2`` and ``C % block_m >
+    block_m / 2``); otherwise the launch keeps one group a tile."""
+    r = G // E
+    per_expert = E * -(-(r * C) // block_m)
+    per_group = G * -(-C // block_m)
+    return StackedGrid(min(per_expert, per_group), per_expert < per_group)
 
 
 def vortex_grouped_gemm_plain(x, w, counts) -> torch.Tensor:
@@ -64,9 +98,10 @@ def vortex_grouped_gemm(
     ``backend`` is the selected strategy's backend, validated with the
     tile on every device as in :func:`~repro_torch.kernels.gemm.vortex_gemm`.
     On the card the path is fixed before the launch: bf16 at
-    ``tensor_core`` runs wgmma on a cp.async ring; ``cuda_core``, and
-    float32 at either backend, run f32 FMAs on the CUDA cores (Hopper has
-    no exact f32 tensor-core product).
+    ``tensor_core`` runs wgmma on a cp.async ring over each expert's
+    stacked rows (:func:`stacked_grid`); ``cuda_core``, and float32 at
+    either backend, run f32 FMAs on the CUDA cores (Hopper has no exact f32
+    tensor-core product) with one group per m-tile.
     """
     G, C, K = x.shape
     E, K2, N = w.shape
@@ -130,4 +165,6 @@ def vortex_grouped_gemm(
         )
     LAUNCHES["vortex_grouped_gemm"] += 1
     LAUNCHES[f"vortex_grouped_gemm.{path}"] += 1
+    if path == "tensor_core" and stacked_grid(G, E, C, block_m).stacked:
+        LAUNCHES["vortex_grouped_gemm.stacked"] += 1
     return out

@@ -41,6 +41,7 @@ from repro_torch.kernels.gemm import (
     vortex_gemm_plain,
 )
 from repro_torch.kernels.grouped_gemm import (
+    stacked_grid,
     vortex_grouped_gemm,
     vortex_grouped_gemm_plain,
 )
@@ -525,6 +526,40 @@ def test_grouped_gemm_rejects_bad_shapes_and_blocks():
         vortex_grouped_gemm(torch.zeros(4, 4, 8), w, [4] * 4, block_n=0)
 
 
+# (G, E, C, block_m) -> (m-tiles, stacked): granite's 32-row decode (one-row
+# groups, 32 per expert), its one-group prefill, a tile that crosses group
+# and expert boundaries, groups that fill whole tiles, r = 1 over tiles, r = 2
+# past a tile, and r = 2 whose remainder is most of a tile (jamba's prefill
+# row: stacking takes as many tiles, so the launch keeps one group a tile).
+STACKED_GRIDS = {
+    "granite_decode": ((1024, 32, 1, 64), (32, True)),
+    "prefill_one_group": ((32, 32, 20, 64), (32, False)),
+    "straddle_c20_r4": ((16, 4, 20, 64), (8, True)),
+    "whole_tiles": ((16, 4, 128, 64), (32, False)),
+    "r1_two_tiles": ((8, 8, 100, 64), (16, False)),
+    "r2_past_a_tile": ((8, 4, 70, 64), (12, True)),
+    "r2_most_of_a_tile": ((32, 16, 40, 64), (32, False)),
+}
+
+
+@pytest.mark.parametrize("name", list(STACKED_GRIDS))
+def test_stacked_grid_tiles_each_experts_rows(name):
+    (G, E, C, bm), want = STACKED_GRIDS[name]
+    grid = stacked_grid(G, E, C, bm)
+    assert tuple(grid) == want
+    r = G // E
+    per_expert, per_group = E * -(-(r * C) // bm), G * -(-C // bm)
+    assert grid.m_tiles == (per_expert if grid.stacked else per_group)
+    assert grid.stacked == (per_expert < per_group)
+    # Stacked, some tile holds rows of two groups (counted row by row):
+    # r > 1 and C % block_m != 0.
+    mixed = any(len({row // C for row in range(t, min(t + bm, r * C))}) > 1
+                for t in range(0, r * C, bm))
+    assert mixed == (r > 1 and C % bm != 0)
+    if grid.stacked:
+        assert mixed
+
+
 # ---------------------------------------------------------------------------
 # Conv: im2col + the GEMM
 # ---------------------------------------------------------------------------
@@ -674,6 +709,67 @@ def test_cuda_grouped_gemm_matches_plain_on_card():
             for g, n in enumerate(counts.tolist()):
                 assert (out[g, n:] == 0).all(), (name, g)
             _close(out.cpu(), ref.float().cpu().numpy(), tol, name)
+    torch.cuda.synchronize()
+
+
+# (G, E, C, K, N, block_m, block_n, block_k) of the tensor-core path, whose
+# m-tiles walk each expert's r*C stacked rows where that takes fewer tiles:
+# granite's 32-row decode (C = 1, 32 one-row groups an expert, w_in and
+# w_out), its one-group prefill, tiles that cross group and expert
+# boundaries (ragged K, two warpgroups), and r = 2 groups a tile each.
+STACKED_CARD_CASES = {
+    "granite_decode_w_in": (1024, 32, 1, 1024, 512, 64, 8, 64),
+    "granite_decode_w_out": (1024, 32, 1, 512, 1024, 64, 8, 64),
+    "granite_prefill_one_group": (32, 32, 20, 1024, 512, 64, 8, 64),
+    "straddle_c20_r4": (16, 4, 20, 100, 72, 64, 8, 16),
+    "straddle_two_warpgroups": (24, 4, 20, 96, 64, 128, 16, 32),
+    "r2_group_a_tile": (8, 4, 40, 96, 64, 64, 16, 32),
+}
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_stacked_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    from repro_torch import kernels
+
+    dev = torch.device("cuda")
+    for name, (G, E, C, K, N, bm, bn, bk) in STACKED_CARD_CASES.items():
+        r = G // E
+        rng = np.random.default_rng(len(name))
+        if C == 1:  # a decode: each row routes to 8 of 32 experts
+            counts = (rng.random(G) < 0.25).astype(np.int32)
+        else:
+            counts = rng.integers(0, C + 1, G).astype(np.int32)
+            counts[:2] = (0, C)
+        x = rng.standard_normal((G, C, K)).astype(np.float32)
+        for g, n in enumerate(counts):  # the routing pad past each count
+            x[g, n:] = np.nan
+        x = torch.from_numpy(x).to(dev, torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal((E, K, N)).astype(
+            np.float32) * K ** -0.5).to(dev, torch.bfloat16)
+        cnt = torch.from_numpy(counts).to(dev)
+        stacked = stacked_grid(G, E, C, bm).stacked
+        assert stacked == (name not in ("granite_prefill_one_group",
+                                        "r2_group_a_tile")), name
+        n0 = kernels.launch_counts()["vortex_grouped_gemm.stacked"]
+        out = vortex_grouped_gemm(x, w, cnt, block_m=bm, block_n=bn,
+                                  block_k=bk, backend="tensor_core")
+        assert (kernels.launch_counts()["vortex_grouped_gemm.stacked"]
+                == n0 + stacked), name
+        for g, n in enumerate(counts.tolist()):
+            assert (out[g, n:] == 0).all(), (name, g)
+        ref = vortex_grouped_gemm_plain(x, w, cnt)
+        _close(out.cpu(), ref.float().cpu().numpy(), 2.0 ** -7, name)
+        # The per-group decomposition: each group against its own copy of
+        # its expert (r = 1), one group per m-tile.  Every row is the same
+        # f32 sum in the same order, so the outputs are bit-identical.
+        n1 = kernels.launch_counts()["vortex_grouped_gemm.stacked"]
+        per_group = vortex_grouped_gemm(
+            x, w.repeat_interleave(r, 0), cnt, block_m=bm, block_n=bn,
+            block_k=bk, backend="tensor_core")
+        assert kernels.launch_counts()["vortex_grouped_gemm.stacked"] == n1
+        assert torch.equal(out, per_group), name
     torch.cuda.synchronize()
 
 
