@@ -17,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from kit import program_trace
 from kit import traffic as gen
 from kit.serving import sync
 from kit.trace import Slice, warm_profiler
@@ -26,7 +27,8 @@ SAMPLE = 16  # calls compared after the window, besides the largest M
 
 class GemmRun:
     def __init__(self, conf: dict, cell: dict, mix: dict, seed: int,
-                 seconds: float, trace: bool, device: str = "cuda"):
+                 seconds: float, trace: bool, device: str = "cuda",
+                 program: bool = False):
         self.conf, self.cell, self.mix = conf, cell, mix
         self.device = device
         self.seed, self.seconds, self.trace_on = seed, seconds, trace
@@ -36,6 +38,7 @@ class GemmRun:
         self.host_s: list[float] = []
         self.kept: dict[int, torch.Tensor] = {}
         self.slice_calls = (0, 0)
+        self.program = program  # the port's tracer on (kit/program_trace)
 
     def setup(self) -> None:
         from repro_torch import vortex
@@ -57,6 +60,8 @@ class GemmRun:
             self.weights.append(w.mul_(k ** -0.5))
         sync(dev)
         t1 = time.perf_counter()
+        if self.program:
+            program_trace.start()
         self.engine = Engine(EngineConfig(device=dev))
         self.vortex = vortex
         # Every M bucket of every (K, N), at its top and one row under it.
@@ -87,7 +92,7 @@ class GemmRun:
         calls, host = self.calls, self.host_s
         with self.vortex.use(self.engine):
             t0 = self.t_window = time.perf_counter()
-            t_close = t0 + self.seconds
+            t_close = self.t_close = t0 + self.seconds
             t_on = t0 + 0.4 * self.seconds
             i = 0
             while True:

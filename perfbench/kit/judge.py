@@ -3,9 +3,10 @@ reference after the window, each number beside its limit.
 
 Serving: the window's tracked requests (a seed-drawn share, and each one
 longer than every request before it, so the longest is among them) that
-finished are run through the reference teacher-forced (prompt, then the
-served tokens).  At every decode position the row's logits the program
-returned, kept at a seed-drawn set of vocabulary ids and at the served
+finished are run through the reference that the configuration file names
+(:func:`reference_for`) teacher-forced (prompt, then the served tokens).
+At every decode position the row's logits the program returned, kept at
+a seed-drawn set of vocabulary ids and at the served
 token, are held against the reference's at the same ids:
 ``decode_logit_err_mean`` is the mean over positions of the root mean
 square difference over the spread of the reference's logits there.  It
@@ -30,10 +31,12 @@ operands; the control is the product of the operands rounded to float8.
 """
 from __future__ import annotations
 
+import importlib
+
 import torch
 
 from kit import weights
-from reference import decoder, matmul
+from reference import matmul
 
 
 def _tf32_off() -> None:
@@ -64,11 +67,20 @@ def _compared(ref: torch.Tensor, ids: torch.Tensor,
                       ref.gather(1, served[:, None])], dim=1)
 
 
+def reference_for(conf: dict):
+    """The plain reference a configuration file names (``"reference":
+    "<module>"`` under ``perfbench/reference/``; ``decoder`` where it
+    names none)."""
+    return importlib.import_module(
+        "reference." + conf.get("reference", "decoder"))
+
+
 def serve_checks(run, seed: int, control: bool) -> tuple[dict, dict]:
     """The serving cell's numbers after the program's state is freed, and
     with ``control`` the control's readings of the same names."""
     _tf32_off()
     model, dev, cell = run.model, run.device, run.cell
+    plain = reference_for(run.conf)
     ws = weights.draw(model, seed, dev)
     first_all = cell.get("first_token_all", False)
     picked = [r for r in run.reqs if r.tracked and r.out is not None]
@@ -85,7 +97,7 @@ def serve_checks(run, seed: int, control: bool) -> tuple[dict, dict]:
             served = served[:1]
         seq = torch.cat([torch.as_tensor(r.tokens[0], device=dev),
                          served[:-1]])
-        ref = decoder.logits(ws, model, seq, r.prompt_len, r.group_len)
+        ref = plain.logits(ws, model, seq, r.prompt_len, r.group_len)
         g = _gap(ref, served)
         best = ref.argmax(-1)
         if r.tracked:
@@ -107,7 +119,7 @@ def serve_checks(run, seed: int, control: bool) -> tuple[dict, dict]:
         fmiss += int(best[0] != served[0])
         n_first += 1
         if control:
-            low = decoder.logits(ws, model, seq, r.prompt_len, r.group_len,
+            low = plain.logits(ws, model, seq, r.prompt_len, r.group_len,
                                  weight_fmt="fp8")
             lowtok = low.argmax(-1)
             c = _gap(ref, lowtok)

@@ -8,18 +8,20 @@ import time
 
 import torch
 
-from kit import judge, spec
+from kit import judge, program_trace, spec
 from kit.gemm_stream import GemmRun
 from kit.serving import ServeRun, sync
 
 
 class Context:
-    """What a metric's reader sees: the run, its model, its set-up time
-    and the traced slice (None with ``--trace 0``)."""
+    """What a metric's reader sees: the run, its model, its set-up time,
+    the traced slice (None with ``--trace 0``) and the port's own records
+    (``kit/program_trace.py``; None unless a reader asks for them)."""
 
     def __init__(self, run, model: dict | None, setup_s: float):
         self.run, self.model, self.setup_s = run, model, setup_s
         self.trace = run.trace.read() if run.trace is not None else None
+        self.program = program_trace.read(run)
 
     def window_steps(self):
         r = self.run
@@ -59,12 +61,14 @@ def run(cell: spec.Cell, args, t_start: float, device: str = "cuda") -> dict:
     torch.backends.cudnn.allow_tf32 = False
     kind = cell.mix["kind"]
     st = cell.settings
+    program = spec.wants_program(cell, bool(args.trace))
     if kind == "gemm_stream":
         r = GemmRun(cell.conf, st, cell.mix, args.seed, args.seconds,
-                    bool(args.trace), device=device)
+                    bool(args.trace), device=device, program=program)
     else:
         r = ServeRun(cell.conf, st, cell.mix, args.seed, args.seconds,
-                     bool(args.trace), rate=args.rate, device=device)
+                     bool(args.trace), rate=args.rate, device=device,
+                     program=program)
     t_setup = time.perf_counter()
     r.setup()
     sync(device)

@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from kit import layout, program_trace
 from kit import traffic as gen
 from kit import weights
 from kit.trace import Slice, warm_profiler
@@ -85,7 +86,7 @@ class ServeRun:
 
     def __init__(self, conf: dict, cell: dict, mix: dict, seed: int,
                  seconds: float, trace: bool, rate: float | None = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", program: bool = False):
         self.conf, self.cell, self.mix = conf, cell, dict(mix)
         self.device = device
         if rate is not None:
@@ -101,6 +102,7 @@ class ServeRun:
         self.slice_prefills = (0, 0)
         self.t_window = self.t_close = self.t_end = 0.0
         self.overrun = False
+        self.program = program  # the port's tracer on (kit/program_trace)
         self._track = np.random.default_rng(seed + 5)
         self._longest = -1
         self._tracked: set[int] = set()
@@ -117,6 +119,8 @@ class ServeRun:
         params = weights.draw(self.model, self.seed, self.device)
         sync(self.device)
         t1 = time.perf_counter()
+        if self.program:
+            program_trace.start()
         st = self.cell["server"]
         srv = VortexServer(pcfg, max_cache=st["max_cache"], params=params,
                            device=self.device)
@@ -411,34 +415,92 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+# The port's fields that a cut to one chip may change, each with the
+# names a published config.json gives it: the depth and the experts held.
+# Every other field is a width or a kind, which no cut changes.
+CUTS = {
+    "n_layers": ("num_hidden_layers",),
+    "moe.num_experts": ("num_experts", "num_local_experts",
+                        "n_routed_experts"),
+}
+
+
 def port_config(conf: dict):
     """The port's own configuration the file names (its smoke size where
-    the file says so: the CPU tests' cells)."""
+    the file says so: the CPU tests' cells), with the file's
+    ``port_overrides`` applied: a top-level field, or a field of the
+    nested ``moe`` spec given as an object.  Only the fields of
+    :data:`CUTS` may be overridden, each listed in the file's ``reduced``
+    by one of its source's names, or the run stops."""
     from repro_torch.models.registry import get_config, get_smoke_config
 
     name = conf["port_config"]
-    return get_smoke_config(name) if conf.get("port_smoke") else \
+    cfg = get_smoke_config(name) if conf.get("port_smoke") else \
         get_config(name)
+    over = conf.get("port_overrides", {})
+    keys = [f"{k}.{n}" if isinstance(v, dict) else k
+            for k, v in over.items()
+            for n in (v if isinstance(v, dict) else (None,))]
+    reduced = set(conf.get("reduced", ()))
+    refused = [k for k in keys if not reduced & set(CUTS.get(k, ()))]
+    if refused:
+        raise RuntimeError(
+            f"port_overrides changes {refused}: only the depth and the "
+            f"experts held may be cut, each listed in reduced by its "
+            f"source's name ({CUTS})")
+    fields = {k: dataclasses.replace(getattr(cfg, k), **v)
+              if isinstance(v, dict) else v for k, v in over.items()}
+    return dataclasses.replace(cfg, **fields) if fields else cfg
 
 
 def check_widths(pcfg, model: dict) -> None:
-    """The port's configuration has the widths the file states."""
+    """The port's configuration has the widths and the layer pattern the
+    file states (``kit/layout.py``: a file without ``pattern`` states one
+    attention position, and no Mamba or MLA widths)."""
+    pattern = []
+    for spec in pcfg.pattern:
+        p = {"mixer": spec.mixer, "mlp": spec.mlp}
+        if spec.window is not None or spec.cross_attn:
+            # Kinds a file cannot state: never equal to the file's.
+            p.update(window=spec.window, cross_attn=spec.cross_attn)
+        pattern.append(p)
     got = {
         "n_layers": pcfg.n_layers, "d_model": pcfg.d_model,
         "n_heads": pcfg.n_heads, "n_kv_heads": pcfg.n_kv_heads,
         "head_dim": pcfg.resolved_head_dim, "vocab": pcfg.vocab,
         "vocab_padded": pcfg.vocab_padded, "dtype": pcfg.dtype,
         "tie_embeddings": pcfg.tie_embeddings,
-        "rope_theta": pcfg.rope_theta,
+        "rope_theta": pcfg.rope_theta, "pattern": pattern,
+        # The port's other positions (sinusoidal) a file cannot state.
+        "attn_rope": True if pcfg.use_rope else "sinusoidal",
+        "moe": None, "ssm": None, "mla": None,
     }
+    want = dict(model, pattern=layout.pattern(model), ssm=model.get("ssm"),
+                mla=model.get("mla"), moe=model.get("moe"),
+                attn_rope=model.get("attn_rope", True))
     if pcfg.moe is not None:
         got["moe"] = {"num_experts": pcfg.moe.num_experts,
                       "top_k": pcfg.moe.top_k,
                       "d_ff_expert": pcfg.moe.d_ff_expert,
-                      "capacity_factor": pcfg.moe.capacity_factor}
-    else:
+                      "capacity_factor": pcfg.moe.capacity_factor,
+                      "num_shared": pcfg.moe.num_shared}
+        if want["moe"]:
+            want["moe"] = dict(want["moe"],
+                               num_shared=layout.num_shared(model))
+    if any(p["mlp"] == "dense" for p in pattern):
         got["d_ff"] = pcfg.d_ff
-    bad = {k: (v, model.get(k)) for k, v in got.items() if model.get(k) != v}
+    if pcfg.ssm is not None:
+        s = pcfg.ssm
+        got["ssm"] = {"d_inner": s.d_inner, "d_state": s.d_state,
+                      "d_conv": s.d_conv,
+                      "dt_rank": s.dt_rank or pcfg.d_model // 16,
+                      "inner_norms": False}
+        if want["ssm"]:
+            want["ssm"] = dict(want["ssm"], inner_norms=want["ssm"].get(
+                "inner_norms", False))
+    if pcfg.mla is not None:
+        got["mla"] = dataclasses.asdict(pcfg.mla)
+    bad = {k: (v, want.get(k)) for k, v in got.items() if want.get(k) != v}
     if bad:
         raise RuntimeError(f"the port's configuration differs from the "
                            f"file's: {bad}")

@@ -6,7 +6,8 @@ files are ``perfbench/configs/<config>.json``,
 (server settings, traced-slice length, how many tokens to compare, the
 limits) and one reader ``perfbench/metrics/<metric>.py`` per metric.  A
 metric applies to the cells its ``workloads`` list names, or to every
-cell without one.
+cell without one.  A reader that reads the port's own records says so
+with ``PROGRAM_TRACE = True``.
 """
 from __future__ import annotations
 
@@ -55,11 +56,23 @@ def load_cell(root: str, name: str) -> Cell:
     )
 
 
-def reader(metric: str):
-    """The ``read(ctx)`` of ``perfbench/metrics/<metric>.py``."""
+def _module(metric: str):
     path = os.path.join(HERE, "metrics", metric + ".py")
     spec = importlib.util.spec_from_file_location(
         "pbmetric_" + metric.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The ``read(ctx)`` of ``perfbench/metrics/<metric>.py``."""
+    return _module(metric).read
+
+
+def wants_program(cell: Cell, traced: bool) -> bool:
+    """Whether the run turns the port's tracer on: a traced run of a cell
+    one of whose per-layer readers sets ``PROGRAM_TRACE = True``
+    (``kit/program_trace.py``)."""
+    return traced and any(getattr(_module(m["name"]), "PROGRAM_TRACE",
+                                  False) for m in cell.per_layer)

@@ -43,6 +43,7 @@ class Slice:
 
     def stop(self) -> None:
         torch.cuda.synchronize()
+        self.t_stopped = time.perf_counter()
         self._range.__exit__(None, None, None)
         self._prof.stop()
         self.stopped = True

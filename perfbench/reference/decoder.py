@@ -72,13 +72,13 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def attention(q, k, v, chunk: int = 1024) -> torch.Tensor:
-    """Causal softmax attention, q (H, T, hd), k/v (KV, T, hd), in blocks
-    of ``chunk`` queries."""
+    """Causal softmax attention, q (H, T, hd), k (KV, T, hd) and v (KV, T,
+    dv), in blocks of ``chunk`` queries; scores scaled by hd^-0.5."""
     h, t, hd = q.shape
     group = h // k.shape[0]
     k = k.repeat_interleave(group, dim=0)
     v = v.repeat_interleave(group, dim=0)
-    out = torch.empty_like(q)
+    out = q.new_empty((h, t, v.shape[-1]))
     keys = torch.arange(t, device=q.device)
     for i in range(0, t, chunk):
         j = min(t, i + chunk)
@@ -89,6 +89,29 @@ def attention(q, k, v, chunk: int = 1024) -> torch.Tensor:
     return out
 
 
+def routed(x: torch.Tensor, router: torch.Tensor, model: dict, n_group: int,
+           group_len: int) -> torch.Tensor:
+    """Each token's weight on each expert (T, E): the renormalised top-k
+    probabilities, 0 off its choices and where capacity dropped the
+    assignment (the first ``n_group`` tokens the prompt's group; none
+    dropped where the capacity factor is None, dropless)."""
+    m = model["moe"]
+    e, k = m["num_experts"], m["top_k"]
+    probs = torch.softmax(x @ router.float(), dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    topw = topw / topw.sum(-1, keepdim=True)
+    kept = torch.ones_like(topw, dtype=torch.bool)
+    if n_group and m["capacity_factor"] is not None:
+        cap = max(1, math.ceil(group_len * k * m["capacity_factor"] / e))
+        flat = topi[:n_group].reshape(-1)
+        onehot = torch.nn.functional.one_hot(flat, e)
+        rank = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+        kept[:n_group] = (rank < cap).reshape(n_group, k)
+    comb = torch.zeros((x.shape[0], e), dtype=torch.float32, device=x.device)
+    comb.scatter_(1, topi, topw * kept)
+    return comb
+
+
 def moe(x: torch.Tensor, p: dict, model: dict, n_group: int,
         group_len: int, fmt: str) -> torch.Tensor:
     """Routed experts over x (T, d); the first ``n_group`` tokens are the
@@ -96,21 +119,9 @@ def moe(x: torch.Tensor, p: dict, model: dict, n_group: int,
     every token and a token keeps the outputs of the experts it routed to
     and was admitted by, weighted: the same products as running each
     expert on its own tokens."""
-    m = model["moe"]
-    e, k = m["num_experts"], m["top_k"]
+    e = model["moe"]["num_experts"]
     t, d = x.shape
-    probs = torch.softmax(x @ p["router"].float(), dim=-1)
-    topw, topi = torch.topk(probs, k, dim=-1)
-    topw = topw / topw.sum(-1, keepdim=True)
-    kept = torch.ones_like(topw, dtype=torch.bool)
-    if n_group:
-        cap = max(1, math.ceil(group_len * k * m["capacity_factor"] / e))
-        flat = topi[:n_group].reshape(-1)
-        onehot = torch.nn.functional.one_hot(flat, e)
-        rank = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
-        kept[:n_group] = (rank < cap).reshape(n_group, k)
-    comb = torch.zeros((t, e), dtype=torch.float32, device=x.device)
-    comb.scatter_(1, topi, topw * kept)
+    comb = routed(x, p["router"], model, n_group, group_len)
     fe = p["w_in"].shape[-1]
     xq = _q(x, fmt)
 

@@ -13,11 +13,12 @@ import importlib.util, os, sys
 pb, root = sys.argv[1], sys.argv[2]
 sys.path[:0] = [pb, os.path.join(root, "src")]
 only_reference = sys.argv[3] == "reference"
-mods = ["reference.decoder", "reference.matmul"]
+mods = ["reference.decoder", "reference.matmul", "reference.hybrid"]
 if not only_reference:
-    mods += ["kit.traffic", "kit.counts", "kit.weights", "kit.stats",
-             "kit.trace", "kit.spec", "kit.judge", "kit.serving",
-             "kit.gemm_stream", "kit.runner"]
+    mods += ["kit.traffic", "kit.layout", "kit.counts", "kit.weights",
+             "kit.stats", "kit.trace", "kit.spec", "kit.judge",
+             "kit.program_trace", "kit.serving", "kit.gemm_stream",
+             "kit.runner"]
 for m in mods:
     importlib.import_module(m)
 if not only_reference:
