@@ -17,9 +17,22 @@ holds the port to them:
 
 * ``model["attn_rope"]``: false where attention has no positional
   encoding (true, RoPE at ``rope_theta``, when absent);
-* ``ssm["inner_norms"]``: true where Mamba takes an RMSNorm (unit weight)
-  of dt, B and C before the scan (false when absent);
+* ``ssm["inner_norms"]``: true where Mamba takes an RMSNorm of dt, B and
+  C before the scan, each with a learned weight (``dt_norm``, ``b_norm``,
+  ``c_norm``; false when absent);
 * ``moe["capacity_factor"]``: null where the experts are dropless.
+
+The port states the first two kinds in two fields, which ``check_widths``
+reads where the port's configuration has them:
+
+* ``ModelConfig.positions``, one of ``"rope"``, ``"sinusoidal"`` or
+  ``"none"``, is the file's ``attn_rope`` ``true``, ``"sinusoidal"`` (a
+  kind no file states) and ``false``; where the field is absent,
+  ``use_rope`` gives ``"rope"`` or ``"sinusoidal"``;
+* ``SSMSpec.inner_norms`` (bool) is the file's ``ssm["inner_norms"]``;
+  false where the field is absent.
+
+The third is the port's ``MoESpec.capacity_factor``, compared as it is.
 """
 from __future__ import annotations
 

@@ -453,10 +453,21 @@ def port_config(conf: dict):
     return dataclasses.replace(cfg, **fields) if fields else cfg
 
 
+def _attn_rope(pcfg):
+    """The port's kind of positions as a file's ``attn_rope`` states it
+    (``kit/layout.py``): its ``positions`` field, or where it has none,
+    what ``use_rope`` gives."""
+    pos = getattr(pcfg, "positions", None)
+    if pos is None:
+        pos = "rope" if pcfg.use_rope else "sinusoidal"
+    return {"rope": True, "sinusoidal": "sinusoidal", "none": False}[pos]
+
+
 def check_widths(pcfg, model: dict) -> None:
-    """The port's configuration has the widths and the layer pattern the
-    file states (``kit/layout.py``: a file without ``pattern`` states one
-    attention position, and no Mamba or MLA widths)."""
+    """The port's configuration has the widths, the layer pattern and the
+    kinds the file states (``kit/layout.py``: a file without ``pattern``
+    states one attention position, and no Mamba or MLA widths; the
+    port's ``positions`` and ``ssm.inner_norms`` where it has them)."""
     pattern = []
     for spec in pcfg.pattern:
         p = {"mixer": spec.mixer, "mlp": spec.mlp}
@@ -471,8 +482,7 @@ def check_widths(pcfg, model: dict) -> None:
         "vocab_padded": pcfg.vocab_padded, "dtype": pcfg.dtype,
         "tie_embeddings": pcfg.tie_embeddings,
         "rope_theta": pcfg.rope_theta, "pattern": pattern,
-        # The port's other positions (sinusoidal) a file cannot state.
-        "attn_rope": True if pcfg.use_rope else "sinusoidal",
+        "attn_rope": _attn_rope(pcfg),
         "moe": None, "ssm": None, "mla": None,
     }
     want = dict(model, pattern=layout.pattern(model), ssm=model.get("ssm"),
@@ -494,7 +504,7 @@ def check_widths(pcfg, model: dict) -> None:
         got["ssm"] = {"d_inner": s.d_inner, "d_state": s.d_state,
                       "d_conv": s.d_conv,
                       "dt_rank": s.dt_rank or pcfg.d_model // 16,
-                      "inner_norms": False}
+                      "inner_norms": getattr(s, "inner_norms", False)}
         if want["ssm"]:
             want["ssm"] = dict(want["ssm"], inner_norms=want["ssm"].get(
                 "inner_norms", False))

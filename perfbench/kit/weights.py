@@ -10,8 +10,9 @@ same bits, so the reference redraws its own copy after the program is
 gone rather than reading the program's.
 
 Matrices are normal with std fan_in^-1/2.  Constant leaves are what the
-port initialises them to: norms and Mamba's ``D`` ones, biases zeros,
-Mamba's ``A_log`` log(1..d_state) over each channel.
+port initialises them to: norms (Mamba's inner norms of dt, B and C among
+them) and Mamba's ``D`` ones, biases zeros, Mamba's ``A_log``
+log(1..d_state) over each channel.  Constants take no draws.
 """
 from __future__ import annotations
 
@@ -38,11 +39,18 @@ def _mixer(model: dict, mixer: str, G: int) -> list[tuple]:
         s = model["ssm"]
         di, ds, dc, dtr = s["d_inner"], s["d_state"], s["d_conv"], \
             s["dt_rank"]
+        # The inner norms' weights where the file states them: constants,
+        # so every other leaf draws as without them.
+        norms = [("dt_norm", (G, dtr), dt, None),
+                 ("b_norm", (G, ds), dt, None),
+                 ("c_norm", (G, ds), dt, None)] \
+            if s.get("inner_norms", False) else []
         return [
             ("in_proj", (G, d, 2 * di), dt, d),
             ("conv_w", (G, dc, di), dt, dc),
             ("conv_b", (G, di), dt, "zeros"),
             ("x_proj", (G, di, dtr + 2 * ds), dt, di),
+            *norms,
             ("dt_proj", (G, dtr, di), dt, dtr),
             ("dt_bias", (G, di), dt, "zeros"),
             ("A_log", (G, di, ds), "float32", "ssm_a"),

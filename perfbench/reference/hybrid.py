@@ -14,7 +14,8 @@ and the LM head (the embedding's transpose where tied, else
   encoding where the file's ``attn_rope`` is false.
 * Mamba-1: ``x, z = x W_in``; a causal depthwise conv of ``d_conv`` taps
   with its bias, then SiLU; ``dt, B, C = xc W_x``, each through an
-  RMSNorm of unit weight where the file's ``ssm["inner_norms"]`` is true;
+  RMSNorm with its weight (``dt_norm``, ``b_norm``, ``c_norm``) where the
+  file's ``ssm["inner_norms"]`` is true;
   ``Delta = softplus(dt W_dt + b_dt)``; ``A = -exp(A_log)``; the
   selective scan ``h_t = exp(Delta_t A) h_{t-1} + Delta_t x_t B_t``,
   ``y_t = C_t h_t + D x_t``, run token by token from a zero state in
@@ -114,8 +115,8 @@ def _mamba(x, p, model, fmt):
     dt, B, C = proj[:, :dtr], proj[:, dtr:dtr + ds], proj[:, dtr + ds:]
     if s.get("inner_norms", False):
         eps = model["norm_eps"]
-        dt, B, C = (rmsnorm(u, torch.ones_like(u[0]), eps)
-                    for u in (dt, B, C))
+        dt, B, C = (rmsnorm(u, p[n], eps) for u, n in (
+            (dt, "dt_norm"), (B, "b_norm"), (C, "c_norm")))
     dt = F.softplus(_mm(dt, p["dt_proj"], fmt) + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     y = _scan(dt, xc, B, C, A)

@@ -1,13 +1,21 @@
 """Frozen copies of the harness's weight drawing, counts and decoder
 reference as they stood before configuration files could state a layer
 pattern.  A file without ``pattern`` must draw, count and judge exactly
-as these do (``test_pb_layers.py``).  Never edit this file to follow a
-change: a change that moves these numbers moves the existing cells."""
+as these do (``test_pb_layers.py``).  Below them, the layer pattern's
+weights, the hybrid reference's Mamba mixer and the widths check as they
+stood before the kinds the port states (the last section).  Never edit
+this file to follow a change: a change that moves these numbers moves the
+existing cells."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
+
+from kit import layout
+from reference.hybrid import _scan
 
 
 # -- kit/weights.py --------------------------------------------------------
@@ -290,3 +298,218 @@ def logits(weights: dict, model: dict, tokens: torch.Tensor, prompt_len: int,
             x = x + _mm(g * _mm(hn, p["w_in"][li], fmt), p["w_out"][li], fmt)
     x = rmsnorm(x[prompt_len - 1:], weights["final_norm"], eps)
     return _mm(x, emb[:model["vocab"]].T, fmt)
+
+
+# -- the kinds: kit/weights.py, reference/hybrid.py, kit/serving.py --------
+#
+# As they stood before Mamba's inner norms had weights of their own and the
+# port's configuration could state its kinds of positions and inner norms.
+# A file that states no inner norms must draw as these do, every other leaf
+# of one that does too; the reference with the norms' weights at ones must
+# judge as ``hybrid_mamba`` does; a port configuration without the two
+# fields must be checked as ``check_widths`` checks it.
+
+def _pattern_mixer(model: dict, mixer: str, G: int) -> list[tuple]:
+    d, dt = model["d_model"], model["dtype"]
+    if mixer == "attn":
+        h, kv, hd = model["n_heads"], model["n_kv_heads"], model["head_dim"]
+        return [
+            ("wq", (G, d, h * hd), dt, d),
+            ("wk", (G, d, kv * hd), dt, d),
+            ("wv", (G, d, kv * hd), dt, d),
+            ("wo", (G, h * hd, d), dt, h * hd),
+        ]
+    if mixer == "mamba":
+        s = model["ssm"]
+        di, ds, dc, dtr = s["d_inner"], s["d_state"], s["d_conv"], \
+            s["dt_rank"]
+        return [
+            ("in_proj", (G, d, 2 * di), dt, d),
+            ("conv_w", (G, dc, di), dt, dc),
+            ("conv_b", (G, di), dt, "zeros"),
+            ("x_proj", (G, di, dtr + 2 * ds), dt, di),
+            ("dt_proj", (G, dtr, di), dt, dtr),
+            ("dt_bias", (G, di), dt, "zeros"),
+            ("A_log", (G, di, ds), "float32", "ssm_a"),
+            ("D", (G, di), "float32", None),
+            ("out_proj", (G, di, d), dt, di),
+        ]
+    m, h = model["mla"], model["n_heads"]
+    c, qr, nope, rope, dv = (m["kv_lora_rank"], m["q_lora_rank"],
+                             m["qk_nope_dim"], m["qk_rope_dim"],
+                             m["v_head_dim"])
+    return [
+        ("wdq", (G, d, qr), dt, d),
+        ("q_norm", (G, qr), dt, None),
+        ("wuq", (G, qr, h * (nope + rope)), dt, qr),
+        ("wdkv", (G, d, c + rope), dt, d),
+        ("kv_norm", (G, c), dt, None),
+        ("wuk", (G, c, h * nope), dt, c),
+        ("wuv", (G, c, h * dv), dt, c),
+        ("wo", (G, h * dv, d), dt, h * dv),
+    ]
+
+
+def _pattern_mlp(model: dict, mlp: str, G: int) -> list[tuple]:
+    d, dt = model["d_model"], model["dtype"]
+    if mlp == "dense":
+        f = model["d_ff"]
+        return [
+            ("w_in", (G, d, f), dt, d),
+            ("w_gate", (G, d, f), dt, d),
+            ("w_out", (G, f, d), dt, f),
+        ]
+    moe = model["moe"]
+    e, fe = moe["num_experts"], moe["d_ff_expert"]
+    out = [
+        ("router", (G, d, e), "float32", d),
+        ("w_in", (G, e, d, fe), dt, d),
+        ("w_gate", (G, e, d, fe), dt, d),
+        ("w_out", (G, e, fe, d), dt, fe),
+    ]
+    fs = layout.num_shared(model) * fe
+    if fs:
+        out += [
+            ("shared_in", (G, d, fs), dt, d),
+            ("shared_gate", (G, d, fs), dt, d),
+            ("shared_out", (G, fs, d), dt, fs),
+        ]
+    return out
+
+
+def pattern_leaves(model: dict) -> list[tuple]:
+    """(path, shape, dtype, init), in the order they are drawn: the init
+    is the fan-in of a normal leaf, None for a leaf of ones, or the name
+    of another constant (``"zeros"``, ``"ssm_a"``)."""
+    d, dt = model["d_model"], model["dtype"]
+    G = layout.n_groups(model)
+    out = [
+        ("embed", (model["vocab_padded"], d), dt, d),
+        ("final_norm", (d,), dt, None),
+    ]
+    if not model["tie_embeddings"]:
+        out.append(("lm_head", (d, model["vocab_padded"]), dt, d))
+    for i, spec in enumerate(layout.pattern(model)):
+        pos = f"pos{i}"
+        out.append((f"{pos}/norm_mixer", (G, d), dt, None))
+        if spec["mlp"] != "none":
+            out.append((f"{pos}/norm_mlp", (G, d), dt, None))
+        out += [(f"{pos}/{spec['mixer']}/{n}", *rest)
+                for n, *rest in _pattern_mixer(model, spec["mixer"], G)]
+        if spec["mlp"] != "none":
+            sub = "moe" if spec["mlp"] == "moe" else "mlp"
+            out += [(f"{pos}/{sub}/{n}", *rest)
+                    for n, *rest in _pattern_mlp(model, spec["mlp"], G)]
+    return out
+
+
+def _pattern_constant(init, shape: tuple, dtype, device) -> torch.Tensor:
+    if init is None:
+        return torch.ones(shape, dtype=dtype, device=device)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ssm_a":
+        # log(1..d_state), taken in float64 (correctly rounded), as the
+        # port's S4D-real init.
+        a = torch.arange(1, shape[-1] + 1, dtype=torch.float64,
+                         device=device)
+        return torch.log(a).expand(shape).to(dtype).contiguous()
+    raise ValueError(f"unknown constant init {init!r}")
+
+
+def pattern_draw(model: dict, seed: int, device) -> dict:
+    """The nested weight tree for ``model`` from ``seed`` on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % (2 ** 63))
+    tree: dict = {}
+    for path, shape, dt, init in pattern_leaves(model):
+        dtype = _DTYPES[dt]
+        if init is None or isinstance(init, str):
+            t = _pattern_constant(init, shape, dtype, device)
+        else:
+            t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+            t.mul_(1.0 / math.sqrt(init))
+        node = tree
+        *head, last = path.split("/")
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = t
+    return tree
+
+
+def hybrid_mamba(x, p, model, fmt):
+    """``reference/hybrid.py``'s Mamba-1 mixer, its inner norms of unit
+    weight."""
+    s = model["ssm"]
+    di, ds, dc, dtr = s["d_inner"], s["d_state"], s["d_conv"], s["dt_rank"]
+    t = x.shape[0]
+    xz = _mm(x, p["in_proj"], fmt)
+    xi, z = xz[:, :di], xz[:, di:]
+    w = p["conv_w"].float()
+    pad = F.pad(xi, (0, 0, dc - 1, 0))
+    xc = p["conv_b"].float() + sum(w[k] * pad[k:k + t] for k in range(dc))
+    xc = F.silu(xc)
+    proj = _mm(xc, p["x_proj"], fmt)
+    dt, B, C = proj[:, :dtr], proj[:, dtr:dtr + ds], proj[:, dtr + ds:]
+    if s.get("inner_norms", False):
+        eps = model["norm_eps"]
+        dt, B, C = (rmsnorm(u, torch.ones_like(u[0]), eps)
+                    for u in (dt, B, C))
+    dt = F.softplus(_mm(dt, p["dt_proj"], fmt) + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    y = _scan(dt, xc, B, C, A)
+    y = (y + p["D"].float() * xc) * F.silu(z)
+    return _mm(y, p["out_proj"], fmt)
+
+
+def check_widths(pcfg, model: dict) -> None:
+    """The port's configuration has the widths and the layer pattern the
+    file states (``kit/layout.py``: a file without ``pattern`` states one
+    attention position, and no Mamba or MLA widths)."""
+    pattern = []
+    for spec in pcfg.pattern:
+        p = {"mixer": spec.mixer, "mlp": spec.mlp}
+        if spec.window is not None or spec.cross_attn:
+            # Kinds a file cannot state: never equal to the file's.
+            p.update(window=spec.window, cross_attn=spec.cross_attn)
+        pattern.append(p)
+    got = {
+        "n_layers": pcfg.n_layers, "d_model": pcfg.d_model,
+        "n_heads": pcfg.n_heads, "n_kv_heads": pcfg.n_kv_heads,
+        "head_dim": pcfg.resolved_head_dim, "vocab": pcfg.vocab,
+        "vocab_padded": pcfg.vocab_padded, "dtype": pcfg.dtype,
+        "tie_embeddings": pcfg.tie_embeddings,
+        "rope_theta": pcfg.rope_theta, "pattern": pattern,
+        # The port's other positions (sinusoidal) a file cannot state.
+        "attn_rope": True if pcfg.use_rope else "sinusoidal",
+        "moe": None, "ssm": None, "mla": None,
+    }
+    want = dict(model, pattern=layout.pattern(model), ssm=model.get("ssm"),
+                mla=model.get("mla"), moe=model.get("moe"),
+                attn_rope=model.get("attn_rope", True))
+    if pcfg.moe is not None:
+        got["moe"] = {"num_experts": pcfg.moe.num_experts,
+                      "top_k": pcfg.moe.top_k,
+                      "d_ff_expert": pcfg.moe.d_ff_expert,
+                      "capacity_factor": pcfg.moe.capacity_factor,
+                      "num_shared": pcfg.moe.num_shared}
+        if want["moe"]:
+            want["moe"] = dict(want["moe"],
+                               num_shared=layout.num_shared(model))
+    if any(p["mlp"] == "dense" for p in pattern):
+        got["d_ff"] = pcfg.d_ff
+    if pcfg.ssm is not None:
+        s = pcfg.ssm
+        got["ssm"] = {"d_inner": s.d_inner, "d_state": s.d_state,
+                      "d_conv": s.d_conv,
+                      "dt_rank": s.dt_rank or pcfg.d_model // 16,
+                      "inner_norms": False}
+        if want["ssm"]:
+            want["ssm"] = dict(want["ssm"], inner_norms=want["ssm"].get(
+                "inner_norms", False))
+    if pcfg.mla is not None:
+        got["mla"] = dataclasses.asdict(pcfg.mla)
+    bad = {k: (v, want.get(k)) for k, v in got.items() if want.get(k) != v}
+    if bad:
+        raise RuntimeError(f"the port's configuration differs from the "
+                           f"file's: {bad}")

@@ -255,8 +255,10 @@ def test_mamba_inner_norms():
     scale on their columns of ``x_proj`` moves nothing beyond rounding;
     without, it moves the logits."""
     torch.set_num_threads(2)
-    model, ws, toks = _jamba_f32()
+    model, _, toks = _jamba_f32()
     normed = dict(model, ssm=dict(model["ssm"], inner_norms=True))
+    # The norms' weights (ones) beside the same bits of every other leaf.
+    ws = weights.draw(normed, 9, "cpu")
     scaled = {**ws, "pos0": {**ws["pos0"], "mamba": dict(
         ws["pos0"]["mamba"], x_proj=ws["pos0"]["mamba"]["x_proj"] * 3.0)}}
     a = hybrid.logits(ws, normed, toks, 12, 16)
@@ -264,6 +266,116 @@ def test_mamba_inner_norms():
     assert _gap(a, hybrid.logits(ws, model, toks, 12, 16)) > 1e-3
     assert _gap(hybrid.logits(scaled, model, toks, 12, 16),
                 hybrid.logits(ws, model, toks, 12, 16)) > 1e-3
+
+
+NORMS = ("dt_norm", "b_norm", "c_norm")
+
+
+def _period():
+    with open(os.path.join(PB, "tools", "jamba2-mini-period.json")) as f:
+        return json.load(f)
+
+
+def _normed(model):
+    return dict(model, ssm=dict(model["ssm"], inner_norms=True))
+
+
+def _is_norm(path):
+    return "/mamba/" in path and path.rsplit("/", 1)[-1] in NORMS
+
+
+def _model(which):
+    """The period file as published, the smoke file with inner norms, or
+    a test file as it is."""
+    if which == "jamba2-mini-period":
+        return _period()["model"]
+    if which == "jamba-smoke-normed":
+        return _normed(_conf("jamba-smoke")["model"])
+    return _conf(which)["model"]
+
+
+@pytest.mark.parametrize("which", ["jamba2-mini-period",
+                                   "jamba-smoke-normed"])
+def test_inner_norm_leaves(which):
+    """Where the file states inner norms, each Mamba position lists its
+    norms' weights right after ``x_proj``: (G, dt_rank), (G, d_state) and
+    (G, d_state) in the model's dtype, each a leaf of ones."""
+    model = _model(which)
+    s, dt = model["ssm"], model["dtype"]
+    G = model["n_layers"] // len(model["pattern"])
+    shapes = [(G, s["dt_rank"]), (G, s["d_state"]), (G, s["d_state"])]
+    leaves = weights.leaves(model)
+    paths = [p for p, *_ in leaves]
+    mamba = [i for i, p in enumerate(model["pattern"])
+             if p["mixer"] == "mamba"]
+    assert len(mamba) == 7
+    assert sum(_is_norm(p) for p in paths) == 3 * len(mamba)
+    for i in mamba:
+        at = paths.index(f"pos{i}/mamba/x_proj")
+        assert leaves[at + 1:at + 4] == [
+            (f"pos{i}/mamba/{n}", shape, dt, None)
+            for n, shape in zip(NORMS, shapes)]
+    if which == "jamba-smoke-normed":
+        ws = weights.draw(model, 2147483693, "cpu")
+        for i in mamba:
+            for n, shape in zip(NORMS, shapes):
+                t = ws[f"pos{i}"]["mamba"][n]
+                assert t.shape == shape and t.dtype == torch.bfloat16
+                assert (t == 1).all()
+
+
+@pytest.mark.parametrize("which", ["jamba2-mini-period",
+                                   "jamba-smoke-normed"] + PATTERNED)
+def test_every_other_leaf_draws_as_before(which):
+    """The norms' weights are constants and take no draws: every other
+    leaf is listed, and drawn, as before they existed (``pb_frozen.py``).
+    The period file's 26.6 GB are compared by their list alone; a draw
+    is a function of that list and the seed."""
+    model = _model(which)
+    leaves = weights.leaves(model)
+    assert [leaf for leaf in leaves if not _is_norm(leaf[0])] == \
+        frozen.pattern_leaves(model)
+    if which == "jamba2-mini-period":
+        return
+    for seed in (7, 2147483693, 2 ** 33 + 5):
+        got = _flat(weights.draw(model, seed, "cpu"))
+        want = _flat(frozen.pattern_draw(model, seed, "cpu"))
+        assert [p for p in got if p not in want] == \
+            [p for p in got if _is_norm(p)]
+        for path in want:
+            assert got[path].dtype == want[path].dtype
+            assert torch.equal(got[path], want[path]), path
+
+
+@pytest.mark.parametrize("fmt", ["f32", "fp8"])
+def test_inner_norms_at_ones_judge_as_before(monkeypatch, fmt):
+    """With the norms' weights at ones, the reference's logits are the
+    bits it gave with unit norms of its own."""
+    torch.set_num_threads(2)
+    model = _model("jamba-smoke-normed")
+    ws = weights.draw(model, 13, "cpu")
+    toks = torch.randint(0, model["vocab"], (24,),
+                         generator=torch.Generator().manual_seed(14))
+    got = hybrid.logits(ws, model, toks, 12, 16, weight_fmt=fmt)
+    monkeypatch.setattr(hybrid, "_mamba", frozen.hybrid_mamba)
+    want = hybrid.logits(ws, model, toks, 12, 16, weight_fmt=fmt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("norm", NORMS)
+def test_inner_norm_weights_move_the_logits(norm):
+    """The reference reads the norms' weights: one position's, scaled,
+    moves the logits."""
+    torch.set_num_threads(2)
+    model = _normed(dict(_conf("jamba-smoke")["model"], dtype="float32"))
+    ws = weights.draw(model, 9, "cpu")
+    toks = torch.randint(0, model["vocab"], (24,),
+                         generator=torch.Generator().manual_seed(10))
+    mamba = ws["pos1"]["mamba"]
+    scaled = {**ws, "pos1": {**ws["pos1"], "mamba": dict(
+        mamba, **{norm: mamba[norm] * 2.0})}}
+    a = hybrid.logits(ws, model, toks, 12, 16)
+    assert _gap(hybrid.logits(scaled, model, toks, 12, 16), a) > 1e-3
 
 
 def test_dropless_experts():
@@ -296,6 +408,111 @@ def test_widths_check_holds_the_port_to_published_kinds(change):
     cfg = serving.port_config(conf)
     with pytest.raises(RuntimeError, match="differs"):
         serving.check_widths(cfg, dict(conf["model"], **change))
+
+
+def _stating_kinds(cfg, positions, inner_norms, capacity_factor=1.25):
+    """A stand-in for a port configuration that states its kinds: the
+    port's own classes, frozen, with the two fields added
+    (``kit/layout.py``)."""
+    from repro_torch.models.config import ModelConfig, SSMSpec
+
+    @dataclasses.dataclass(frozen=True)
+    class Config(ModelConfig):
+        positions: str = "rope"
+
+    @dataclasses.dataclass(frozen=True)
+    class SSM(SSMSpec):
+        inner_norms: bool = False
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["ssm"] = SSM(**dataclasses.asdict(cfg.ssm),
+                        inner_norms=inner_norms)
+    fields["moe"] = dataclasses.replace(cfg.moe,
+                                        capacity_factor=capacity_factor)
+    return Config(**fields, positions=positions)
+
+
+def test_widths_check_takes_the_kinds_the_port_states():
+    """Where the port states no positional encoding, inner norms and
+    dropless experts, the period file as published passes, and a copy
+    that states the port's present kinds stops the run."""
+    conf = _period()
+    model = conf["model"]
+    cfg = _stating_kinds(serving.port_config(conf), "none", True, None)
+    serving.check_widths(cfg, model)
+    ports = dict(model, attn_rope=True,
+                 ssm=dict(model["ssm"], inner_norms=False),
+                 moe=dict(model["moe"], capacity_factor=1.25))
+    with pytest.raises(RuntimeError, match="differs") as e:
+        serving.check_widths(cfg, ports)
+    for key in ("attn_rope", "ssm", "moe"):
+        assert f"'{key}'" in str(e.value)
+
+
+@pytest.mark.parametrize("positions,attn_rope", [
+    ("rope", True), ("sinusoidal", "sinusoidal"), ("none", False)])
+def test_widths_check_reads_the_ports_positions(positions, attn_rope):
+    """``positions`` is the file's ``attn_rope``: each kind passes the
+    file that states it and no other."""
+    conf = _conf("jamba-smoke")
+    cfg = _stating_kinds(serving.port_config(conf), positions, False)
+    for stated in (True, "sinusoidal", False):
+        model = dict(conf["model"], attn_rope=stated)
+        if stated is attn_rope:
+            serving.check_widths(cfg, model)
+        else:
+            with pytest.raises(RuntimeError, match="'attn_rope'"):
+                serving.check_widths(cfg, model)
+
+
+@pytest.mark.parametrize("inner_norms", [True, False])
+def test_widths_check_reads_the_ports_inner_norms(inner_norms):
+    conf = _conf("jamba-smoke")
+    cfg = _stating_kinds(serving.port_config(conf), "rope", inner_norms)
+    for stated in (True, False, None):
+        ssm = dict(conf["model"]["ssm"])
+        if stated is not None:
+            ssm["inner_norms"] = stated
+        model = dict(conf["model"], ssm=ssm)
+        if bool(stated) is inner_norms:
+            serving.check_widths(cfg, model)
+        else:
+            with pytest.raises(RuntimeError, match="'ssm'"):
+                serving.check_widths(cfg, model)
+
+
+def _verdict(check, cfg, model):
+    try:
+        check(cfg, model)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+FILES = UNPATTERNED + PATTERNED + ["granite-moe-1b-a400m", "phi4-mini-3.8b",
+                                   "jamba2-mini-period"]
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_widths_verdicts_are_as_before(name):
+    """Every port configuration that states neither field (each of the
+    registry's, full and smoke, and the one each file names) gets from
+    every file the verdict it got before the fields existed."""
+    from repro_torch.models import registry
+
+    conf = _period() if name == "jamba2-mini-period" else _conf(name)
+    cfgs = [serving.port_config(conf)]
+    for arch in registry.ARCH_IDS:
+        cfgs += [registry.get_config(arch), registry.get_smoke_config(arch)]
+    for cfg in cfgs:
+        assert not hasattr(cfg, "positions")
+        assert not hasattr(cfg.ssm, "inner_norms")
+        assert _verdict(serving.check_widths, cfg, conf["model"]) == \
+            _verdict(frozen.check_widths, cfg, conf["model"])
+    # The period file states the published kinds, which no port
+    # configuration has yet; each other file passes its own.
+    own = _verdict(serving.check_widths, cfgs[0], conf["model"])
+    assert (own is None) is (name != "jamba2-mini-period")
 
 
 def test_counts_follow_the_pattern():
@@ -399,7 +616,7 @@ def test_one_period_of_jamba2_mini_is_the_ports_cut():
         conf = json.load(f)
     cfg = serving.port_config(conf)
     assert cfg.n_layers == conf["num_hidden_layers"] == 8
-    assert weights.nbytes(conf["model"]) == 26592944128
+    assert weights.nbytes(conf["model"]) == 26592948160
     model = conf["model"]
     with pytest.raises(RuntimeError, match="differs") as e:
         serving.check_widths(cfg, model)
@@ -437,20 +654,66 @@ def test_widths_check_refuses_a_pattern_on_an_attention_file():
             conf["model"], pattern=[{"mixer": "mamba", "mlp": "dense"}]))
 
 
-@pytest.mark.parametrize("name", PATTERNED)
-def test_patterned_file_runs_until_the_port_refuses(name):
-    """The unchanged run path: weights from the file, widths checked, the
-    server built; the port's scheduler refuses Mamba and latent state in
-    its shared cache."""
+@pytest.mark.parametrize("name", PATTERNED + UNPATTERNED)
+def test_patterned_file_reaches_the_port(name, monkeypatch):
+    """The harness's own part of set-up: the weights drawn from the file,
+    the widths checked, the server built on those weights.  Then what the
+    port declares: where its scheduler does not serve the pattern, set-up
+    stops at the scheduler's refusal before any warm-up request; where it
+    does, a short run completes and is judged correct.  The files without
+    a pattern take the second branch today."""
+    from repro_torch.launch import scheduler, serve
+
     torch.set_num_threads(2)
+    conf = _conf(name)
     with open(os.path.join(HERE, "data", "chat-smoke.json")) as f:
         mix = json.load(f)
     with open(os.path.join(HERE, "data", "serve-smoke-cell.json")) as f:
         cell = json.load(f)
-    r = ServeRun(_conf(name), cell, mix, seed=2147483701, seconds=1.0,
-                 trace=False, device="cpu")
-    with pytest.raises(ValueError, match="continuous batching"):
+    drawn, checked, built, submitted = [], [], [], []
+    real_draw, real_check = weights.draw, serving.check_widths
+    real_submit = scheduler.ContinuousScheduler.submit
+
+    def draw(model, seed, device):
+        drawn.append((model, seed, real_draw(model, seed, device)))
+        return drawn[-1][2]
+
+    def check(pcfg, model):
+        real_check(pcfg, model)
+        checked.append(model)
+
+    class Server(serve.VortexServer):
+        def __init__(self, cfg, **kw):
+            super().__init__(cfg, **kw)
+            built.append(kw["params"])
+
+    def submit(self, req):
+        submitted.append(req)
+        return real_submit(self, req)
+
+    monkeypatch.setattr(weights, "draw", draw)
+    monkeypatch.setattr(serving, "check_widths", check)
+    monkeypatch.setattr(serve, "VortexServer", Server)
+    monkeypatch.setattr(scheduler.ContinuousScheduler, "submit", submit)
+    seed = 2147483701
+    r = ServeRun(conf, cell, mix, seed=seed, seconds=2.0, trace=False,
+                 device="cpu")
+    if scheduler.batched_decode_supported(serving.port_config(conf)):
         r.setup()
+        r.run()
+        r.free()
+        assert submitted
+        numbers, _ = judge.serve_checks(r, seed, control=False)
+        assert judge.verdict(judge.limited(numbers, cell["limits"])), numbers
+    else:
+        with pytest.raises(ValueError, match="continuous batching"):
+            r.setup()
+        assert submitted == []
+    model, got_seed, tree = drawn[0]
+    assert checked == [conf["model"]]
+    assert model is conf["model"] and got_seed == seed
+    assert sorted(_flat(tree)) == sorted(p for p, *_ in weights.leaves(model))
+    assert len(built) == 1 and built[0] is tree
 
 
 # -- the port's own records ---------------------------------------------------
