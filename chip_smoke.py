@@ -191,7 +191,18 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    The staging copy at the hot path's attention shape (three operands),
    its library call one ``torch._foreach_copy_``.  Rows 1b
    and 1c: the chain's MLP-in GEMM (K 768, N 3072) and LM head (K 768,
-   N 50432) at m = 128, beside ``torch.matmul``.
+   N 50432) at m = 128, beside ``torch.matmul``.  Rows 1, 1b, 1c and 4
+   also time the tensor-core GEMM's cp.async kernel at the same tile
+   (``cp_async_ms``, ``vortex_gemm(tma=False)``).  Row 1d: the GEMM
+   stream's dominant call (M 1,024, K = N = 3,072) at the tile the
+   lattice selects there, (512, 32, 64): the TMA kernel with and without
+   the A multicast, the cp.async kernel and ``torch.matmul``, each 20
+   launches captured in a CUDA graph on weights rotated out of L2 and
+   timed with CUDA events, in turns; and the same shape at square tiles,
+   (128, 128, 64) and (128, 256, 64).  ``python3 chip_smoke.py
+   --gemm-rows`` builds the kernels and runs phases 3 and 3b and rows 1,
+   1b, 1c, 1d and 4 alone (rows 1b and 1c at a default engine's tiles,
+   their launch counts not taken).
 6. The benchmark suite's serving snapshot at full width on the card
    (``benchmarks_torch.bench_workloads.serving_payload(smoke=False)``, the
    payload ``benchmarks_torch/run.py --json`` writes): the hot path's
@@ -759,6 +770,26 @@ def all_tensor_core(counts: dict, where: str) -> None:
             fail(f"{where}: {counts[name] - counts[f'{name}.{path}']} of "
                  f"{counts[name]} bf16 {name} launches did not take the "
                  f"{path} path")
+    fold_feeds(counts, where)
+
+
+# The tensor-core GEMM's sub-counters (kernels/gemm.py LAUNCHES): which of
+# its two kernels ran, and the TMA launches made as 2-CTA clusters.
+TC_FEEDS = ("vortex_gemm.tensor_core.tma", "vortex_gemm.tensor_core.cp_async",
+            "vortex_gemm.tensor_core.multicast")
+
+
+def fold_feeds(moved: dict, where: str) -> dict:
+    """``moved`` (launch counts or their deltas) without the tensor-core
+    GEMM's sub-counters, after failing unless its TMA and cp.async launches
+    add up to its tensor-core launches (and the multicast ones to no more
+    than the TMA ones)."""
+    tc = moved.get("vortex_gemm.tensor_core", 0)
+    tma, cp, mc = (moved.get(k, 0) for k in TC_FEEDS)
+    if tma + cp != tc or mc > tma:
+        fail(f"{where}: {tma} TMA ({mc} multicast) and {cp} cp.async "
+             f"launches of the tensor-core GEMM for {tc} tensor-core ones")
+    return {k: n for k, n in moved.items() if k not in TC_FEEDS}
 
 
 # ---------------------------------------------------------------------------
@@ -1042,7 +1073,8 @@ def phase_fold(dev, kernels, small: bool = False, tail: int = 4096) -> dict:
         out = eng.dispatch(kind, *args, **params)
         torch.cuda.synchronize()
         n1, st1 = kernels.launch_counts(), kern.dispatch_stats.as_dict()
-        launched = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+        launched = fold_feeds({k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]},
+                              f"phase 3c {label}")
         delta = {k: st1[k] - st0[k] for k in st1}
         want = {path.split(".")[0]: 1, path: 1}
         if launched != want or delta["launches"] != 1 or not off:
@@ -1470,7 +1502,8 @@ def chain_prefill(kernels, server, aot, b: int, s: int, rng,
     c1, n1 = chain_counters(server.engine), kernels.launch_counts()
     sig1 = chain_gemm_launches(server)
     d = {k: c1[k] - c0[k] for k in CHAIN_KEYS}
-    launched = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    launched = fold_feeds({k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]},
+                          where)
     per_sig = {sig: sig1[sig] - sig0[sig] for sig in sig1}
     n_gemm = 1 + sum(
         4 + sum(w in p["mlp"] for w in ("w_in", "w_gate", "w_out"))
@@ -1744,9 +1777,9 @@ def chain_gemm_rows(dev, chain_info: dict, errs: dict) -> list[dict]:
         a = torch.randn(M, K, generator=g).to(dev, dt)
         b = torch.randn(K, N, generator=g).to(dev, dt)
 
-        def gemm(a=a, b=b, bm=bm, bn=bn, bk=bk, be=be):
+        def gemm(a=a, b=b, bm=bm, bn=bn, bk=bk, be=be, tma=True):
             return vortex_gemm(a, b, M, block_m=bm, block_n=bn, block_k=bk,
-                               backend=be)
+                               backend=be, tma=tma)
 
         err = check(f"vortex_gemm row {tag} at the chain's shape", gemm(),
                     vortex_gemm_plain(a, b, M), TOL[dt])
@@ -1757,7 +1790,7 @@ def chain_gemm_rows(dev, chain_info: dict, errs: dict) -> list[dict]:
                 "name": "vortex_gemm", "route": "cuda",
                 "source": "src/repro_torch/csrc/gemm.cu",
                 "replaces": "src/repro/kernels/gemm.py:110",
-                "launches": chain_info["per_sig"][(K, N)],
+                "launches": chain_info["per_sig"].get((K, N), "not counted"),
                 "max_abs_err": errs["vortex_gemm"],
                 "bound_ms": bnd, "bound_by": by,
                 "shape": f"row {tag}: M={M} N={N} K={K} blocks=({bm},{bn},"
@@ -1766,8 +1799,145 @@ def chain_gemm_rows(dev, chain_info: dict, errs: dict) -> list[dict]:
             ms=gemm,
             plain_ms=lambda a=a, b=b: vortex_gemm_plain(a, b, M),
             library_ms=lambda a=a, b=b: torch.matmul(a, b),
+            cp_async_ms=lambda gemm=gemm: gemm(tma=False),
         ))
     torch.cuda.synchronize()
+    return rows
+
+
+STREAM_GEMM = (1024, 3072, 3072)  # M, N, K: the GEMM stream's dominant call
+SQUARE_TILES = ((128, 128, 64), (128, 256, 64))
+
+
+def graphed_ms(calls: list, rounds: int = 10) -> float:
+    """Device ms of one call in a CUDA graph of ``calls`` (one launch
+    each), from CUDA events around ``rounds`` replays: the mean."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:  # warm: builds, tensor maps, attributes
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / rounds / len(calls)
+
+
+def stream_gemm_row(dev, errs: dict) -> dict:
+    """Row 1d: the GEMM stream's dominant call (M 1,024, K = N = 3,072) at
+    the tile the lattice selects for it, timed as phase 5 times every row,
+    and its kernels against each other: the TMA kernel with and without
+    the A multicast, the cp.async kernel and ``torch.matmul``, each as 20
+    launches in a CUDA graph over 4 weights in turn (75 MB, past the 50 MB
+    L2), in turns (cp.async, TMA, multicast, multicast, TMA, cp.async;
+    the means); then the same shape at the square tiles the plan builds."""
+    from repro_torch import kernels, vortex
+    from repro_torch.core.workloads import GemmWorkload
+    from repro_torch.kernels.gemm import (
+        tensor_core_plan,
+        vortex_gemm,
+        vortex_gemm_plain,
+    )
+
+    dt = torch.bfloat16
+    M, N, K = STREAM_GEMM
+    g = torch.Generator().manual_seed(36)
+    sel = vortex.Engine().kernel_for(
+        GemmWorkload(M=None, N=N, K=K)).select(M)
+    bm, bn, bk = sel.strategy.l1
+    be = sel.strategy.backend
+    a = torch.randn(M, K, generator=g).to(dev, dt)
+    ws = [(torch.randn(K, N, generator=g) * K ** -0.5).to(dev, dt)
+          for _ in range(4)]
+
+    def call(w, tile=(bm, bn, bk), **kw):
+        return vortex_gemm(a, w, M, block_m=tile[0], block_n=tile[1],
+                           block_k=tile[2], backend=be, **kw)
+
+    n0 = kernels.launch_counts()
+    err = check(f"vortex_gemm row 1d M={M} N={N} K={K}", call(ws[0]),
+                vortex_gemm_plain(a, ws[0], M), TOL[dt])
+    torch.cuda.synchronize()
+    moved = fold_feeds({k: v - n0[k] for k, v in kernels.launch_counts()
+                        .items() if v != n0[k]}, "row 1d")
+    print(f"row 1d: tile ({bm}, {bn}, {bk}) {be}, launches {moved}")
+    errs["vortex_gemm"] = max(errs["vortex_gemm"], err)
+    variants = {
+        "cp_async": dict(tma=False),
+        "tma": dict(multicast=False),
+        "tma_multicast": {},
+    }
+    graph = {name: [] for name in (*variants, "library")}
+    for name in (*variants, *reversed(variants)):
+        kw = variants[name]
+        graph[name].append(graphed_ms(
+            [lambda w=ws[i % 4], kw=kw: call(w, **kw) for i in range(20)]))
+    graph["library"].append(graphed_ms(
+        [lambda w=ws[i % 4]: torch.matmul(a, w) for i in range(20)]))
+    square = {}
+    for tile in SQUARE_TILES:
+        try:
+            tensor_core_plan(*tile)
+        except ValueError as e:
+            square[str(tile)] = f"not built: {e}"
+            continue
+        check(f"vortex_gemm row 1d at the square tile {tile}",
+              call(ws[0], tile), vortex_gemm_plain(a, ws[0], M), TOL[dt])
+        square[str(tile)] = graphed_ms(
+            [lambda w=ws[i % 4], t=tile: call(w, t) for i in range(20)])
+    bnd, by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * N * K, dt)
+    row = timed(
+        {
+            "name": "vortex_gemm", "route": "cuda",
+            "source": "src/repro_torch/csrc/gemm.cu",
+            "replaces": "src/repro/kernels/gemm.py:110",
+            "launches": "not counted (the GEMM stream's call)",
+            "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by,
+            "shape": f"row 1d: M={M} N={N} K={K} blocks=({bm},{bn},{bk}) "
+                     f"{be} bf16, the GEMM stream's dominant call",
+        },
+        ms=lambda: call(ws[0]),
+        plain_ms=lambda: vortex_gemm_plain(a, ws[0], M),
+        library_ms=lambda: torch.matmul(a, ws[0]),
+        cp_async_ms=lambda: call(ws[0], tma=False),
+        tma_ms=lambda: call(ws[0], multicast=False),
+    )
+    row["graph_ms"] = {k: sum(v) / len(v) for k, v in graph.items()}
+    row["graph_ms_each"] = graph
+    row["square_tile_graph_ms"] = square
+    flops = 2.0 * M * N * K
+    print(f"row 1d: graphed ms {row['graph_ms']} (TFLOP/s "
+          f"{ {k: flops / v / 1e9 for k, v in row['graph_ms'].items()} }), "
+          f"square tiles {square}, bound {bnd:.4f} ms ({by})")
+    torch.cuda.synchronize()
+    return row
+
+
+def gemm_rows_only(dev, kernels, errs: dict) -> list[dict]:
+    """``--gemm-rows``: phases 3 and 3b (their shapes and tiles), then
+    rows 1, 1b, 1c, 1d and 4; 1b and 1c at a default engine's tiles for
+    the chain's m = 128."""
+    from repro_torch import vortex
+
+    gemm_info = phase_gemm(dev, kernels)
+    conv_info = phase_conv(dev, kernels)
+    rows = phase_time(dev, gemm_info, None, errs)
+    rows += chain_gemm_rows(dev, {"engine": vortex.Engine(), "m": 128,
+                                  "per_sig": {}}, errs)
+    rows.append(stream_gemm_row(dev, errs))
+    rows += phase_time_moe_conv(dev, None, conv_info, errs)
     return rows
 
 
@@ -2896,9 +3066,9 @@ def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
     a = torch.randn(M, K, generator=g).to(dev, dt)
     b = torch.randn(K, N, generator=g).to(dev, dt)
 
-    def gemm():
+    def gemm(tma=True):
         return vortex_gemm(a, b, M, block_m=bm, block_n=bn, block_k=bk,
-                           backend=be)
+                           backend=be, tma=tma)
 
     err = check("vortex_gemm at the main path's shape", gemm(),
                 vortex_gemm_plain(a, b, M), TOL[dt])
@@ -2917,8 +3087,10 @@ def phase_time(dev, gemm_info, serve_info, errs) -> list[dict]:
         ms=gemm,
         plain_ms=lambda: vortex_gemm_plain(a, b, M),
         library_ms=lambda: torch.matmul(a, b),
+        cp_async_ms=lambda: gemm(tma=False),
     ))
-
+    if serve_info is None:
+        return rows
     rows += attention_rows(dev, serve_info, errs, g, "")
     torch.cuda.synchronize()
     return rows
@@ -3352,12 +3524,12 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
         im2col,
         vortex_conv2d,
     )
-    from repro_torch.kernels.gemm import vortex_gemm_plain
+    from repro_torch.kernels.gemm import vortex_gemm, vortex_gemm_plain
 
     dt = torch.bfloat16
     g = torch.Generator().manual_seed(4)
-    rows = grouped_rows(dev, dict(moe_info, engine=moe_info["server"].engine),
-                        errs, g)
+    rows = [] if moe_info is None else grouped_rows(
+        dev, dict(moe_info, engine=moe_info["server"].engine), errs, g)
 
     name, b, hw = conv_info["name"], conv_info["b"], conv_info["hw"]
     cin, cout, stride = conv_info["cin"], conv_info["cout"], conv_info["stride"]
@@ -3379,6 +3551,12 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
         return vortex_gemm_plain(cols, conv_weight_matrix(w)).reshape(
             b_, ho, wo, cout)
 
+    def conv_cp_async():
+        cols, (b_, ho, wo) = im2col(x, 3, 3, stride)
+        return vortex_gemm(cols, conv_weight_matrix(w), block_m=bm,
+                           block_n=bn, block_k=bk, backend=be,
+                           tma=False).reshape(b_, ho, wo, cout)
+
     err = check(f"vortex_conv2d {name} b={b} at the main path's shape",
                 conv(), conv_plain(), TOL[dt])
     nbytes = 2 * (b * hw * hw * cin + 9 * cin * cout + M * cout)
@@ -3399,6 +3577,7 @@ def phase_time_moe_conv(dev, moe_info, conv_info, errs) -> list[dict]:
         ms=conv,
         plain_ms=conv_plain,
         library_ms=lambda: F.conv2d(x_lib, w_lib, stride=stride),
+        cp_async_ms=conv_cp_async,
     ))
     torch.cuda.synchronize()
     return rows
@@ -3547,7 +3726,8 @@ def check_serving_payload(p: dict) -> None:
     if not (pc["chain_aligned"] and pc["boundary_copies_per_block"] == 0
             and pc["forwarded_per_prefill"] >= layers
             and pc["bit_identical_to_eager"]
-            and pc["kernel_launches_per_prefill"] == want):
+            and fold_feeds(pc["kernel_launches_per_prefill"],
+                           "phase 6 prefill_chain") == want):
         fail(f"phase 6 prefill_chain: {pc}")
     for name, r in (("decode", dec), ("continuous_batching", cb)):
         if not (r["graphs"] and r["decode_graph_captures"] == 0
@@ -4997,8 +5177,8 @@ def ops_launch(kernels, fn, want: dict, where: str):
     out = fn()
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    moved = {k: after[k] - before.get(k, 0) for k in after
-             if after[k] != before.get(k, 0)}
+    moved = fold_feeds({k: after[k] - before.get(k, 0) for k in after
+                        if after[k] != before.get(k, 0)}, f"phase 10a: {where}")
     if moved != want:
         fail(f"phase 10a: {where} moved the launch counters by {moved}, "
              f"not {want}")
@@ -5527,6 +5707,22 @@ def train_hparams():
                         total_steps=TRAIN_STEPS, num_microbatches=2)
 
 
+def print_rows(rows: list[dict], smi: str) -> None:
+    """The kernel table's rows, one a line, then the card's name (and,
+    for ``--gemm-rows``, the rows as one JSON line)."""
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        cp = f" cp_async_ms={r['cp_async_ms']:.4f}" if "cp_async_ms" in r \
+            else ""
+        print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={lib}{cp} launches={r['launches']} "
+              f"[{r['shape']}; torch.profiler device time] on {smi}")
+    print(smi)
+    if "--gemm-rows" in sys.argv[1:]:
+        print(json.dumps({"kernels": rows, "card": smi}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda is not available: this script runs on an NVIDIA GPU")
@@ -5551,6 +5747,10 @@ def main() -> int:
 
     errs = {"vortex_gemm": 0.0, "flash_attention_prefill": 0.0,
             "flash_attention_decode": 0.0, "vortex_grouped_gemm": 0.0}
+    if "--gemm-rows" in sys.argv[1:]:
+        rows = gemm_rows_only(dev, kernels, errs)
+        print_rows(rows, smi)
+        return 0
 
     # No denylist from an earlier run on this machine may steer a
     # selection: the engines' default cache directory is a fresh one.
@@ -5612,6 +5812,7 @@ def main() -> int:
     def phase5():
         rows = phase_time(dev, gemm_info, serve_info, errs)
         rows += chain_gemm_rows(dev, chain_info, errs)
+        rows.append(stream_gemm_row(dev, errs))
         rows += attention_rows(dev, moe_info, errs, torch.Generator()
                                .manual_seed(6), ", granite 16/8")
         rows += dense_attention_rows(g2_info, dense_info, errs)
@@ -5654,13 +5855,7 @@ def main() -> int:
     rows = rows + analysis["rows"]
     cache_root.cleanup()
     print(f"chip_smoke: total wall_s={time.perf_counter() - t0:.1f}")
-    for r in rows:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"{r['name']}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms={lib} launches={r['launches']} "
-              f"[{r['shape']}; torch.profiler device time] on {smi}")
-    print(smi)
+    print_rows(rows, smi)
     print(json.dumps({"kernels": rows, "card": smi,
                       "phase6_launches": bench_info["launches"],
                       "phase10a_launches": analysis["launches"]}))

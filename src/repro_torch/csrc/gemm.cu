@@ -15,9 +15,12 @@
 // Two paths, one per backend of the H100 lattice, chosen by the wrapper
 // from the selected strategy's backend and the dtype before the launch:
 //
-// - tensor_core (bf16): vortex_gemm_tc_launch, the wgmma tile on a
-//   cp.async ring in csrc/tc_tile.cuh; grid = (cdiv(M, block_m),
-//   cdiv(N, block_n)).
+// - tensor_core (bf16): vortex_gemm_tma_launch, the wgmma tile fed by a
+//   TMA producer warp through an mbarrier ring in swizzled shared memory,
+//   A multicast across a 2-CTA cluster along N at tall tiles
+//   (csrc/tc_tma.cuh); operands TMA cannot address take
+//   vortex_gemm_tc_launch, the wgmma tile on a cp.async ring
+//   (csrc/tc_tile.cuh).  Both: grid = (cdiv(M, block_m), cdiv(N, block_n)).
 // - cuda_core (a cuda_core strategy, or float32 at either backend: Hopper
 //   has no exact f32 tensor-core product): vortex_gemm_launch, f32 FMAs on
 //   the CUDA cores.  Each block stages (sub_m x kc) and (kc x sub_n)
@@ -33,6 +36,7 @@
 #include <stdint.h>
 
 #include "tc_tile.cuh"
+#include "tc_tma.cuh"
 
 namespace {
 
@@ -158,8 +162,9 @@ extern "C" int vortex_gemm_launch(const void* a, const void* b, void* out, int M
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core path (bf16): the tile plan (wm, wn, nw, atoms, stages,
-// smem_bytes) comes from kernels/gemm.py `tensor_core_plan`.
+// The tensor-core path's cp.async kernel (bf16), for operands TMA cannot
+// address: the tile plan (wm, wn, nw, atoms, stages, smem_bytes) comes from
+// kernels/gemm.py `tensor_core_plan`.
 extern "C" int vortex_gemm_tc_launch(const void* a, const void* b, void* out, int M, int N,
                                      int K, int m_true, int block_m, int block_n, int block_k,
                                      int wm, int wn, int nw, int atoms, int stages,
@@ -187,4 +192,32 @@ extern "C" int vortex_gemm_tc_launch(const void* a, const void* b, void* out, in
   p.vec_w = N % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
   p.vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   return tc::launch(p, 1, nw, atoms, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core path's TMA kernel (bf16): the warpgroup plan (wm, wn, nw,
+// atoms) comes from kernels/gemm.py `tensor_core_plan`, the ring (stages,
+// cluster, box_m, smem_bytes) from `tma_plan`.  m_live is the live row
+// count (rows of A at or past it are never read).
+extern "C" int vortex_gemm_tma_launch(const void* a, const void* b, void* out, int M, int N,
+                                      int K, int m_live, int block_m, int block_n, int block_k,
+                                      int wm, int wn, int nw, int atoms, int stages, int cluster,
+                                      int box_m, int smem_bytes, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (block_m <= 0 || block_n <= 0 || block_k <= 0) return (int)cudaErrorInvalidValue;
+  tc::tma::Args p{};
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.rows = M;
+  p.N = N;
+  p.K = K;
+  p.m_live = m_live < 0 ? 0 : (m_live < M ? m_live : M);
+  p.block_m = block_m;
+  p.block_n = block_n;
+  p.block_k = block_k;
+  p.wm = wm;
+  p.wn = wn;
+  p.stages = stages;
+  p.cluster = cluster;
+  p.box_m = box_m;
+  p.vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return tc::tma::launch(a, b, p, nw, atoms, smem_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,9 @@
-// Tensor-core tile of csrc/gemm.cu (sm_90a).  The wgmma wrappers, the plan
-// check and the built variants are csrc/wgmma.cuh's, which the stacked
-// grouped kernel (csrc/grouped_gemm.cu) shares; its tile loop is its own.
+// Tensor-core tile of csrc/gemm.cu (sm_90a) on a cp.async ring: the path of
+// operands that csrc/tc_tma.cuh's TMA kernel cannot address (a row stride
+// off 16 bytes, a pointer off 16 bytes, a tile whose boxes fit no layout;
+// kernels/gemm.py `tma_plan`).  The wgmma wrappers, the plan check and the
+// built variants are csrc/wgmma.cuh's, which the stacked grouped kernel
+// (csrc/grouped_gemm.cu) shares; its tile loop is its own.
 //
 // One CTA computes one selected layer-1 tile (block_m, block_n, block_k) of
 // out[g] = x[g] @ w[g / r] (G = 1, r = 1 for the plain GEMM) in bf16 with f32

@@ -107,6 +107,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, vp,
     ]
     lib.vortex_gemm_tc_launch.restype = i
+    lib.vortex_gemm_tma_launch.argtypes = [
+        vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, vp,
+    ]
+    lib.vortex_gemm_tma_launch.restype = i
     lib.flash_attention_launch.argtypes = [
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, vp,
     ]

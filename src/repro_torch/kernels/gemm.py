@@ -7,12 +7,16 @@ tail may hold NaN), K/N tails masked, and the selected tile
 (block_m, block_n, block_k) honoured verbatim.
 
 Bound on the H100: the bytes moved or the tensor-core rate at the served
-shapes.  The kernel has one path per backend of the H100 lattice (see the
-notes in csrc/gemm.cu and csrc/tc_tile.cuh): ``tensor_core``, a wgmma tile
-on a cp.async ring planned by :func:`tensor_core_plan`, and ``cuda_core``,
-f32 FMAs through a shared-memory staged, register-tiled loop.  A tensor on
-the CPU takes :func:`vortex_gemm_plain`; a CUDA tensor launches the kernel
-or raises.
+shapes; at the tall tiles the lattice serves (512, 32, 64), the L2 reads of
+A (about 30 FLOP a byte).  The kernel has one path per backend of the H100
+lattice (see the notes in csrc/gemm.cu, csrc/tc_tma.cuh and
+csrc/tc_tile.cuh): ``tensor_core``, a wgmma tile whose warpgroups
+:func:`tensor_core_plan` lays out, fed by a TMA producer warp through an
+mbarrier ring that :func:`tma_plan` sizes (A multicast across a 2-CTA
+cluster at tall tiles), or on a cp.async ring for operands TMA cannot
+address; and ``cuda_core``, f32 FMAs through a shared-memory staged,
+register-tiled loop.  A tensor on the CPU takes :func:`vortex_gemm_plain`;
+a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,14 +29,18 @@ from repro_torch.kernels.ref import ref_gemm
 __all__ = [
     "vortex_gemm", "vortex_gemm_plain", "validate_blocks", "gemm_smem_bytes",
     "BACKENDS", "TensorCorePlan", "tensor_core_plan", "check_backend",
-    "kernel_path", "LAUNCHES",
+    "TmaPlan", "tma_plan", "kernel_path", "LAUNCHES",
 ]
 
 # Launches of the CUDA kernel, counted where it is launched and nowhere
-# else: the total, and each path (``kernel_path``) on its own.
+# else: the total, and each path (``kernel_path``) on its own; within
+# ``tensor_core``, the TMA kernel and the cp.async one (the two sum to it),
+# and the TMA launches made as 2-CTA clusters (``multicast``).
 # chip_smoke.py zeroes them around the main path.
 LAUNCHES = {
     "vortex_gemm": 0, "vortex_gemm.tensor_core": 0, "vortex_gemm.cuda_core": 0,
+    "vortex_gemm.tensor_core.tma": 0, "vortex_gemm.tensor_core.cp_async": 0,
+    "vortex_gemm.tensor_core.multicast": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -165,6 +173,73 @@ def check_backend(
         raise ValueError(f"{kind}: {e}") from None
 
 
+class TmaPlan(NamedTuple):
+    """How csrc/tc_tma.cuh feeds one tile: a ring of ``stages`` k-steps in
+    ``smem_bytes`` of shared memory, A loaded in boxes of ``box_m`` rows and
+    shared by ``cluster`` CTAs along N (1, or 2 to multicast A)."""
+
+    stages: int
+    cluster: int
+    box_m: int
+    smem_bytes: int
+
+
+_TMA_ALIGN = 1024  # a 128-byte swizzle repeats every 8 rows of 128 bytes
+_TMA_BOX_MAX = 256  # TMA's largest box edge
+_TMA_A_BOX = (16, 32, 64)  # box rows of 32-, 64- and 128-byte swizzle
+_TMA_B_BOX = (8, 16, 32, 64)  # and of 16 bytes, unswizzled
+
+
+def _tma_smem_bytes(block_m: int, block_n: int, block_k: int,
+                    stages: int) -> int:
+    """Shared memory of csrc/tc_tma.cuh at ``stages`` slots (mirrors its
+    ``smem_bytes``): alignment slack, the ring or the epilogue's staged
+    tile, whichever is larger, and two mbarriers a slot."""
+    stage = -(-2 * (block_m * block_k + block_k * block_n)
+              // _TMA_ALIGN) * _TMA_ALIGN
+    return _TMA_ALIGN + max(stages * stage, 2 * block_m * (block_n + 8)) \
+        + 16 * stages
+
+
+def tma_plan(block_m: int, block_n: int, block_k: int, N: int, K: int, *,
+             aligned: bool = True, multicast: bool = True) -> TmaPlan | None:
+    """The TMA kernel's plan for a tensor-core tile (one that
+    :func:`tensor_core_plan` accepts) at (N, K), or None when TMA cannot
+    address the operands and the cp.async kernel runs instead.
+
+    None when a row of A or B is not a whole number of 16-byte words (K or
+    N not a multiple of 8), when ``aligned`` is False (an operand's pointer
+    off 16 bytes), or when the tile's boxes fit no layout wgmma reads: A's
+    box is min(block_k, 64) columns, 16, 32 or 64 (32-, 64-, 128-byte
+    swizzled rows), B's min(block_n, 64), the same or 8 (16-byte rows,
+    unswizzled), each dividing its side of the tile, and B's box rows
+    min(block_k, 256) divide block_k.  The ring holds as many
+    k-steps as fit in a block's shared memory (at least 2, else None).
+    A tall tile (block_m >= 4 block_n) whose N tiles pair up launches
+    clusters of 2 CTAs along N that share A (``multicast=False``: never);
+    A's boxes are the largest multiple of 8 rows, at most 256, that divides
+    block_m -- at most half of it in a cluster, so both CTAs load a box.
+    """
+    if not aligned or K % 8 or N % 8:
+        return None
+    a_k, b_n = min(block_k, 64), min(block_n, 64)
+    if (a_k not in _TMA_A_BOX or block_k % a_k or b_n not in _TMA_B_BOX
+            or block_n % b_n or block_k % min(block_k, _TMA_BOX_MAX)):
+        return None
+    tall = block_m >= 4 * block_n and (-(-N // block_n)) % 2 == 0
+    cluster = 2 if multicast and tall else 1
+    box_m = max(d for d in range(8, min(_TMA_BOX_MAX, block_m // cluster) + 1,
+                                 8) if block_m % d == 0)
+    stages = 1
+    while _tma_smem_bytes(block_m, block_n, block_k,
+                          stages + 1) <= SMEM_PER_BLOCK:
+        stages += 1
+    if stages < 2:
+        return None
+    return TmaPlan(stages, cluster, box_m,
+                   _tma_smem_bytes(block_m, block_n, block_k, stages))
+
+
 def kernel_path(plan: TensorCorePlan | None, dtype: torch.dtype) -> str:
     """The path a launch takes, fixed before it from the backend and dtype:
     bf16 at a ``tensor_core`` strategy runs the wgmma tile; a ``cuda_core``
@@ -194,6 +269,8 @@ def vortex_gemm(
     block_k: int = 128,
     backend: str = "cuda_core",
     out_dtype=None,
+    tma: bool = True,
+    multicast: bool = True,
 ) -> torch.Tensor:
     """C = A @ B with the Vortex layer-1 tile as the launch geometry.
 
@@ -205,8 +282,11 @@ def vortex_gemm(
     ``tensor_core`` tile that is not a multiple of (64, 8, 16) or that the
     wgmma tile cannot hold, raises ``ValueError``.  On the card the path is
     fixed before the launch (:func:`kernel_path`): bf16 at ``tensor_core``
-    runs wgmma on a cp.async ring; ``cuda_core``, and float32 at either
-    backend, run f32 FMAs on the CUDA cores.
+    runs wgmma fed by TMA (:func:`tma_plan`), or on a cp.async ring where
+    TMA cannot address the operands; ``cuda_core``, and float32 at either
+    backend, run f32 FMAs on the CUDA cores.  ``tma=False`` takes the
+    cp.async kernel and ``multicast=False`` keeps every cluster at one CTA,
+    so the kernels can be timed against each other.
     """
     M, K = a.shape
     K2, N = b.shape
@@ -248,7 +328,21 @@ def vortex_gemm(
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     m_live = max(0, min(m_true, M))
+    feed = None
     if path == "tensor_core":
+        feed = tma_plan(
+            block_m, block_n, block_k, N, K,
+            aligned=tma and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+            multicast=multicast,
+        )
+    if feed is not None:
+        rc = lib.vortex_gemm_tma_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, m_live,
+            block_m, block_n, block_k, plan.wm, plan.wn, plan.n_atom,
+            plan.atoms, feed.stages, feed.cluster, feed.box_m,
+            feed.smem_bytes, stream,
+        )
+    elif path == "tensor_core":
         rc = lib.vortex_gemm_tc_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, m_live,
             block_m, block_n, block_k, plan.wm, plan.wn, plan.n_atom,
@@ -265,4 +359,9 @@ def vortex_gemm(
         )
     LAUNCHES["vortex_gemm"] += 1
     LAUNCHES[f"vortex_gemm.{path}"] += 1
+    if path == "tensor_core":
+        LAUNCHES["vortex_gemm.tensor_core."
+                 + ("cp_async" if feed is None else "tma")] += 1
+        if feed is not None and feed.cluster > 1:
+            LAUNCHES["vortex_gemm.tensor_core.multicast"] += 1
     return out

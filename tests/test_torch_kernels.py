@@ -35,8 +35,10 @@ from repro_torch.kernels.attention import (
 from repro_torch.kernels import build
 from repro_torch.kernels.conv import conv_weight_matrix, im2col, vortex_conv2d
 from repro_torch.kernels.gemm import (
+    LAUNCHES as GEMM_LAUNCHES,
     kernel_path,
     tensor_core_plan,
+    tma_plan,
     vortex_gemm,
     vortex_gemm_plain,
 )
@@ -183,6 +185,63 @@ def test_kernel_path_is_fixed_by_backend_and_dtype():
 ])
 def test_tensor_core_plan_of_served_and_extreme_tiles(tile, plan):
     assert tuple(tensor_core_plan(*tile)) == plan
+
+
+@pytest.mark.parametrize("tile,plan", [
+    # The grouped GEMM's tiles (kernels/grouped_gemm.py plans its launches
+    # with tensor_core_plan too): the dense kernel's ring rule leaves them be.
+    ((64, 8, 64), (1, 1, 8, 1, 2, 18432)),
+    ((64, 16, 64), (1, 1, 16, 1, 2, 20480)),
+    ((64, 16, 256), (1, 1, 16, 1, 2, 81920)),
+    ((64, 128, 256), (1, 2, 64, 1, 2, 196608)),
+    ((64, 32, 32), (1, 1, 32, 1, 3, 18432)),
+    ((64, 8, 16), (1, 1, 8, 1, 2, 4608)),
+])
+def test_tensor_core_plan_of_the_grouped_gemms_tiles(tile, plan):
+    assert tuple(tensor_core_plan(*tile)) == plan
+
+
+# (tile, N, K, aligned, multicast) -> (stages, cluster, box_m, smem_bytes),
+# or None for the cp.async kernel.
+TMA_PLANS = {
+    # The stream's tile: 68 KiB stages, three fit; 96, 32 and 256 N tiles
+    # pair up, so A is multicast over 2 CTAs in two boxes of 256 rows.
+    "stream_3072": (((512, 32, 64), 3072, 3072, True, True), (3, 2, 256, 209968)),
+    "stream_1024": (((512, 32, 64), 1024, 3072, True, True), (3, 2, 256, 209968)),
+    "stream_down": (((512, 32, 64), 3072, 8192, True, True), (3, 2, 256, 209968)),
+    "conv2_x": (((512, 32, 64), 64, 576, True, True), (3, 2, 256, 209968)),
+    # Three N tiles: no pair, one CTA a cluster, A in boxes of 256 rows.
+    "odd_y": (((512, 32, 64), 96, 256, True, True), (3, 1, 256, 209968)),
+    "no_multicast": (((512, 32, 64), 3072, 3072, True, False),
+                     (3, 1, 256, 209968)),
+    # Not tall (block_m < 4 block_n): no cluster; a deep ring of small stages.
+    "square": (((128, 128, 64), 3072, 3072, True, True), (7, 1, 128, 230512)),
+    "small": (((64, 32, 128), 3072, 3072, True, True), (9, 1, 64, 222352)),
+    # block_k = 128: two 64-column A boxes a k-step; 256 rows in 2 boxes.
+    "bk128": (((256, 32, 128), 1024, 360, True, True), (3, 2, 128, 222256)),
+    "bk256": (((128, 64, 256), 8192, 3072, True, True), (2, 1, 128, 197664)),
+    "bk16": (((64, 512, 16), 1024, 64, True, True), (12, 1, 64, 222400)),
+    # An 8-column B box: 16-byte rows, unswizzled; tall, so multicast.
+    "bn8": (((64, 8, 64), 1024, 3072, True, True), (25, 2, 32, 231824)),
+    "bn8_stream": (((64, 8, 128), 1024, 3072, True, True), (12, 2, 32, 222400)),
+    # What TMA cannot address: a row of 70 or 50 bf16, a pointer off 16
+    # bytes, a 48-column A box (96-byte rows fit no swizzle).
+    "k_unaligned": (((512, 32, 64), 3072, 3070, True, True), None),
+    "n_unaligned": (((64, 64, 32), 50, 80, True, True), None),
+    "pointer": (((512, 32, 64), 3072, 3072, False, True), None),
+    "bk48": (((64, 64, 48), 1024, 3072, True, True), None),
+}
+
+
+@pytest.mark.parametrize("name", list(TMA_PLANS))
+def test_tma_plan_of_aligned_unaligned_and_odd_inputs(name):
+    (tile, N, K, aligned, multicast), want = TMA_PLANS[name]
+    tensor_core_plan(*tile)  # every case is a tile the wgmma path holds
+    got = tma_plan(*tile, N, K, aligned=aligned, multicast=multicast)
+    assert (None if got is None else tuple(got)) == want
+    if got is not None:
+        assert got.smem_bytes <= 232448
+        assert tile[0] % got.box_m == 0 and got.box_m <= 256
 
 
 def test_tensor_core_plan_refuses_what_the_kernel_cannot_hold():
@@ -474,6 +533,25 @@ TC_GEMM_CASES = [
     (33, 50, 70, 33, 64, 8, 16),
     (130, 1024, 64, 129, 64, 512, 16),
     (700, 64, 576, 650, 512, 32, 64),
+    # The stream's tile at its shapes (an even grid y: A multicast).
+    (1020, 3072, 3072, 1017, 512, 32, 64),
+    (700, 3072, 8192, 650, 512, 32, 64),
+    # An odd grid y (3 N tiles): TMA without a cluster.
+    (600, 96, 256, 555, 512, 32, 64),
+    # block_k = 128: two A boxes along K, a K tail inside the second.
+    (300, 1024, 360, 290, 256, 32, 128),
+    # K = 3070: rows off 16 bytes, the cp.async kernel.
+    (520, 64, 3070, 515, 512, 32, 64),
+    # No live row: zeros, with no map of A.
+    (256, 64, 128, 0, 128, 16, 64),
+    # An 8-column tile, B unswizzled, as the stream's small-M calls run it.
+    (96, 1024, 3072, 90, 64, 8, 128),
+]
+# Which tensor-core kernel each case takes: (TMA, multicast).
+TC_GEMM_PATHS = [
+    (True, False), (False, False), (True, False), (True, True),
+    (True, True), (True, True), (True, False), (True, True), (False, False),
+    (True, True), (True, True),
 ]
 TC_GROUPED_CASES = {
     "tc_r2_tails": (4, 2, 17, 70, 50, [17, 0, 5, 16], 64, 8, 16),
@@ -679,6 +757,40 @@ def test_cuda_kernels_match_plain_on_card():
             )
             _close(out.cpu(), ref.float().cpu().numpy(), 4 * tol, name)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,path", list(zip(TC_GEMM_CASES, TC_GEMM_PATHS)),
+                         ids=[str(c) for c in TC_GEMM_CASES])
+def test_cuda_tc_gemm_takes_its_path_on_card(case, path):
+    """bf16 at a tensor_core tile: NaN in the pad rows, exact zeros past
+    m_true, the plain version's values, and the TMA or cp.async kernel
+    (and the multicast) that the operands and the tile call for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    M, N, K, m_true, bm, bn, bk = case
+    rng = np.random.default_rng(M + K)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    a[m_true:] = float("nan")
+    before = dict(GEMM_LAUNCHES)
+    out = vortex_gemm(a, b, m_true, block_m=bm, block_n=bn, block_k=bk,
+                      backend="tensor_core")
+    torch.cuda.synchronize()
+    moved = {k: GEMM_LAUNCHES[k] - before[k] for k in GEMM_LAUNCHES}
+    tma, multicast = path
+    assert moved == {
+        "vortex_gemm": 1, "vortex_gemm.tensor_core": 1,
+        "vortex_gemm.cuda_core": 0, "vortex_gemm.tensor_core.tma": int(tma),
+        "vortex_gemm.tensor_core.cp_async": int(not tma),
+        "vortex_gemm.tensor_core.multicast": int(multicast),
+    }
+    assert (out[m_true:] == 0).all()
+    ref = vortex_gemm_plain(a, b, m_true)
+    _close(out.cpu(), ref.float().cpu().numpy(), 2.0 ** -7, str(case))
 
 
 @pytest.mark.cuda
